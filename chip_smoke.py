@@ -8,32 +8,50 @@ Phases, one JSON line each:
 1. ``card``: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions.
 2. ``build``: the hand-written kernels built from ``src/repro_torch/
-   kernels/csrc`` with nvcc for sm_90a, all at once, with seconds and the
-   compiler's register / shared-memory report.
+   kernels/csrc`` with nvcc for sm_90a, one process per source, all at
+   once, with seconds and the compiler's register / shared-memory report.
 3. ``check``: each kernel's wrapper on tensors on the card against its plain
-   PyTorch version on the same inputs (stated tolerance; the digest
-   bit-exact), at smollm-360m's attention shapes and at the shapes the
-   serving path gives it.  Times are device times per call (a CUDA graph of
-   repeated calls, replayed between CUDA events) of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (``scaled_dot_product_attention``, a yardstick the port never
-   calls); ``call_ms`` is the kernel's time per eager call, host included.
-4. ``serve``: the main path — ``Server(get_config("smollm-360m"),
+   PyTorch version on the same inputs (stated tolerance; the digest and the
+   int8 codes, scales and dequantized values bit-exact), at the shapes the
+   serving paths give it and at a few others.  Times are device times per
+   call (a CUDA graph of repeated calls, replayed between CUDA events) of
+   the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call (``scaled_dot_product_attention``, a yardstick
+   the port never calls); ``call_ms`` is the kernel's time per eager call,
+   host included.
+4. ``serve`` (smollm-360m): ``Server(get_config("smollm-360m"),
    device="cuda")`` (full width, 32 layers, random weights from a seed)
    serves 4 x 128-token prompts for 32 tokens through the mover, and the
    prefill's KV cache is staged to host memory by a ``bulk_transfer``
-   planned with ``checksum_placement="accel"``.  The launch counts are set
-   to 0 just before and read just after; every kernel must have run.
-   Prefill ms, decode ms/token (eager, and as device time from a CUDA
-   graph), tok/s, peak memory, and a profiler trace of one prefill and
-   one decode step (device busy time, idle share, top kernels).
-5. ``correct``: the kernel path's full-width prefill logits and 4
+   planned with ``checksum_placement="accel"``.  Prefill ms, decode
+   ms/token (eager, and as device time from a CUDA graph), tok/s, peak
+   memory, and a profiler trace of one prefill and one decode step (device
+   busy time, idle share, top kernels).
+5. ``correct`` (smollm-360m): the kernel path's prefill logits and 4
    teacher-forced decode steps against the plain path (``impl="ref"``) on
-   the same weights; the served tokens against the kernel path's own
-   greedy choices at those 5 steps, exactly; the transfer's hexdigest against the plain digest of
-   the bytes that arrived on the host, and those bytes against the cache.
+   the same weights; the served tokens against the kernel path's own greedy
+   choices at those 5 steps, exactly; the transfer's hexdigest against the
+   plain digest of the bytes that arrived on the host, and those bytes
+   against the cache.
+6. ``serve`` (mamba2-1.3b): the same at full width (48 layers, d_model
+   2048, nothing cut) for 4 x 512-token prompts (two SSD chunks, so the
+   state carries across chunks): the prefill runs the SSD-scan kernel once
+   per layer, decode the plain recurrent step.
+7. ``stage_state``: the prefill's SSM state (48 items of 8 MiB f32) moves
+   to host memory by a ``bulk_transfer`` with
+   ``transforms=[("compress", compress_transform())]`` on the card and an
+   accel checksum, as int8 codes and scales; ``restore``: the host items
+   go back onto the card through ``decompress_transform``.
+8. ``correct`` (mamba2-1.3b): kernel path against plain path as in 5; the
+   codes and scales on the host against the plain quantizer's of the same
+   state, bit for bit; the transfer's hexdigest against the plain digest
+   of the delivered items; 4 teacher-forced decode steps from the restored
+   state against the same from the original state.
 
-Then the kernels line, the card line as ``nvidia-smi`` prints it, and last
+The launch counts are set to 0 just before each path (the two ``serve``
+phases, ``stage_state``, ``restore``) and read just after; every kernel a
+path runs must have run there.  Then the kernels line (launches summed
+over the paths), the card line as ``nvidia-smi`` prints it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 result lines; without a card, or without the repository's ``src/`` beside
 this file, it exits 2 and prints no result.
@@ -60,12 +78,30 @@ PEAK_BYTES = 3.35e12
 
 SEED = 0
 BATCH, PROMPT, GEN = 4, 128, 32
+#: mamba2-1.3b prompt: two 256-step SSD chunks
+MAMBA_PROMPT = 512
 
 # kernel against plain version on the card, both rounding an f32 result to
 # the output dtype once: f32 sums in another order, bf16 about one ulp of
 # the output (2^-8..2^-7 relative) plus a floor for values near zero
 TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
        "bfloat16": dict(atol=1e-3, rtol=8e-3)}
+# SSD scan against its plain version, atol as a share of the output's
+# largest magnitude: y (bf16) one bf16 ulp (rtol 8e-3) over f32 sums and an
+# f32 prefix sum taken in another order; the final state (f32) rtol 1e-3,
+# since the prefix sums' rounding moves exp(cum_i - cum_j) by up to about
+# 1e-4 relative where |cum| reaches about 1e3
+SSD_TOL = {"y": dict(atol_share=1e-3, rtol=8e-3),
+           "state": dict(atol_share=1e-4, rtol=1e-3)}
+# smollm-360m's served logits, kernel path against plain path, as a share
+# of the plain path's logit scale
+LOGIT_SHARE = 0.05
+# mamba2-1.3b's served logits (48 layers) are held to the noise of bf16
+# itself: the kernel path may differ from the plain path, and decoding from
+# the restored int8 state from decoding from the original state, by at most
+# this many times what the plain path's own bf16 rounding moves them (the
+# plain path against the same path with f32 weights and activations)
+NOISE_FACTOR = 2.0
 
 
 def emit(phase: str, **kw) -> dict:
@@ -291,6 +327,109 @@ def check_digest(torch, nb):
                 bound_by=by)
 
 
+def _ssd_inputs(torch, B, H, G, S, P=64, N=128, seed=0):
+    """The SSD scan's inputs as the model makes them: bf16 x/B/C, dt the
+    softplus of a raw projection plus a bias (0.001..0.3), A = -(1..16)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, H, S, P, generator=g, device="cuda").to(torch.bfloat16)
+    raw = torch.randn(B, H, S, generator=g, device="cuda") * 0.5
+    bias = torch.linspace(-7.0, -1.5, H, device="cuda")[None, :, None]
+    dt = torch.nn.functional.softplus(raw + bias)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = torch.randn(B, G, S, N, generator=g, device="cuda").to(
+        torch.bfloat16)
+    Cm = torch.randn(B, G, S, N, generator=g, device="cuda").to(
+        torch.bfloat16)
+    return x, dt, A, Bm, Cm
+
+
+def _within(torch, got, want, atol_share, rtol) -> tuple[float, bool]:
+    """Max abs error, and whether ``got`` is within ``atol_share`` of
+    ``want``'s largest magnitude plus ``rtol`` relative."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    atol = atol_share * want.abs().max().item()
+    ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol)
+              and torch.isfinite(got).all())
+    return err, ok
+
+
+def check_ssd(torch, B, H, G, S, chunk=256):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bhsd
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, B, H, G, S, seed=S + G)
+    P, N = x.shape[3], Bm.shape[3]
+    y, state = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=chunk)
+    ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    y_err, y_ok = _within(torch, y, ry, **SSD_TOL["y"])
+    s_err, s_ok = _within(torch, state, rstate, **SSD_TOL["state"])
+    kernel = lambda: ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=chunk)
+    ms, per_call = device_ms(kernel, iters=10), call_ms(kernel, iters=10)
+    plain_ms = device_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm,
+                                                  chunk=chunk), iters=3)
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
+              + 2 * Bm.numel() * 2 + state.numel() * 4)
+    # per (b, h, chunk) what the causal form needs: C.B^T and W.x over the
+    # Q(Q+1)/2 pairs j <= i, C.state and the state update over Q x P x N
+    pairs = chunk * (chunk + 1) // 2
+    per = 2 * pairs * N + 2 * pairs * P + 4 * chunk * P * N
+    ops = float(per) * B * H * (S // chunk)
+    bms, by = bound_ms(nbytes, ops, PEAK_BF16)
+    return emit("check", kernel="ssd_scan",
+                shape=dict(B=B, H=H, G=G, S=S, P=P, N=N, chunk=chunk),
+                dtype="bfloat16", max_abs_err=y_err, state_max_abs_err=s_err,
+                tol=SSD_TOL, ok=y_ok and s_ok, ms=ms, call_ms=per_call,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                bound_by=by, gflop=ops / 1e9, mbytes=nbytes / 1e6)
+
+
+def _quant_values(torch, n, seed):
+    """Values over six decades of magnitude, both signs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mag = torch.rand(n, generator=g, device="cuda") * 6 - 3
+    return torch.randn(n, generator=g, device="cuda") * 10.0 ** mag
+
+
+def _bits_differ(torch, a, b) -> int:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum().item())
+
+
+def check_quantize(torch, n):
+    """Both quantize kernels against the plain versions, bit for bit;
+    returns the quantize and the dequantize record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+    x = _quant_values(torch, n, n)
+    q, s = quantize_int8(x)
+    rq, rs = ref.quantize_int8_ref(x)
+    back = dequantize_int8(q, s, (n,))
+    rback = ref.dequantize_int8_ref(rq, rs, (n,))
+    torch.cuda.synchronize()
+    qbad = _bits_differ(torch, q, rq) + _bits_differ(torch, s, rs)
+    dbad = _bits_differ(torch, back, rback)
+    nb = q.shape[0]
+    recs = []
+    for name, bad, kernel, plain, ops in (
+            ("quantize_int8", qbad, lambda: quantize_int8(x),
+             lambda: ref.quantize_int8_ref(x), 5.0 * n),
+            ("dequantize_int8", dbad, lambda: dequantize_int8(q, s, (n,)),
+             lambda: ref.dequantize_int8_ref(q, s, (n,)), 1.0 * n)):
+        nbytes = n * 4 + nb * 256 + nb * 4
+        # a few f32 operations per value (abs, max, divide, round, clamp;
+        # one multiply back), at the f32 rate outside the tensor cores
+        bms, by = bound_ms(nbytes, ops, PEAK_F32)
+        recs.append(emit(
+            "check", kernel=name, values=n, blocks=nb, mismatches=bad,
+            max_abs_err=float(bad), tol="bit-exact", ok=bad == 0,
+            ms=device_ms(kernel), call_ms=call_ms(kernel),
+            plain_ms=device_ms(plain, iters=5), library_ms=None,
+            bound_ms=bms, bound_by=by))
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the serving path at full width, and its correctness
 # ---------------------------------------------------------------------------
@@ -325,50 +464,165 @@ def serve_and_stage(torch, server, batch):
     return tokens, gen_s, items, received, report, stage_s
 
 
-def check_correct(torch, server, batch, tokens, items, received, report):
-    from repro_torch.core.integrity import StreamDigest
+def _teacher_forced(torch, api, params, ctx, tok, forced, max_len):
+    """Prefill logits and 4 decode steps teacher-forced with ``forced``."""
+    logits, cache = api.prefill(params, {"tokens": tok}, ctx, max_len)
+    out = [logits.float()]
+    for t in range(4):
+        logits, cache = api.decode_step(params, cache, forced[:, t:t + 1],
+                                        ctx)
+        out.append(logits.float())
+    return out
+
+
+def _max_err(a, b) -> list[float]:
+    return [(x - y).abs().max().item() for x, y in zip(a, b)]
+
+
+def check_logits(torch, server, batch, tokens, *, noise_floor=False) -> dict:
+    """The kernel path's prefill logits and 4 decode steps, teacher-forced
+    with the served tokens, against the plain path (``impl="ref"``) on the
+    same weights; and the served tokens against the kernel path's own
+    greedy choices at those 5 steps.  With ``noise_floor``, also the plain
+    path with f32 weights and activations, whose distance from the plain
+    path is what bf16 rounding alone moves the logits."""
+    import copy
     from repro_torch.models.blocks import ShardCtx
     api, params = server.api, server.params
     tok = torch.as_tensor(batch["tokens"], device="cuda")
+    forced = torch.as_tensor(tokens, device="cuda")
     ref_ctx = ShardCtx(impl="ref")
-    lk, ck = api.prefill(params, {"tokens": tok}, server.ctx, server.max_len)
-    lr, cr = api.prefill(params, {"tokens": tok}, ref_ctx, server.max_len)
-    scale = lr.float().abs().max().item()
-    errs = [(lk.float() - lr.float()).abs().max().item()]
+    run = lambda p, ctx: _teacher_forced(torch, api, p, ctx, tok, forced,
+                                         server.max_len)
+    kern, plain = run(params, server.ctx), run(params, ref_ctx)
+    errs = _max_err(kern, plain)
+    scale = max(x.abs().max().item() for x in plain)
     # generate's tokens must be the kernel path's own greedy choices: the
     # same deterministic path, so argmax agrees exactly at every step
-    greedy = [torch.argmax(lk[:, -1], dim=-1)]
-    forced = torch.as_tensor(tokens, device="cuda")
-    for t in range(4):       # teacher-forced with the kernel path's tokens
-        step = forced[:, t:t + 1]
-        lk, ck = api.decode_step(params, ck, step, server.ctx)
-        lr, cr = api.decode_step(params, cr, step, ref_ctx)
-        errs.append((lk.float() - lr.float()).abs().max().item())
-        scale = max(scale, lr.float().abs().max().item())
-        greedy.append(torch.argmax(lk[:, -1], dim=-1))
-    greedy = torch.stack(greedy, dim=1).cpu().numpy()
+    greedy = torch.stack([torch.argmax(x[:, -1], dim=-1) for x in kern],
+                         dim=1).cpu().numpy()
     greedy_ok = bool((greedy == tokens[:, :greedy.shape[1]]).all())
-    # bf16 activations through 32 layers: the two paths round attention
-    # probabilities at different places, so logits agree to a few bf16 ulps
-    # of their scale, not bit for bit
-    tol = 0.05 * scale
-    logits_ok = max(errs) <= tol and bool(torch.isfinite(lk).all())
+    finite = all(bool(torch.isfinite(x).all()) for x in kern)
+    shape_ok = (tokens.shape == (BATCH, GEN) and tokens.dtype.kind == "i"
+                and int(tokens.min()) >= 0
+                and int(tokens.max()) < server.cfg.vocab)
+    out = dict(logits_max_abs_err=errs, logits_scale=scale,
+               tokens_shape=list(tokens.shape), tokens_ok=shape_ok,
+               greedy_steps=int(greedy.shape[1]), greedy_ok=greedy_ok)
+    if not noise_floor:
+        # bf16 activations through the whole stack: the two paths round
+        # attention probabilities at different places, so logits agree to
+        # a few bf16 ulps of their scale, not bit for bit
+        tol = LOGIT_SHARE * scale
+    else:
+        p32 = copy.deepcopy(params).float()
+        noise = _max_err(plain, run(p32, ref_ctx))
+        del p32
+        tol = NOISE_FACTOR * max(noise)
+        out.update(bf16_noise_max_abs_err=noise)
+    out.update(logits_tol=tol, logits_ok=max(errs) <= tol and finite)
+    return out
+
+
+def check_correct(torch, server, batch, tokens, items, received, report):
+    from repro_torch.core.integrity import StreamDigest
+    fields = check_logits(torch, server, batch, tokens)
     plain = StreamDigest(True, "accel", backend="ref", device="cpu")
     plain.add_many(received)
     bytes_ok = (len(received) == len(items)
                 and sorted(_sha(t) for t in received)
                 == sorted(_sha(t.cpu()) for t in items))
-    shape_ok = (tokens.shape == (BATCH, GEN) and tokens.dtype.kind == "i"
-                and int(tokens.min()) >= 0
-                and int(tokens.max()) < server.cfg.vocab)
-    return emit("correct", logits_max_abs_err=errs, logits_scale=scale,
-                logits_tol=tol, logits_ok=logits_ok,
-                tokens_shape=list(tokens.shape), tokens_ok=shape_ok,
-                greedy_steps=int(greedy.shape[1]), greedy_ok=greedy_ok,
+    return emit("correct", arch=server.cfg.name, **fields,
                 accel_hexdigest=report.checksum,
                 plain_hexdigest=plain.hexdigest(),
                 digest_ok=report.checksum == plain.hexdigest(),
                 bytes_ok=bytes_ok)
+
+
+def stage_state(torch, server, batch):
+    """The SSM path's staging: a prefill, then its recurrent state (one
+    item per layer) to host memory over the int8 wire, quantized on the
+    card and digested there.  The plan is ordered, so layer i arrives i-th
+    (a restored state must not permute its layers)."""
+    from repro_torch.core.basin import checkpoint_basin
+    from repro_torch.core.integrity import compress_transform
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    from repro_torch.core.planner import plan_transfer
+
+    _, cache = server.prefill(batch)
+    ssm = cache["mamba"].ssm
+    items = [ssm[i] for i in range(ssm.shape[0])]
+    plan = plan_transfer(checkpoint_basin(), item_bytes=items[0].nbytes,
+                         stages=("state-stage",), checksum=True,
+                         checksum_placement="accel", ordered=True)
+    mover = UnifiedDataMover(MoverConfig(checksum=True), plan=plan)
+    received = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    report = mover.bulk_transfer(
+        iter(items), lambda t: received.append((t[0].cpu(), t[1].cpu(),
+                                                t[2])),
+        plan=plan, transforms=[("compress", compress_transform())])
+    stage_s = time.monotonic() - t0
+    return cache, items, received, report, stage_s
+
+
+def check_mamba_correct(torch, server, batch, tokens, cache, items, received,
+                        report, restored):
+    """The SSM path's output: logits as in :func:`check_logits`; the codes
+    that reached the host against the plain quantizer's, bit for bit; the
+    transfer's digest against the plain digest of the delivered items; the
+    restored state within half a quantization step of the original, and 4
+    teacher-forced decode steps from it within a share of the logit scale
+    of the same steps from the original state."""
+    from repro_torch.core.integrity import StreamDigest
+    from repro_torch.kernels import ref
+    from repro_torch.models.ssm import MambaState
+    fields = check_logits(torch, server, batch, tokens, noise_floor=True)
+    code_bad = step_bad = 0
+    for x, back, (q, s, shape) in zip(items, restored, received):
+        rq, rs = ref.quantize_int8_ref(x)
+        code_bad += _bits_differ(torch, q, rq.cpu())
+        code_bad += _bits_differ(torch, s, rs.cpu())
+        code_bad += int(tuple(shape) != tuple(x.shape))
+        # |restored - original| <= scale / 2, block by block, plus the f32
+        # rounding of x / scale and of q * scale: (|x| + |q s|) * 2^-24
+        x, back = x.reshape(-1), back.reshape(-1)
+        bound = (rs.repeat_interleave(256)[:x.numel()] * 0.5
+                 + (x.abs() + back.abs()) * 2.0 ** -24)
+        step_bad += int(((back - x).abs() > bound).sum().item())
+    plain = StreamDigest(True, "accel", backend="ref", device="cpu")
+    plain.add_many(received)
+    code_bytes = sum(q.nbytes for q, _, _ in received)
+    scale_bytes = sum(s.nbytes for _, s, _ in received)
+    mamba = cache["mamba"]
+    orig = {"pos": cache["pos"], "mamba": MambaState(mamba.conv.clone(),
+                                                     mamba.ssm.clone())}
+    back = {"pos": cache["pos"], "mamba": MambaState(mamba.conv.clone(),
+                                                     restored)}
+    forced = torch.as_tensor(tokens, device="cuda")
+    errs, scale = [], 0.0
+    for t in range(4):
+        step = forced[:, t:t + 1]
+        la, orig = server.decode(orig, step)
+        lb, back = server.decode(back, step)
+        errs.append((la.float() - lb.float()).abs().max().item())
+        scale = max(scale, la.float().abs().max().item())
+    # the int8 error of each state element is at most half its block's
+    # step (max|block| / 254, checked above), about the relative size of a
+    # bf16 rounding: held to the same noise floor as the kernel path
+    tol = fields["logits_tol"]
+    return emit(
+        "correct", arch=server.cfg.name, **fields,
+        state_items=len(received), code_bytes=code_bytes,
+        scale_bytes=scale_bytes, codes_mismatched=code_bad,
+        codes_ok=code_bad == 0 and len(received) == len(items),
+        restore_over_half_step=step_bad, restore_ok=step_bad == 0,
+        accel_hexdigest=report.checksum, plain_hexdigest=plain.hexdigest(),
+        digest_ok=report.checksum == plain.hexdigest(),
+        restored_logits_max_abs_err=errs, restored_logits_scale=scale,
+        restored_logits_tol=tol,
+        restored_ok=max(errs) <= tol and bool(torch.isfinite(lb).all()))
 
 
 def _sha(t) -> str:
@@ -412,12 +666,14 @@ def main() -> int:
     t0 = time.monotonic()
     took = build.build_all()
     records.append(emit(
-        "build", seconds=time.monotonic() - t0, per_kernel_s=took,
+        "build", seconds=time.monotonic() - t0, per_source_s=took,
         ptxas={n: [ln.strip() for ln in build.build_log(n).splitlines()
                    if "registers" in ln or "spill" in ln]
                for n in build.KERNELS}))
 
+    t_phase = time.monotonic()
     cfg = get_config("smollm-360m")
+    mcfg = get_config("mamba2-1.3b")
     G = dict(B=BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
     max_len = PROMPT + GEN + 1
     checks = []
@@ -430,7 +686,14 @@ def main() -> int:
             checks.append(check_decode(torch, S=1024, dtype=dtype, fill=700,
                                        window=window, ring=ring, **G))
     checks.append(check_digest(torch, nb=65536))          # 64 MiB
-    # the shapes the serving path gives each kernel
+    # SSD over 4 chunks; quantize at a length that needs padding
+    checks.append(check_ssd(torch, BATCH, mcfg.ssm_heads, 1, 1024))
+    checks += check_quantize(torch, 1_000_003)
+    # the shapes the serving paths give each kernel: one layer's SSD scan
+    # and one layer's state (4 x 64 x 64 x 128 f32) on the int8 wire
+    state_values = BATCH * mcfg.ssm_heads * mcfg.ssm.head_dim * \
+        mcfg.ssm.d_state
+    quant, dequant = check_quantize(torch, state_values)
     main_shapes = {
         "flash_attention": check_flash(torch, S=PROMPT, dtype=torch.bfloat16,
                                        window=0, **G),
@@ -440,35 +703,30 @@ def main() -> int:
                                          ring=False, **G),
         "block_digest": check_digest(
             torch, nb=-(-BATCH * max_len * cfg.kv_dim * 2 // 1024)),
+        "ssd_scan": check_ssd(torch, BATCH, mcfg.ssm_heads,
+                              mcfg.ssm.n_groups, MAMBA_PROMPT,
+                              chunk=mcfg.ssm.chunk),
+        "quantize_int8": quant,
+        "dequantize_int8": dequant,
     }
     checks += list(main_shapes.values())
     records += checks
+    records.append(emit("phase_time", of="check",
+                        seconds=time.monotonic() - t_phase))
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel check(s) disagree with the plain version: "
              f"{json.dumps(bad)}")
 
+    # ---- smollm-360m: serve, stage the KV cache -------------------------
+    t_phase = time.monotonic()
     server = Server(cfg, device="cuda", max_len=max_len)
     server.load(SEED)
     rng = torch.Generator().manual_seed(SEED)
     batch = {"tokens": torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                                      generator=rng,
                                      dtype=torch.int32).numpy()}
-    server.generate(batch, 4)                              # warm-up request
-    prefill_ms = call_ms(lambda: server.prefill(batch), iters=5, warmup=1)
-    _, cache = server.prefill(batch)
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
-
-    def one_step():
-        cache["pos"] = PROMPT
-        server.decode(cache, tok)
-    decode_ms = call_ms(one_step, iters=10, warmup=2)
-    # the same step with the host's launch cost removed (CUDA graph replay):
-    # what the card itself spends per token
-    decode_device_ms = device_ms(one_step, iters=5)
-    trace = {"prefill": device_busy(lambda: server.prefill(batch)),
-             "decode_step": device_busy(one_step)}
-    del cache
+    timing = serve_timing(torch, server, batch, PROMPT)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -476,20 +734,17 @@ def main() -> int:
     tokens, gen_s, items, received, report, stage_s = serve_and_stage(
         torch, server, batch)
     torch.cuda.synchronize()
-    launches = build.launch_counts()
+    paths = {"smollm_serve": build.launch_counts()}
     records.append(emit(
         "serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        batch=BATCH, prompt=PROMPT, gen=GEN, prefill_ms=prefill_ms,
-        decode_ms_per_token=decode_ms,
-        decode_device_ms_per_token=decode_device_ms, generate_s=gen_s,
+        batch=BATCH, prompt=PROMPT, gen=GEN, **timing, generate_s=gen_s,
         tok_per_s=BATCH * GEN / gen_s,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         kv_items=len(items), kv_bytes=sum(t.nbytes for t in items),
         kv_stage_s=stage_s, kv_stage_gbps=report.throughput_bytes_per_s
-        * 8 / 1e9, launches=launches, trace=trace))
-    idle = [n for n, c in launches.items() if c == 0]
-    if idle:
-        fail(f"the serving path never launched {idle}")
+        * 8 / 1e9, launches=paths["smollm_serve"]))
+    need(paths, "smollm_serve",
+         ("flash_attention", "decode_attention", "block_digest"))
 
     correct = check_correct(torch, server, batch, tokens, items, received,
                             report)
@@ -497,13 +752,86 @@ def main() -> int:
     if not all(correct[k] for k in ("logits_ok", "tokens_ok", "greedy_ok",
                                      "digest_ok", "bytes_ok")):
         fail(f"the serving path's output is wrong: {json.dumps(correct)}")
+    records.append(emit("phase_time", of="smollm",
+                        seconds=time.monotonic() - t_phase))
+    del server, items, received
+
+    # ---- mamba2-1.3b: serve, stage the state over the int8 wire ---------
+    t_phase = time.monotonic()
+    mserver = Server(mcfg, device="cuda", max_len=MAMBA_PROMPT + GEN + 1)
+    mserver.load(SEED)
+    mbatch = {"tokens": torch.randint(0, mcfg.vocab, (BATCH, MAMBA_PROMPT),
+                                      generator=rng,
+                                      dtype=torch.int32).numpy()}
+    mtiming = serve_timing(torch, mserver, mbatch, MAMBA_PROMPT)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.monotonic()
+    mtokens = mserver.generate(mbatch, GEN)
+    torch.cuda.synchronize()
+    mgen_s = time.monotonic() - t0
+    paths["mamba_serve"] = build.launch_counts()
+    records.append(emit(
+        "serve", arch=mcfg.name, layers=mcfg.n_layers, d_model=mcfg.d_model,
+        params=sum(p.numel() for p in mserver.params.parameters()),
+        batch=BATCH, prompt=MAMBA_PROMPT, gen=GEN, **mtiming,
+        generate_s=mgen_s, tok_per_s=BATCH * GEN / mgen_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=paths["mamba_serve"]))
+    need(paths, "mamba_serve", ("ssd_scan",))
+    if paths["mamba_serve"]["ssd_scan"] != mcfg.n_layers:
+        fail(f"one prefill launched the SSD kernel "
+             f"{paths['mamba_serve']['ssd_scan']} times, not once per layer")
+
+    build.reset_launches()
+    cache, sitems, sreceived, sreport, sstage_s = stage_state(
+        torch, mserver, mbatch)
+    torch.cuda.synchronize()
+    paths["stage_state"] = build.launch_counts()
+    state_bytes = sum(t.nbytes for t in sitems)
+    records.append(emit(
+        "stage_state", arch=mcfg.name, items=len(sitems),
+        item_bytes=sitems[0].nbytes, state_bytes=state_bytes,
+        wire_bytes=sreport.bytes, ratio=state_bytes / sreport.bytes,
+        stage_s=sstage_s, state_gbps=state_bytes * 8 / sstage_s / 1e9,
+        launches=paths["stage_state"]))
+    need(paths, "stage_state", ("ssd_scan", "quantize_int8", "block_digest"))
+
+    from repro_torch.core.integrity import decompress_transform
+    build.reset_launches()
+    t0 = time.monotonic()
+    restored = torch.stack(
+        decompress_transform(device="cuda").many(sreceived))
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    paths["restore"] = build.launch_counts()
+    records.append(emit("restore", arch=mcfg.name, items=len(sreceived),
+                        seconds=restore_s,
+                        state_gbps=state_bytes * 8 / restore_s / 1e9,
+                        launches=paths["restore"]))
+    need(paths, "restore", ("dequantize_int8",))
+
+    mcorrect = check_mamba_correct(torch, mserver, mbatch, mtokens, cache,
+                                   sitems, sreceived, sreport, restored)
+    records.append(mcorrect)
+    if not all(mcorrect[k] for k in (
+            "logits_ok", "tokens_ok", "greedy_ok", "codes_ok", "restore_ok",
+            "digest_ok", "restored_ok")):
+        fail(f"the SSM path's output is wrong: {json.dumps(mcorrect)}")
+    records.append(emit("phase_time", of="mamba",
+                        seconds=time.monotonic() - t_phase))
 
     kernels = []
     for name, rec in main_shapes.items():
         k = build.KERNELS[name]
+        launches = sum(c[name] for c in paths.values())
+        if launches == 0:
+            fail(f"no path launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -511,13 +839,42 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"records": records, "kernels": kernels}, f, indent=1)
+            json.dump({"records": records, "kernels": kernels,
+                       "paths": paths}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_timing(torch, server, batch, prompt) -> dict:
+    """A warm-up request, then prefill ms (eager), decode ms/token (eager,
+    and as device time from a CUDA graph replay of the same step: what the
+    card itself spends per token) and a profiler trace of one prefill and
+    one decode step."""
+    server.generate(batch, 4)                              # warm-up request
+    prefill_ms = call_ms(lambda: server.prefill(batch), iters=5, warmup=1)
+    _, cache = server.prefill(batch)
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+
+    def one_step():
+        cache["pos"] = prompt
+        server.decode(cache, tok)
+    decode_ms = call_ms(one_step, iters=10, warmup=2)
+    decode_device_ms = device_ms(one_step, iters=5)
+    trace = {"prefill": device_busy(lambda: server.prefill(batch)),
+             "decode_step": device_busy(one_step)}
+    return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+                decode_device_ms_per_token=decode_device_ms, trace=trace)
+
+
+def need(paths: dict, path: str, names) -> None:
+    """Fail unless every kernel in ``names`` launched on ``path``."""
+    idle = [n for n in names if paths[path][n] == 0]
+    if idle:
+        fail(f"the {path} path never launched {idle}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-The dense decoders this package serves, each a copy of the JAX
-package's module of the same name (exact published dims).
+The architectures this package serves (the dense decoders and the
+Mamba2 SSM stack), each a copy of the JAX package's module of the same
+name (exact published dims).
 ``get_smoke_config`` returns the reduced same-family variant used by CPU
 smoke tests.
 """
@@ -16,6 +17,7 @@ from repro_torch.models.config import ModelConfig, smoke_variant
 _REGISTRY: dict[str, str] = {
     "smollm-360m": "smollm_360m",
     "repro-100m": "repro_100m",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 

@@ -15,8 +15,9 @@ the CPU's hash throughput.  This module is the placement seam:
   kernel on the card (its plain version when the digest is placed on the
   CPU); ``backend="ref"`` runs the plain version, when asked.  Both give
   the same hexdigest, equal to the JAX package's on the same bytes.  An item
-  that is already a tensor on the card is digested where it lies, with no
-  copy to the host.
+  that is already a tensor on the card, or a tuple or list holding tensors
+  there (a compressed item ``(q, scales, shape)``), is digested where it
+  lies, with no copy to the host.
 
 Both placements are order-independent (concurrent staging workers deliver
 out of order) and batch-aware: :meth:`StreamDigest.add_many` folds a whole
@@ -27,15 +28,22 @@ The two placements produce *different* checksum formats on purpose (64 hex
 chars vs ``u32:`` + 16): a host digest and an accel digest are not
 comparable, so equivalence gates always compare like with like.
 
-The wire-compression transforms of the JAX package's module wait for the
-port of the int8 quantize kernel (ROADMAP.md).
+Wire compression rides the same seam: :func:`compress_transform` /
+:func:`decompress_transform` wrap the blockwise-int8 kernels
+(:mod:`repro_torch.kernels.quantize`; oracle
+:mod:`repro_torch.optim.compression`) as batch-capable stage transforms for
+float-tensor item streams: about 4x fewer bytes on the wire for one pass
+on the card.  A compressed item is ``(q int8 (nb, 256), scales f32 (nb,),
+shape)``, as in the JAX package.  The compress transform is marked as a
+wire encoder, so a checksummed transfer digests what it puts on the wire
+(see :meth:`repro_torch.core.mover.UnifiedDataMover.bulk_transfer`).
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +76,27 @@ def _tensor_bytes(t: torch.Tensor) -> torch.Tensor:
     """A tensor's bytes in memory order (row-major, little-endian), as a
     flat uint8 tensor on the tensor's own device."""
     return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _holds_tensor(item: Any) -> bool:
+    return isinstance(item, (tuple, list)) and any(
+        isinstance(e, torch.Tensor) or _holds_tensor(e) for e in item)
+
+
+def _device_bytes(item: Any, dev: torch.device) -> torch.Tensor:
+    """The bytes :func:`as_bytes` gives ``item``, as a flat uint8 tensor
+    on ``dev``: tensors contribute their memory where it lies, tuples and
+    lists their parts in order, anything else (a shape tuple of ints) the
+    bytes ``as_bytes`` makes of it, copied to ``dev``."""
+    if isinstance(item, torch.Tensor):
+        return _tensor_bytes(item).to(dev)
+    if _holds_tensor(item):
+        parts = [_device_bytes(e, dev) for e in item]
+        return torch.cat(parts) if parts else torch.empty(
+            0, dtype=torch.uint8, device=dev)
+    data = as_bytes(item)
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev) \
+        if data else torch.empty(0, dtype=torch.uint8, device=dev)
 
 
 def _item_words(data: bytes):
@@ -148,10 +177,10 @@ class StreamDigest:
 
     def _fingerprint(self, item: Any) -> int:
         dev = self._digest_device()
-        if isinstance(item, torch.Tensor):
-            flat = _tensor_bytes(item)
+        if isinstance(item, torch.Tensor) or _holds_tensor(item):
+            flat = _device_bytes(item, dev)
             n = flat.numel()
-            panels, blocks = _tensor_panels(flat.to(dev))
+            panels, blocks = _tensor_panels(flat)
         else:
             data = as_bytes(item)
             n = len(data)
@@ -209,3 +238,55 @@ class StreamDigest:
         if self.placement == "host":
             return self._acc.to_bytes(32, "little").hex()
         return f"u32:{self._acc:016x}"
+
+
+# -- wire compression (float-tensor item streams) ----------------------------
+
+
+class _BatchTransform:
+    """A per-item callable carrying a ``.many`` slab hook; ``encodes_wire``
+    marks a transform whose output, not its input, is what the wire
+    carries (the mover digests after it)."""
+
+    def __init__(self, one: Callable[[Any], Any],
+                 many: Callable[[Sequence[Any]], Iterable[Any]], *,
+                 encodes_wire: bool = False):
+        self._one = one
+        self.many = many
+        self.encodes_wire = encodes_wire
+
+    def __call__(self, item: Any) -> Any:
+        return self._one(item)
+
+
+def compress_transform() -> _BatchTransform:
+    """Stage transform: float tensor item -> ``(q int8, scales, shape)``
+    through the blockwise-int8 quantize kernel (blocks of 256 values), on
+    the device the item lies on (its plain version on the CPU) — the
+    budgeted pass that puts about 4x fewer bytes on the wire (oracle:
+    :func:`repro_torch.optim.compression.quantize_int8_blockwise`)."""
+    from ..kernels import ops
+
+    def one(x):
+        q, s = ops.quantize(x)
+        return q, s, tuple(x.shape)
+
+    return _BatchTransform(one, lambda items: [one(x) for x in items],
+                           encodes_wire=True)
+
+
+def decompress_transform(*, device: Optional[torch.device | str] = None
+                         ) -> _BatchTransform:
+    """Inverse stage transform: ``(q, scales, shape)`` -> f32 tensor,
+    through the dequantize kernel.  With ``device``, the codes and scales
+    move there first (host items restored onto the card)."""
+    from ..kernels import ops
+    dev = torch.device(device) if device is not None else None
+
+    def one(t):
+        q, s, shape = t
+        if dev is not None:
+            q, s = q.to(dev), s.to(dev)
+        return ops.dequantize(q, s, shape)
+
+    return _BatchTransform(one, lambda items: [one(t) for t in items])

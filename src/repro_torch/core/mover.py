@@ -613,6 +613,13 @@ class UnifiedDataMover:
             at = len(all_transforms)
             if plan is not None and plan.checksum_index is not None:
                 at = min(plan.checksum_index, at)
+            # a wire encoder (the int8 compress transform) changes what the
+            # wire carries, and only its output can be verified where it
+            # arrives: the digest rides after the last one
+            wire = [i for i, (_, fn) in enumerate(all_transforms)
+                    if getattr(fn, "encodes_wire", False)]
+            if wire:
+                at = max(at, wire[-1] + 1)
             all_transforms.insert(at, ("checksum", digest))
 
         # online replanning needs a plan to revise; without one the
@@ -681,7 +688,13 @@ class UnifiedDataMover:
 
         ``batch_items`` overrides the slab size on every hop (1 forces
         the per-item path against a batched plan — the benchmark
-        baseline; None defers to the plan's per-hop ``batch_items``)."""
+        baseline; None defers to the plan's per-hop ``batch_items``).
+
+        With a wire encoder among ``transforms`` (one marked
+        ``encodes_wire``, such as
+        :func:`~repro_torch.core.integrity.compress_transform`), the
+        checksum rides after it: it covers the items the sink receives,
+        which is all a receiver can verify."""
         return self._run("bulk", source, sink, transforms, capacity, workers,
                          checksum, plan, replan_every_items, replan_damping,
                          drain_per_segment, batch_items)

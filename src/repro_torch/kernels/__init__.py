@@ -1,4 +1,4 @@
-"""Hand-written Hopper (sm_90a) kernels for the serving path.
+"""Hand-written Hopper (sm_90a) kernels for the serving path and its wire.
 
 ``csrc/<name>.cu`` holds each CUDA kernel behind a plain C interface;
 ``build.py`` compiles them with nvcc on first use and counts launches;
@@ -11,4 +11,6 @@ package):
 * flash_attention — blocked online-softmax GQA attention (prefill)
 * decode_attention — flash-decode against full or ring KV caches
 * digest — blockwise lattice digest for accelerator-placed integrity
+* ssd_scan — chunked Mamba2 SSD scan (prefill), returning the final state
+* quantize — blockwise int8 quantize / dequantize for the compressed wire
 """

@@ -57,12 +57,24 @@ KERNELS: dict[str, Kernel] = {
     "block_digest": Kernel(
         "block_digest", "src/repro_torch/kernels/csrc/digest.cu",
         "src/repro/kernels/digest.py:45"),
+    "ssd_scan": Kernel(
+        "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:67"),
+    "quantize_int8": Kernel(
+        "quantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
+        "src/repro/kernels/quantize.py:33"),
+    "dequantize_int8": Kernel(
+        "dequantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
+        "src/repro/kernels/quantize.py:58"),
 }
 
-#: kernel name -> source stem under csrc/
+#: kernel name -> source stem under csrc/ (the quantize pair shares one)
 _SOURCES = {"flash_attention": "flash_attention",
             "decode_attention": "decode_attention",
-            "block_digest": "digest"}
+            "block_digest": "digest",
+            "ssd_scan": "ssd_scan",
+            "quantize_int8": "quantize",
+            "dequantize_int8": "quantize"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -111,17 +123,17 @@ def _lib_path(stem: str) -> Path:
 
 def build_all(names: Optional[list[str]] = None) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together.  Returns seconds per kernel built
+    per source, all started together.  Returns seconds per source built
     (0.0 when the library was already there).  Raises with the compiler's
     output if any build fails; the ``-Xptxas -v`` report of each build
     (registers, shared memory, spills) is kept in ``_build/<stem>.log``."""
     names = list(KERNELS) if names is None else names
+    stems = sorted({_SOURCES[name] for name in names})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     t0 = time.monotonic()
-    for name in names:
-        stem = _SOURCES[name]
+    for stem in stems:
         out = _lib_path(stem)
         if out.exists():
             continue
@@ -129,17 +141,17 @@ def build_all(names: Optional[list[str]] = None) -> dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out, stem)
-    took = {name: 0.0 for name in names}
+                       tmp, out)
+    took = {stem: 0.0 for stem in stems}
     failures = []
-    for name, (proc, tmp, out, stem) in procs.items():
+    for stem, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        took[name] = time.monotonic() - t0
+        took[stem] = time.monotonic() - t0
         (BUILD_DIR / f"{stem}.log").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(f"{stem}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failures:
@@ -181,6 +193,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "block_digest":
         fn = lib.block_digest_u32
         fn.argtypes = [p, p, i64, p]
+        fn.restype = i
+    elif name == "ssd_scan":
+        fn = lib.ssd_scan_fwd
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+        fn.restype = i
+        lib.ssd_scan_smem_bytes.argtypes = []
+        lib.ssd_scan_smem_bytes.restype = i64
+    elif name == "quantize_int8":
+        fn = lib.quantize_int8_f32
+        fn.argtypes = [p, i64, p, p, i64, p]
+        fn.restype = i
+    elif name == "dequantize_int8":
+        fn = lib.dequantize_int8_f32
+        fn.argtypes = [p, p, p, i64, i64, p]
         fn.restype = i
     else:
         raise KeyError(name)

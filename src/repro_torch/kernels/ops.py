@@ -3,7 +3,9 @@
 Model code calls these through ``ShardCtx.impl == "cuda"``.  They take the
 model's (B, S, H, hd) layout and hand the kernels transposed views, so no
 copy is made; each kernel wrapper dispatches on the tensor's device (the
-kernel on a CUDA tensor, its plain version on a CPU tensor).
+kernel on a CUDA tensor, its plain version on a CPU tensor).  The wire
+transforms (:mod:`repro_torch.core.integrity`) call ``quantize`` and
+``dequantize``.
 """
 
 from __future__ import annotations
@@ -13,8 +15,11 @@ import torch
 from .decode_attention import decode_attention_bhd
 from .digest import block_digest
 from .flash_attention import flash_attention_bhsd
+from .quantize import dequantize_int8, quantize_int8
+from .ssd_scan import ssd_scan_bhsd
 
-__all__ = ["flash_attention", "decode_attention", "block_digest"]
+__all__ = ["flash_attention", "decode_attention", "block_digest", "ssd_scan",
+           "quantize", "dequantize"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,3 +47,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attention_bhd(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                          k_pos, q_pos, window=int(window), out=out[:, 0])
     return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (B, S, H, P); dt (B, S, H) f32; A (H,) f32; Bm/Cm
+    (B, S, G, N) -> (y (B, S, H, P), final state (B, H, P, N) f32)."""
+    B, S, H, P = x.shape
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    _, state = ssd_scan_bhsd(x.transpose(1, 2), dt.transpose(1, 2),
+                             A.float(), Bm.transpose(1, 2),
+                             Cm.transpose(1, 2), chunk=chunk,
+                             out=y.transpose(1, 2))
+    return y, state
+
+
+def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Any shape -> (q int8 (nb, 256), scales f32 (nb,)), flat f32 values
+    zero-padded to a multiple of 2048."""
+    return quantize_int8(x)
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor,
+               shape: tuple[int, ...]) -> torch.Tensor:
+    """(q, scales) -> f32 of ``shape``."""
+    return dequantize_int8(q, s, shape)

@@ -4,7 +4,9 @@ Each computes what its kernel computes, in the kernel's layout, with
 ordinary tensor operations; the CPU tests hold them to the JAX package's
 oracles and Pallas kernels, and ``chip_smoke.py`` holds each kernel to its
 plain version on the card.  They repeat the arithmetic and are no yardstick
-of speed.
+of speed.  The quantize pair and the SSD scan wrap the port's own oracles
+(:mod:`repro_torch.optim.compression`, :func:`repro_torch.models.ssm.
+ssd_chunked`) in the kernels' layouts, as the JAX package's ``ref`` does.
 """
 
 from __future__ import annotations
@@ -81,3 +83,38 @@ def digest_ref(panels: torch.Tensor) -> torch.Tensor:
     # back to 32 bits through int32, whose conversions every device has
     d = d - ((d >> 31) << 32)
     return d.to(torch.int32).view(torch.uint32)
+
+
+def quantize_int8_ref(x: torch.Tensor, *, block: int = 256,
+                      tile: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (any shape) -> (q int8 (nb, block), scales f32 (nb,)) with the
+    flat f32 values zero-padded to a multiple of ``block * tile``, as the
+    kernel returns them: the oracle's blocks, then all-zero padding
+    blocks (q 0, scale 0)."""
+    from ..optim.compression import quantize_int8_blockwise
+    flat = x.reshape(-1).float()
+    pad = (-flat.numel()) % (block * tile)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return quantize_int8_blockwise(flat, block)
+
+
+def dequantize_int8_ref(q: torch.Tensor, s: torch.Tensor,
+                        shape: tuple[int, ...]) -> torch.Tensor:
+    """q int8 (nb, block) and scales f32 (nb,) -> f32 of ``shape``."""
+    from ..optim.compression import dequantize_int8_blockwise
+    return dequantize_int8_blockwise(q, s, shape)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-layout wrapper over :func:`repro_torch.models.ssm.
+    ssd_chunked`.  x: (B, H, S, P); dt: (B, H, S) f32; A: (H,) f32;
+    Bm/Cm: (B, G, S, N) -> (y (B, H, S, P) in x's dtype, final state
+    (B, H, P, N) f32)."""
+    from ..models.ssm import ssd_chunked
+    y, state = ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2).float(),
+                           A.float(), Bm.transpose(1, 2), Cm.transpose(1, 2),
+                           chunk)
+    return y.transpose(1, 2), state

@@ -13,16 +13,23 @@ The serving path is the paper's two workload classes composed:
   (:func:`~repro_torch.core.basin.decode_fanout_basin` + the mover's
   parallel mirror mode), each client drained by its own drainer.
 
-Prefill runs through the flash-attention kernel and every decode step
-through the decode-attention kernel (``ShardCtx(impl="cuda")``).  All CUDA
-work is issued on the device's current stream; the decode steps run on the
-mover's producer thread, and each step's ``.cpu()`` copy of the new tokens
-is the one device sync per token — the host copy that is the stream's item.
+A dense model prefills through the flash-attention kernel and decodes
+through the decode-attention kernel; an SSM model (mamba2-1.3b) prefills
+through the SSD-scan kernel and decodes with the plain recurrent step
+(``ShardCtx(impl="cuda")``).  An SSM prompt must be a whole number of SSD
+chunks long, as the reference asks: another length raises, it is not
+padded.  All CUDA work is issued on the device's current stream; the
+decode steps run on the mover's producer thread, and each step's
+``.cpu()`` copy of the new tokens is the one device sync per token — the
+host copy that is the stream's item.
 
 Usage:
   python -m repro_torch.launch.serve --arch smollm-360m          # on the card
+  python -m repro_torch.launch.serve --arch mamba2-1.3b          # on the card
   python -m repro_torch.launch.serve --arch smollm-360m --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
+      --device cpu --prompt-len 32 --gen 4                        # CPU smoke
 """
 
 from __future__ import annotations
@@ -216,7 +223,9 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="default 128, rounded up to a whole number of "
+                         "SSD chunks for an SSM model")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -224,12 +233,16 @@ def main(argv: Optional[list[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    prompt_len = args.prompt_len
+    if prompt_len is None:
+        chunk = cfg.ssm.chunk if cfg.family == "ssm" else 1
+        prompt_len = -(-128 // chunk) * chunk
     server = Server(cfg, device=args.device,
-                    max_len=args.prompt_len + args.gen + 1)
+                    max_len=prompt_len + args.gen + 1)
     server.load(args.seed)
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab,
-                                    (args.batch, args.prompt_len),
+                                    (args.batch, prompt_len),
                                     dtype=np.int32)}
 
     t0 = time.monotonic()

@@ -27,7 +27,7 @@ class ModelApi:
     cfg: ModelConfig
 
     def init(self, seed: int = 0, *,
-             device: torch.device | str) -> lm_lib.DenseLM:
+             device: torch.device | str) -> lm_lib.LM:
         """Random parameters drawn on ``device`` from a generator seeded
         with ``seed`` (the same seed gives other numbers on another device
         type)."""
@@ -35,7 +35,7 @@ class ModelApi:
         gen.manual_seed(seed)
         return lm_lib.init_lm(self.cfg, generator=gen, device=device)
 
-    def prefill(self, params: lm_lib.DenseLM, batch: dict, ctx: ShardCtx,
+    def prefill(self, params: lm_lib.LM, batch: dict, ctx: ShardCtx,
                 max_len: int) -> tuple[torch.Tensor, dict]:
         return lm_lib.prefill_lm(params, self.cfg, batch["tokens"], ctx,
                                  max_len)
@@ -46,7 +46,7 @@ class ModelApi:
         return lm_lib.init_lm_cache(self.cfg, batch, max_len, ctx,
                                     device=device)
 
-    def decode_step(self, params: lm_lib.DenseLM, cache: dict,
+    def decode_step(self, params: lm_lib.LM, cache: dict,
                     tokens: torch.Tensor, ctx: ShardCtx
                     ) -> tuple[torch.Tensor, dict]:
         return lm_lib.lm_decode_step(params, self.cfg, cache, tokens, ctx)

@@ -2,12 +2,13 @@
 through the models.
 
 ``ShardCtx`` keeps the JAX package's name so a reader finds the
-counterpart; here it holds no mesh, only the attention implementation:
+counterpart; here it holds no mesh, only the kernel implementation:
 ``"cuda"`` runs the hand-written kernels (their plain versions when the
-tensors lie on the CPU), ``"ref"`` the plain path of ``attention``.
+tensors lie on the CPU), ``"ref"`` the plain paths of ``attention`` and
+``ssm.ssd_chunked``.
 
 Parameters are ``nn.Module``s whose attribute names follow the JAX
-package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ...), so
+package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
 :func:`repro_torch.weights.from_jax_params` maps one onto the other by name.
 They are created without gradients: this package serves, it does not train.
 """
@@ -15,6 +16,7 @@ They are created without gradients: this package serves, it does not train.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -29,7 +31,7 @@ from .config import ModelConfig
 class ShardCtx:
     """Single-device model context."""
 
-    impl: str = "cuda"             # attention kernels: cuda | ref
+    impl: str = "cuda"             # attention / SSD kernels: cuda | ref
 
     def __post_init__(self):
         if self.impl not in ("cuda", "ref"):
@@ -68,6 +70,29 @@ class DenseLayer(nn.Module):
         self.ln2 = _param(ln2)
 
 
+class MambaLayer(nn.Module):
+    """One Mamba2 layer: its pre-norm scale ``ln`` and the block's
+    parameters, named as in the JAX package's tree."""
+
+    def __init__(self, ln, in_proj, conv_w, conv_b, A_log, D, dt_bias,
+                 norm_w, out_proj):
+        super().__init__()
+        self.ln = _param(ln)
+        self.in_proj = _param(in_proj)
+        self.conv_w = _param(conv_w)
+        self.conv_b = _param(conv_b)
+        self.A_log = _param(A_log)
+        self.D = _param(D)
+        self.dt_bias = _param(dt_bias)
+        self.norm_w = _param(norm_w)
+        self.out_proj = _param(out_proj)
+
+
+#: parameter names of a Mamba layer, in constructor order
+MAMBA_PARAMS = ("ln", "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                "norm_w", "out_proj")
+
+
 def init_attn_params(cfg: ModelConfig, *, generator: torch.Generator,
                      device: torch.device | str) -> AttnParams:
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
@@ -91,6 +116,32 @@ def init_dense_layer(cfg: ModelConfig, *, generator: torch.Generator,
     return DenseLayer(init_attn_params(cfg, generator=generator, device=device),
                       init_mlp_params(cfg, generator=generator, device=device),
                       zeros(), zeros())
+
+
+def init_mamba_layer(cfg: ModelConfig, *, generator: torch.Generator,
+                     device: torch.device | str) -> MambaLayer:
+    """Mamba2 layer init: bf16 projections and conv weights, f32 rest;
+    ``A_log`` spans log 1..16 over the heads and ``dt_bias`` is the
+    inverse softplus of dt drawn log-uniform in [1e-3, 1e-1]."""
+    s = cfg.ssm
+    D, H = cfg.d_model, cfg.ssm_heads
+    kw = dict(generator=generator, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    in_proj = dense_init((D, cfg.in_proj_dim), D, **kw)
+    conv_w = dense_init((s.conv_width, cfg.conv_dim), s.conv_width, **kw)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((H,), generator=generator, **f32)
+    dt = torch.exp(u * (hi - lo) + lo)
+    out_proj = dense_init((cfg.d_inner, D), cfg.d_inner, **kw)
+    return MambaLayer(
+        ln=torch.zeros((D,), **f32),
+        in_proj=in_proj, conv_w=conv_w,
+        conv_b=torch.zeros((cfg.conv_dim,), **f32),
+        A_log=torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        D=torch.ones((H,), **f32),
+        dt_bias=torch.log(torch.expm1(dt)),
+        norm_w=torch.ones((cfg.d_inner,), **f32),
+        out_proj=out_proj)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""Decoder-only language model, dense family: prefill and KV-cache decode.
+"""Decoder-only language models, dense and SSM families: prefill and
+cached decode.
 
 The JAX package scans one layer body over layer-stacked parameters
 (``jax.lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
 Python loop, and each layer's attention window is a Python int
 (``ModelConfig.layer_windows``), so the kernels see it as a constant.
 
-The decode cache holds the K/V of every layer stacked as
-(L, B, S_cache, Hkv, hd) bf16, as the JAX package's does, and a host-side
-int ``pos``.  Decode writes each step's K/V into it in place.
+The dense decode cache holds the K/V of every layer stacked as
+(L, B, S_cache, Hkv, hd) bf16, the SSM cache a ``MambaState`` of the conv
+windows (L, B, conv_width-1, conv_dim) bf16 and the recurrent states
+(L, B, H, P, N) f32, both as the JAX package's do, with a host-side int
+``pos``.  Decode writes each step's entries into the cache in place.
 """
 
 from __future__ import annotations
@@ -20,20 +23,22 @@ from torch import nn
 from . import ffn as ffn_lib
 from .attention import (attention, cache_positions_full, cache_positions_ring,
                         cache_update_full, cache_update_ring)
-from .blocks import (DenseLayer, ShardCtx, _param, init_dense_layer,
-                     self_attention_block)
+from . import ssm as ssm_lib
+from .blocks import (DenseLayer, MambaLayer, ShardCtx, _param,
+                     init_dense_layer, init_mamba_layer, self_attention_block)
 from .common import dense_init, embed_init, rms_norm, rope_angles, rotate
 from .config import ModelConfig
 
 #: families this package runs; the others are queued in ROADMAP.md
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
-class DenseLM(nn.Module):
-    """Parameters of a dense decoder: embedding, layers, final norm and
-    (unless tied) the LM head."""
+class LM(nn.Module):
+    """Parameters of a decoder: embedding, layers (``DenseLayer`` or
+    ``MambaLayer``), final norm and (unless tied) the LM head."""
 
-    def __init__(self, embed: torch.Tensor, layers: list[DenseLayer],
+    def __init__(self, embed: torch.Tensor,
+                 layers: list[DenseLayer] | list[MambaLayer],
                  final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
@@ -56,16 +61,17 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
-            device: torch.device | str) -> DenseLM:
+            device: torch.device | str) -> LM:
     cfg.validate()
     _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
     embed = embed_init((V, D), **kw)
-    layers = [init_dense_layer(cfg, **kw) for _ in range(cfg.n_layers)]
+    init_layer = init_mamba_layer if cfg.family == "ssm" else init_dense_layer
+    layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
     final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
     lm_head = None if cfg.tie_embeddings else dense_init((D, V), D, **kw)
-    return DenseLM(embed, layers, final_norm, lm_head)
+    return LM(embed, layers, final_norm, lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -73,12 +79,12 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params: DenseLM, cfg: ModelConfig,
+def _embed_inputs(params: LM, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
-def _logits(params: DenseLM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return x @ head
@@ -102,17 +108,34 @@ def _ring_pack(k_full: torch.Tensor, window: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prefill_lm(params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
+def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                ctx: ShardCtx, max_len: int) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the stack, returning (last-token logits
     (B, 1, V), populated decode cache).  The serving 'bulk' phase: the
-    cache is staged once, decode then streams against it."""
+    cache is staged once, decode then streams against it.  An SSM prompt
+    must be a whole number of SSD chunks long, as the reference asks."""
     x = _embed_inputs(params, cfg, tokens)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = init_lm_cache(cfg, B, max_len, device=x.device)
+    if cfg.family == "ssm":
+        if S % cfg.ssm.chunk:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {S} tokens is not a multiple of "
+                f"the SSD chunk ({cfg.ssm.chunk}); pad or cut the prompt")
+        mamba = cache["mamba"]
+        for i, lp in enumerate(params.layers):
+            hn = rms_norm(x, lp.ln, cfg.norm_eps)
+            y, st = ssm_lib.mamba_block_train(hn, lp, cfg, impl=ctx.impl,
+                                              return_state=True)
+            x = x + y
+            mamba.conv[i] = st.conv
+            mamba.ssm[i] = st.ssm
+        cache["pos"] = S
+        return _logits(params, cfg, x[:, -1:, :]), cache
+
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ring = cache_kind(cfg) == "ring"
     s_cache = _attn_cache_len(cfg, max_len)
 
@@ -155,12 +178,22 @@ def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   ctx: Optional[ShardCtx] = None, *,
                   device: torch.device | str) -> dict:
-    """Decode cache: stacked bf16 K/V (L, B, S_cache, Hkv, hd) and the
-    host-side clock ``pos``."""
+    """Decode cache: stacked bf16 K/V (L, B, S_cache, Hkv, hd), or for the
+    SSM family a ``MambaState`` stacked over layers, and the host-side
+    clock ``pos``."""
     _check_family(cfg)
+    cache: dict[str, Any] = {"pos": 0}
+    if cfg.family == "ssm":
+        st = ssm_lib.init_mamba_state(cfg, batch, device=device)
+        L = cfg.n_layers
+        cache["mamba"] = ssm_lib.MambaState(
+            conv=torch.zeros((L,) + st.conv.shape, dtype=st.conv.dtype,
+                             device=device),
+            ssm=torch.zeros((L,) + st.ssm.shape, dtype=st.ssm.dtype,
+                            device=device))
+        return cache
     s = _attn_cache_len(cfg, max_len)
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
-    cache: dict[str, Any] = {"pos": 0}
     cache["k"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     cache["v"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return cache
@@ -196,13 +229,25 @@ def _decode_attn_block(x, lp: DenseLayer, cfg, ctx, k_cache, v_cache,
 
 
 @torch.no_grad()
-def lm_decode_step(params: DenseLM, cfg: ModelConfig, cache: dict,
+def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
                    tokens: torch.Tensor, ctx: ShardCtx
                    ) -> tuple[torch.Tensor, dict]:
     """One new token per sequence.  tokens: (B, 1).  Returns (logits
     (B, 1, V), cache) — the same cache, written in place, its clock
     advanced."""
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        x = _embed_inputs(params, cfg, tokens)
+        mamba = cache["mamba"]
+        for i, lp in enumerate(params.layers):
+            hn = rms_norm(x, lp.ln, cfg.norm_eps)
+            y, st = ssm_lib.mamba_block_decode(
+                hn, lp, cfg, ssm_lib.MambaState(mamba.conv[i], mamba.ssm[i]))
+            x = x + y
+            mamba.conv[i] = st.conv
+            mamba.ssm[i] = st.ssm
+        cache["pos"] = pos + 1
+        return _logits(params, cfg, x), cache
     s_cache = cache["k"].shape[2]
     ring = cfg.window if cache_kind(cfg) == "ring" else 0
     if not ring and pos >= s_cache:

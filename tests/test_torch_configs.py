@@ -16,7 +16,7 @@ from repro_torch.core import basin, planner
 
 torch.set_num_threads(1)
 
-ARCHS = ["smollm-360m", "repro-100m"]
+ARCHS = ["smollm-360m", "repro-100m", "mamba2-1.3b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

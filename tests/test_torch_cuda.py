@@ -8,7 +8,12 @@ and run on the H100 with
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: f32 3e-5 (sums in another order), bf16 atol 1e-3 + rtol 8e-3
 (both round an f32 result to bf16 once: about one ulp of the output); the
-digest is bit-exact.
+digest, the int8 codes and scales and the dequantized values are
+bit-exact.  The SSD scan: y (bf16) within atol 1e-3 of its scale + rtol
+8e-3 (one bf16 ulp over f32 sums and an f32 prefix sum taken in another
+order), the final state (f32) within atol 1e-4 of its scale + rtol 1e-3
+(the prefix sums' rounding moves exp(cum_i - cum_j) by up to about 1e-4
+relative where |cum| reaches about 1e3).
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import decode_attention_bhd
 from repro_torch.kernels.digest import block_digest
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+from repro_torch.kernels.ssd_scan import ssd_scan_bhsd
 
 torch.set_num_threads(1)
 
@@ -105,3 +112,112 @@ def test_digest_kernel_bit_exact_on_card(card, nb):
         0, 2**32, (nb, 256), dtype=np.uint32)).to(card)
     out = block_digest(p).view(torch.int32)
     assert torch.equal(out, ref.digest_ref(p).view(torch.int32))
+
+
+def _ssd_inputs(card, B, H, G, S, P=64, N=128, seed=0):
+    """The SSD scan's inputs as the model makes them: bf16 x/B/C, dt the
+    softplus of a raw projection plus a bias (0.001..0.3), A = -(1..16)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(B, H, S, P, generator=g, device=card).to(torch.bfloat16)
+    raw = torch.randn(B, H, S, generator=g, device=card) * 0.5
+    bias = torch.linspace(-7.0, -1.5, H, device=card)[None, :, None]
+    dt = torch.nn.functional.softplus(raw + bias)
+    A = -torch.linspace(1.0, 16.0, H, device=card)
+    Bm = torch.randn(B, G, S, N, generator=g, device=card).to(torch.bfloat16)
+    Cm = torch.randn(B, G, S, N, generator=g, device=card).to(torch.bfloat16)
+    return x, dt, A, Bm, Cm
+
+
+def _close_to_scale(got, want, atol_share, rtol):
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=atol_share * scale, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,S", [(4, 64, 1, 512), (1, 64, 1, 1024),
+                                     (2, 8, 2, 256)])
+def test_ssd_kernel_matches_plain_on_card(card, B, H, G, S):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, B, H, G, S, seed=S + G)
+    n = build.KERNELS["ssd_scan"].launches
+    y, state = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=256)
+    assert build.KERNELS["ssd_scan"].launches == n + 1
+    ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=256)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    _close_to_scale(y, ry, 1e-3, 8e-3)
+    _close_to_scale(state, rstate, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_model_views(card):
+    """The model hands the kernel transposed views of its conv output."""
+    from repro_torch.kernels import ops
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 2, 8, 1, 256, seed=5)
+    xs, dts = x.transpose(1, 2), dt.transpose(1, 2)
+    Bs, Cs = Bm.transpose(1, 2), Cm.transpose(1, 2)
+    y, state = ops.ssd_scan(xs, dts, A, Bs, Cs, chunk=256)
+    ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=256)
+    _close_to_scale(y.transpose(1, 2), ry, 1e-3, 8e-3)
+    _close_to_scale(state, rstate, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", [(32, 128), (64, 64), (128, 128)])
+def test_ssd_kernel_refuses_an_unbuilt_shape(card, P, N):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 2, 1, 256, P=P, N=N)
+    n = build.KERNELS["ssd_scan"].launches
+    with pytest.raises(ValueError, match="head dim / state dim"):
+        ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=256)
+    assert build.KERNELS["ssd_scan"].launches == n
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_f32_and_ragged_lengths(card):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 2, 1, 256)
+    with pytest.raises(TypeError):
+        ssd_scan_bhsd(x.float(), dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        ssd_scan_bhsd(x[:, :, :200], dt[:, :, :200], A, Bm[:, :, :200],
+                      Cm[:, :, :200], chunk=256)
+
+
+def _quant_values(card, n, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    mag = torch.rand(n, generator=g, device=card) * 6 - 3
+    return torch.randn(n, generator=g, device=card) * 10.0 ** mag
+
+
+def _special_blocks(card):
+    zero = torch.zeros(256)
+    half = (torch.arange(256, dtype=torch.float32) % 64 - 32) + 0.5
+    half[0] = 127.0
+    neg = torch.linspace(-1.0, 1.0, 256)
+    neg[7] = -200.0
+    return torch.cat([zero, half, neg]).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2_097_152, 1000, 256 * 9 + 17, "special"])
+def test_quantize_kernels_bit_exact_on_card(card, n):
+    x = (_special_blocks(card) if n == "special"
+         else _quant_values(card, n, 3))
+    n0 = build.launch_counts()
+    q, s = quantize_int8(x)
+    rq, rs = ref.quantize_int8_ref(x)
+    assert torch.equal(q, rq)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    back = dequantize_int8(q, s, (x.numel(),))
+    want = ref.dequantize_int8_ref(rq, rs, (x.numel(),))
+    assert torch.equal(back.view(torch.int32), want.view(torch.int32))
+    counts = build.launch_counts()
+    assert counts["quantize_int8"] == n0["quantize_int8"] + 1
+    assert counts["dequantize_int8"] == n0["dequantize_int8"] + 1
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_on_an_unaligned_view(card):
+    x = _quant_values(card, 4097, 8)[1:]          # 4-byte offset
+    q, s = quantize_int8(x)
+    rq, rs = ref.quantize_int8_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)

@@ -153,9 +153,9 @@ def test_random_init_is_seeded():
 
 def test_unported_family_raises():
     cfg = get_smoke_config("repro-100m")
-    ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
+    hybrid = dataclasses.replace(cfg, family="hybrid", ssm=SSMConfig())
     with pytest.raises(NotImplementedError):
-        build(ssm).init(0, device="cpu")
+        build(hybrid).init(0, device="cpu")
 
 
 def test_primitives_match_reference():
