@@ -9,7 +9,9 @@ Phases, one JSON line each:
    CUDA versions.
 2. ``build``: the hand-written kernels built from ``src/repro_torch/
    kernels/csrc`` with nvcc for sm_90a, one process per source, all at
-   once, with seconds and the compiler's register / shared-memory report.
+   once, with seconds, the compiler's register / shared-memory report and,
+   per library, its tensor-core instructions in ``cuobjdump -sass``
+   (``HGMMA`` is wgmma, ``HMMA`` mma.sync).
 3. ``check``: each kernel's wrapper on tensors on the card against its plain
    PyTorch version on the same inputs (stated tolerance; the digest and the
    int8 codes, scales and dequantized values bit-exact), at the shapes the
@@ -62,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -199,6 +202,23 @@ def device_busy(fn) -> dict:
             "top_device_ms": {n[:60]: t / 1e3 for n, t in top}}
 
 
+def tensor_core_sass(build) -> dict:
+    """Per kernel source, how many HGMMA (wgmma) and HMMA (mma.sync)
+    instructions its built library's SASS holds."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name, k in build.KERNELS.items():
+        src = os.path.basename(k.source)
+        if src in counts:
+            continue
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[src] = {op: len(re.findall(rf"\b{op}\b", sass))
+                       for op in ("HGMMA", "HMMA")}
+    return counts
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES
     t_ops = ops / peak_ops
@@ -255,8 +275,10 @@ def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True):
 
 def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.decode_attention import (decode_attention_bhd,
+                                                       split_plan)
     import torch.nn.functional as F
+    chunk, n_split = split_plan(S, B, Hq, Hkv)
     g = torch.Generator(device="cuda").manual_seed(S + fill)
     q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
@@ -294,7 +316,7 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring):
                        else PEAK_F32)
     return emit("check", kernel="decode_attention",
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd), fill=fill,
-                window=window, ring=ring,
+                window=window, ring=ring, chunk=chunk, n_split=n_split,
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ok=ok, ms=ms, call_ms=per_call, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
@@ -669,7 +691,8 @@ def main() -> int:
         "build", seconds=time.monotonic() - t0, per_source_s=took,
         ptxas={n: [ln.strip() for ln in build.build_log(n).splitlines()
                    if "registers" in ln or "spill" in ln]
-               for n in build.KERNELS}))
+               for n in build.KERNELS},
+        tensor_core_sass=tensor_core_sass(build)))
 
     t_phase = time.monotonic()
     cfg = get_config("smollm-360m")
@@ -685,6 +708,10 @@ def main() -> int:
         for window, ring in ((0, False), (0, True), (256, True)):
             checks.append(check_decode(torch, S=1024, dtype=dtype, fill=700,
                                        window=window, ring=ring, **G))
+    # the serving decode shape in f32 (bf16 is the main path's, below)
+    checks.append(check_decode(torch, S=max_len, dtype=torch.float32,
+                               fill=PROMPT + GEN // 2, window=0, ring=False,
+                               **G))
     checks.append(check_digest(torch, nb=65536))          # 64 MiB
     # SSD over 4 chunks; quantize at a length that needs padding
     checks.append(check_ssd(torch, BATCH, mcfg.ssm_heads, 1, 1024))

@@ -115,7 +115,7 @@ def nvcc_path() -> str:
 
 def _lib_path(stem: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{stem}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
@@ -159,6 +159,11 @@ def build_all(names: Optional[list[str]] = None) -> dict[str, float]:
     return took
 
 
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
+    return _lib_path(_SOURCES[name])
+
+
 def build_log(name: str) -> str:
     """The compiler's report from the last build of kernel ``name``."""
     path = BUILD_DIR / f"{_SOURCES[name]}.log"
@@ -186,10 +191,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "decode_attention":
         fn = lib.decode_attention_fwd
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p, f, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, i, i, p]
         fn.restype = i
-        lib.decode_attention_smem_bytes.argtypes = [i, i]
-        lib.decode_attention_smem_bytes.restype = i64
     elif name == "block_digest":
         fn = lib.block_digest_u32
         fn.argtypes = [p, p, i64, p]
@@ -216,6 +219,15 @@ def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def aligned16(t, dims) -> bool:
+    """Whether ``t`` starts on 16 bytes and its stride along each of
+    ``dims`` that has more than one element is a multiple of 16 bytes: what
+    a 16-byte vector load or a TMA tile of its rows needs."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(d) * es % 16 == 0 for d in dims if t.shape[d] > 1)
 
 
 def strides_arg(*tensors_dims) -> ctypes.Array:

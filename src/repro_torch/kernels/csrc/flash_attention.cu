@@ -8,22 +8,37 @@
 // Layout: q (B, Hq, Sq, hd), k/v (B, Hkv, Sk, hd) given by element strides
 // (the head dim contiguous), so the model's (B, S, H, hd) tensors go in as
 // transposed views without a copy.  Query head h reads KV head h / G: no
-// repeated K/V is materialised.
-//
-// Design: one CTA per (b, h, 64-row query tile), one thread per query row.
-// The thread keeps its scaled query row and its f32 accumulator in
-// registers; K/V tiles of 32 keys are staged through shared memory as f32
-// and every thread reads the same key row at a time (a broadcast, no bank
-// conflicts).  Each tile's scores are formed first, then the running max is
-// corrected once per tile, as the TPU kernel does per k-block.  Tiles wholly
-// above the causal diagonal or below the window are never loaded.  Any Sq
-// and Sk are taken: the ragged tail of either is masked, not padded.
+// repeated K/V is materialised.  Any Sq and Sk are taken: the ragged tail of
+// either is masked, not padded.  Tiles wholly above the causal diagonal or
+// below the window are never loaded.
 //
 // Bound on the H100: at the serving shapes (S = 128..1000, hd = 64) the
-// work is a few GFLOP against a few MB, so FLOPs bound it; this first
-// version runs on the f32 CUDA cores (no wgmma/TMA yet), so it is far from
-// the bf16 tensor-core roofline.  PERF.md records its times beside the bound.
+// work is a few GFLOP against a few MB, so the bf16 tensor cores bound it
+// at S = 1000 and the bytes (a few us of latency) at S = 128.
+//
+// bf16 (the model's type), FlashAttention-3's shape kept simple: one CTA of
+// one warpgroup (128 threads) owns a 64-row query tile of one (b, h).  TMA
+// brings the Q tile and 64-key K/V tiles (8 KiB each, 128-byte swizzle)
+// into shared memory, K/V through a 2-stage ring signalled on mbarriers, so
+// the next tile's load overlaps this tile's products.  S = Q K^T is a chain
+// of four wgmma m64n64k16 (bf16 in, f32 accumulate); the online softmax
+// runs in the accumulator's register layout (a row over a quad of threads:
+// max and sum by quad shuffles, the scale folded into exp2f).  P goes to
+// bf16 in registers as two parts, P = P_hi + P_lo, each the register A
+// operand of O += P V with V as the MN-major B operand.  (P rounded once to
+// bf16, as the reference's model path rounds it, moves an output near zero
+// by up to 3e-3 from the plain version's f32 P, more than the stated
+// tolerance; the second part costs half as much tensor work again.)  A tile
+// that straddles the diagonal, the window edge or the end of the keys is
+// masked element by element (-inf scores, so exp2f gives exactly 0); TMA
+// fills rows past the end with zeros.  The output is scaled by 1 / l once
+// and stored from registers.
+//
+// f32 keeps the first version: one thread per query row on the f32 CUDA
+// cores (K/V tiles of 32 keys staged as f32 in shared memory, read as
+// broadcasts), no slower than PyTorch's own attention in f32.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -131,6 +146,205 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 64;                    // query rows per CTA
+constexpr int WK = 64;                    // keys per tile
+constexpr int WSTAGES = 2;                // K/V ring depth
+constexpr int WTILE = 64 * 64 * 2;        // bytes of one 64 x 64 bf16 tile
+constexpr int WSMEM = WTILE * (1 + 2 * WSTAGES) + 1024;  // + 1 KiB to align
+constexpr float LOG2E = 1.4426950408889634f;
+
+__global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+    int Sq, int Sk, int G, int64_t osb, int64_t osh, int64_t oss,
+    float scale_log2, int causal, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q;
+  __shared__ uint64_t bar_kv[WSTAGES];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* ks = smem + WTILE;
+  uint8_t* vs = smem + WTILE * (1 + WSTAGES);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WQ;  // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / G;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // the keys this query tile can see, in whole tiles
+  const int q_last = min(q0 + WQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / WK * WK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + WK - 1) / WK : 0;
+
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < WSTAGES; ++s) mbar_init(&bar_kv[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar_q, WTILE);
+    tma_load_4d(qs, &qmap, &bar_q, 0, q0, h, b);
+    for (int t = 0; t < WSTAGES && t < n_tiles; ++t) {
+      mbar_expect_tx(&bar_kv[t], 2 * WTILE);
+      tma_load_4d(ks + t * WTILE, &kmap, &bar_kv[t], 0, k_begin + t * WK, hk,
+                  b);
+      tma_load_4d(vs + t * WTILE, &vmap, &bar_kv[t], 0, k_begin + t * WK, hk,
+                  b);
+    }
+  }
+
+  // accumulator layout of wgmma m64n64: d[4n + 2i + j] is row r0 + 8i,
+  // column 8n + cq + j of the 64 x 64 tile
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  float oacc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) oacc[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(&bar_q, 0);
+  const uint64_t qdesc = wgmma_desc_sw128(qs);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % WSTAGES;
+    const int k0 = k_begin + t * WK;
+    mbar_wait(&bar_kv[s], (t / WSTAGES) & 1);
+
+    // S = Q K^T over hd = 64: four k-steps of 16 (32 bytes each)
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    const uint64_t kdesc = wgmma_desc_sw128(ks + s * WTILE);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_m64n64k16(sc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const bool whole = k0 + WK <= Sk && (!causal || k0 + WK - 1 <= q0) &&
+                       (window <= 0 || k0 > q0 + WQ - 1 - window);
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int kj = k0 + 8 * (e >> 2) + cq + (e & 1);
+        const int qi = q0 + r0 + 8 * ((e >> 1) & 1);
+        const bool keep = kj < Sk && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
+        if (!keep) sc[e] = -INFINITY;
+      }
+    }
+
+    // online softmax, one pass per row half i
+    float ms[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      // a row with nothing kept yet keeps m = -inf: subtract 0, so every
+      // exp2f below sees -inf and gives 0, never NaN
+      ms[i] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+      alpha[i] = exp2f(m[i] * scale_log2 - ms[i]);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+    // P as bf16 pairs, hi + lo: ph[2n + i] / pl[2n + i] hold row half i of
+    // score block n
+    uint32_t ph[16], pl[16];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float p0 = exp2f(fmaf(sc[4 * n + 2 * i], scale_log2, -ms[i]));
+        const float p1 =
+            exp2f(fmaf(sc[4 * n + 2 * i + 1], scale_log2, -ms[i]));
+        l[i] += p0 + p1;
+        split_bf16x2(p0, p1, ph[2 * n + i], pl[2 * n + i]);
+      }
+      oacc[4 * n + 0] *= alpha[0];
+      oacc[4 * n + 1] *= alpha[0];
+      oacc[4 * n + 2] *= alpha[1];
+      oacc[4 * n + 3] *= alpha[1];
+    }
+
+    // O += P_hi V + P_lo V: k-step kk takes keys 16kk..16kk+15, i.e. score
+    // blocks 2kk and 2kk+1, and V rows 16kk.. (2048 bytes further each)
+    const uint64_t vdesc = wgmma_desc_sw128(vs + s * WTILE);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                              ph[4 * kk + 3]};
+      const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                              pl[4 * kk + 3]};
+      wgmma_rs_m64n64k16_tb(oacc, ah, vdesc + kk * (2048 >> 4));
+      wgmma_rs_m64n64k16_tb(oacc, al, vdesc + kk * (2048 >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oacc);
+
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && t + WSTAGES < n_tiles) {
+      const int kn = k0 + WSTAGES * WK;
+      mbar_expect_tx(&bar_kv[s], 2 * WTILE);
+      tma_load_4d(ks + s * WTILE, &kmap, &bar_kv[s], 0, kn, hk, b);
+      tma_load_4d(vs + s * WTILE, &vmap, &bar_kv[s], 0, kn, hk, b);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // nothing kept: 0
+    const int qi = q0 + r0 + 8 * i;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* op = o + b * osb + h * osh + (int64_t)qi * oss;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + cq) =
+          __floats2bfloat162_rn(oacc[4 * n + 2 * i] * inv,
+                                oacc[4 * n + 2 * i + 1] * inv);
+  }
+}
+
+// one TMA descriptor per operand, encoded on the host for this call
+cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
+                              void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                              int G, const int64_t* st, float scale,
+                              int causal, int window, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!encode_rows64(&qm, q, Sq, Hq, B, st[2], st[1], st[0]) ||
+      !encode_rows64(&km, k, Sk, Hkv, B, st[5], st[4], st[3]) ||
+      !encode_rows64(&vm, v, Sk, Hkv, B, st[8], st[7], st[6]))
+    return cudaErrorInvalidValue;
+  dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
+  flash_fwd_wgmma_kernel<<<grid, 128, WSMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, G, st[9], st[10],
+      st[11], scale * LOG2E, causal, window);
+  return cudaGetLastError();
+}
+
 // only the head dim of the ported configs (64) is instantiated: another
 // one is added with the config that needs it
 template <typename T>
@@ -158,8 +372,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == DTYPE_F32)
     return (int)dispatch_hd<float>(hd, q, k, v, o, B, Hq, Sq, Sk, G, strides,
                                    scale, causal, window, s);
-  if (dtype == DTYPE_BF16)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Hq, Sq, Sk, G,
-                                           strides, scale, causal, window, s);
+  if (dtype == DTYPE_BF16) {
+    if (hd != 64) return (int)cudaErrorInvalidValue;
+    return (int)launch_bf16_wgmma(q, k, v, o, B, Hq, Hkv, Sq, Sk, G, strides,
+                                  scale, causal, window, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

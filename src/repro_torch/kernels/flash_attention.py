@@ -28,8 +28,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, Hq, Sq, hd).
 
     Inputs may be strided views (the head dim contiguous), e.g. the
-    model's (B, S, H, hd) tensors transposed.  ``out``, if given, is a
-    (B, Hq, Sq, hd) tensor or view that receives the result."""
+    model's (B, S, H, hd) tensors transposed; on the card, bf16 rows must
+    start on 16 bytes (the kernel reads them as TMA tiles).  ``out``, if
+    given, is a (B, Hq, Sq, hd) tensor or view that receives the result."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Sk, _ = k.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
@@ -45,6 +46,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda(q, k, v, out)
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and not all(
+            build.aligned16(t, (0, 1, 2)) for t in (q, k, v, out)):
+        raise ValueError("bf16 q, k, v and out rows must start on 16 bytes "
+                         "(TMA tiles)")
     lib = build.library("flash_attention")
     strides = build.strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)),
                                 (v, (0, 1, 2)), (out, (0, 1, 2)))

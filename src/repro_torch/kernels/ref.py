@@ -64,6 +64,57 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Hq, hd).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_pos: torch.Tensor,
+                               q_pos: torch.Tensor, *, chunk: int,
+                               window: int = 0) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed as the split-K kernel does:
+    a partial (m, l, acc) per range of ``chunk`` slots, then the combine.
+    Same arguments; returns (B, Hq, hd) in q's dtype."""
+    return decode_combine_ref(*decode_partials_ref(
+        q, k, v, k_pos, q_pos, chunk=chunk, window=window)).to(q.dtype)
+
+
+def decode_partials_ref(q, k, v, k_pos, q_pos, *, chunk: int,
+                        window: int = 0):
+    """Per range r of slots [r chunk, (r+1) chunk): the max kept score m
+    (-inf where nothing is kept), l = sum exp(s - m) and acc = sum
+    exp(s - m) v over the kept slots, in f32.  Returns m, l (n_split, B, Hq)
+    and acc (n_split, B, Hq, hd)."""
+    B, Hq, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, hd).float()
+    qp = q_pos[:, None]
+    keep = (k_pos >= 0) & (k_pos <= qp)
+    if window > 0:
+        keep &= k_pos > qp - window
+    ms, ls, accs = [], [], []
+    for s0 in range(0, S, chunk):
+        kr, vr = k[:, :, s0:s0 + chunk].float(), v[:, :, s0:s0 + chunk].float()
+        kk = keep[:, None, None, s0:s0 + chunk]
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, kr) * hd ** -0.5
+        s = torch.where(kk, s, -torch.inf)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m.reshape(B, Hq))
+        ls.append(p.sum(dim=-1).reshape(B, Hq))
+        accs.append(torch.einsum("bhgk,bhkd->bhgd", p, vr).reshape(B, Hq, hd))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def decode_combine_ref(m: torch.Tensor, l: torch.Tensor,
+                       acc: torch.Tensor) -> torch.Tensor:
+    """Merge the ranges' partials: sum e^(m - M) acc / sum e^(m - M) l with
+    M the largest m; a range with nothing kept weighs 0, and a row with
+    nothing kept anywhere is 0.  Returns f32 (B, Hq, hd)."""
+    M = m.amax(dim=0)
+    w = torch.exp(m - torch.where(torch.isinf(M), 0.0, M))
+    L = (w * l).sum(dim=0)
+    A = (w[..., None] * acc).sum(dim=0)
+    return A / torch.where(L > 0, L, 1.0)[..., None]
+
+
 def digest_ref(panels: torch.Tensor) -> torch.Tensor:
     """uint32 panels (nb, block) -> one uint32 lattice digest per row,
     ``sum_j x_j * (2j+1) * GOLDEN mod 2^32``.

@@ -85,6 +85,142 @@ def test_decode_kernel_matches_plain_on_card(card, dtype, S, fill, ring,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,window", [
+    (1, True, 0), (17, True, 0), (64, True, 0), (65, True, 0), (200, True, 0),
+    (200, True, 16), (300, True, 100), (200, False, 0), (130, False, 40)])
+def test_flash_bf16_kernel_tails_and_windows(card, S, causal, window):
+    """Tails shorter than a tile and exactly one tile, a window narrower
+    than a tile (16) and one that straddles tiles (100), no causal mask."""
+    g = torch.Generator(device=card).manual_seed(1000 + S + window)
+    q = torch.randn(2, 6, S, 64, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(2, 2, S, 64, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(2, 2, S, 64, generator=g, device=card).to(torch.bfloat16)
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    expect = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_model_views(card, dtype):
+    """(B, S, H, hd) tensors through ops.flash_attention: the kernel gets
+    transposed views (the TMA descriptors stride over S by H x hd)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(2, 150, 15, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(2, 150, 5, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(2, 150, 5, 64, generator=g, device=card).to(dtype)
+    out = ops.flash_attention(q, k, v, window=40)
+    expect = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), window=40).transpose(1, 2)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,fill,ring", [
+    (1000, 900, False),    # chunk 96 does not divide 1000
+    (1024, 3, False),      # every split empty but the first
+    (1024, 3, True)])      # a few kept slots scattered over the splits
+def test_decode_kernel_split_edges(card, dtype, S, fill, ring):
+    q, k, v, k_pos, q_pos = _decode_inputs(card, dtype, S, fill, ring)
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos)
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_shared_positions(card, dtype):
+    """One k_pos row for the whole batch (batch stride 0), as the model
+    passes it, with per-sequence query positions."""
+    q, k, v, _, _ = _decode_inputs(card, dtype, 300, 0, False)
+    k_pos = torch.arange(300, dtype=torch.int32, device=card)
+    k_pos = torch.where(k_pos < 250, k_pos, -1)[None].expand(4, 300)
+    assert k_pos.stride(0) == 0
+    q_pos = torch.tensor([0, 31, 200, 260], dtype=torch.int32, device=card)
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos, window=64)
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=64)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(12, 1), (5, 5), (16, 2)])
+def test_decode_kernel_head_groups(card, Hq, Hkv):
+    """Groups of 1, 8 and 12 query heads per KV head: a CTA takes at most
+    4, so larger groups run in blocks."""
+    g = torch.Generator(device=card).manual_seed(Hq)
+    q = torch.randn(2, Hq, 64, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(2, Hkv, 500, 64, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(2, Hkv, 500, 64, generator=g, device=card).to(
+        torch.bfloat16)
+    k_pos = torch.arange(500, dtype=torch.int32, device=card).expand(2, 500)
+    q_pos = torch.tensor([400, 499], dtype=torch.int32, device=card)
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos)
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_decode_bf16_kernel_on_an_empty_cache_is_zero(card):
+    q, k, v, k_pos, q_pos = _decode_inputs(card, torch.bfloat16, 1024, 10,
+                                           False)
+    out = decode_attention_bhd(q, k, v, torch.full_like(k_pos, -1), q_pos)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_replay_in_a_cuda_graph(card):
+    """Both kernels captured in one CUDA graph and replayed give what an
+    eager call gives, bit for bit (no allocation, sync or host read in the
+    C code; the decode workspace comes from the graph's pool)."""
+    g = torch.Generator(device=card).manual_seed(11)
+    bf = torch.bfloat16
+    q = torch.randn(4, 15, 128, 64, generator=g, device=card).to(bf)
+    k = torch.randn(4, 5, 128, 64, generator=g, device=card).to(bf)
+    v = torch.randn(4, 5, 128, 64, generator=g, device=card).to(bf)
+    dq, dk, dv, k_pos, q_pos = _decode_inputs(card, bf, 161, 144, False)
+    eager = (flash_attention_bhsd(q, k, v),
+             decode_attention_bhd(dq, dk, dv, k_pos, q_pos))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up off the capture
+        flash_attention_bhsd(q, k, v)
+        decode_attention_bhd(dq, dk, dv, k_pos, q_pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fo = flash_attention_bhsd(q, k, v)
+        do = decode_attention_bhd(dq, dk, dv, k_pos, q_pos)
+    fo.zero_()
+    do.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(fo, eager[0]) and torch.equal(do, eager[1])
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_unaligned_rows(card):
+    """16-byte vector loads and TMA tiles need rows that start on 16
+    bytes: a view 4 elements in is refused before launch."""
+    base = torch.zeros(1, 3, 8, 72, device=card, dtype=torch.bfloat16)
+    q = base[..., 4:68]
+    kv = torch.zeros(1, 1, 8, 64, device=card, dtype=torch.bfloat16)
+    n = build.launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bhsd(q, kv, kv)
+    k_pos = torch.zeros(1, 8, dtype=torch.int32, device=card)
+    q_pos = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attention_bhd(q[:, :, 0], kv, kv, k_pos, q_pos)
+    assert build.launch_counts() == n
+
+
+@pytest.mark.cuda
 def test_decode_kernel_on_an_empty_cache_is_zero(card):
     q, k, v, k_pos, q_pos = _decode_inputs(card, torch.float32, 256, 10,
                                            False)
