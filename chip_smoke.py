@@ -11,7 +11,8 @@ Phases, one JSON line each:
    kernels/csrc`` with nvcc for sm_90a, one process per source, all at
    once, with seconds, the compiler's register / shared-memory report and,
    per library, its tensor-core instructions in ``cuobjdump -sass``
-   (``HGMMA`` is wgmma, ``HMMA`` mma.sync).
+   (``HGMMA`` is wgmma, ``HMMA`` mma.sync); the run fails if the SSD
+   scan's library holds neither.
 3. ``check``: each kernel's wrapper on tensors on the card against its plain
    PyTorch version on the same inputs (stated tolerance; the digest and the
    int8 codes, scales and dequantized values bit-exact), at the shapes the
@@ -25,7 +26,10 @@ Phases, one JSON line each:
    device="cuda")`` (full width, 32 layers, random weights from a seed)
    serves 4 x 128-token prompts for 32 tokens through the mover, and the
    prefill's KV cache is staged to host memory by a ``bulk_transfer``
-   planned with ``checksum_placement="accel"``.  Prefill ms, decode
+   planned with ``checksum_placement="accel"`` on the card's staging basin
+   (``card_host_basin``: HBM, PCIe Gen5 x16, pageable host memory at the
+   copy rate this run measures), its digest priced at the rate phase 3
+   measured for one KV item.  Prefill ms, decode
    ms/token (eager, and as device time from a CUDA graph), tok/s, peak
    memory, and a profiler trace of one prefill and one decode step (device
    busy time, idle share, top kernels).
@@ -43,7 +47,8 @@ Phases, one JSON line each:
    to host memory by a ``bulk_transfer`` with
    ``transforms=[("compress", compress_transform())]`` on the card and an
    accel checksum, as int8 codes and scales; ``restore``: the host items
-   go back onto the card through ``decompress_transform``.
+   go back onto the card through ``decompress_transform``.  Planned as
+   in 4, the digest priced at the rate phase 3 measured over 64 MiB.
 8. ``correct`` (mamba2-1.3b): kernel path against plain path as in 5; the
    codes and scales on the host against the plain quantizer's of the same
    state, bit for bit; the transfer's hexdigest against the plain digest
@@ -457,10 +462,27 @@ def check_quantize(torch, n):
 # ---------------------------------------------------------------------------
 
 
-def serve_and_stage(torch, server, batch):
+def pageable_gbps(torch, t, reps: int = 5) -> float:
+    """The copy rate of ``t`` from the card into pageable host memory, in
+    Gbps: host clock around ``reps`` copies (each ``.cpu()`` waits)."""
+    t.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        t.cpu()
+    return reps * t.nbytes * 8 / (time.perf_counter() - t0) / 1e9
+
+
+def digest_rate(rec: dict) -> float:
+    """Bytes per second of a ``check_digest`` record's kernel."""
+    return rec["rows"] * 1024 / (rec["ms"] / 1e3)
+
+
+def serve_and_stage(torch, server, batch, digest_bytes_per_s):
     """The main path: generate through the mover, then stage the prefill's
-    KV cache to host memory under an accel-placed checksum."""
-    from repro_torch.core.basin import checkpoint_basin
+    KV cache to host memory under an accel-placed checksum, planned on
+    the card's staging basin with this run's copy and digest rates."""
+    from repro_torch.core.basin import card_host_basin
     from repro_torch.core.mover import MoverConfig, UnifiedDataMover
     from repro_torch.core.planner import plan_transfer
 
@@ -473,9 +495,11 @@ def serve_and_stage(torch, server, batch):
     items = [cache[name][i] for i in range(cache["k"].shape[0])
              for name in ("k", "v")]
     item_bytes = items[0].nbytes
-    plan = plan_transfer(checkpoint_basin(), item_bytes=item_bytes,
-                         stages=("kv-stage",), checksum=True,
-                         checksum_placement="accel")
+    copy_gbps = pageable_gbps(torch, items[0])
+    plan = plan_transfer(card_host_basin(pageable_gbps=copy_gbps),
+                         item_bytes=item_bytes, stages=("kv-stage",),
+                         checksum=True, checksum_placement="accel",
+                         accel_digest_bytes_per_s=digest_bytes_per_s)
     mover = UnifiedDataMover(MoverConfig(checksum=True), plan=plan)
     received = []
     t0 = time.monotonic()
@@ -483,7 +507,7 @@ def serve_and_stage(torch, server, batch):
                                  lambda t: received.append(t.to("cpu")),
                                  plan=plan)
     stage_s = time.monotonic() - t0
-    return tokens, gen_s, items, received, report, stage_s
+    return tokens, gen_s, items, received, report, stage_s, copy_gbps
 
 
 def _teacher_forced(torch, api, params, ctx, tok, forced, max_len):
@@ -561,12 +585,13 @@ def check_correct(torch, server, batch, tokens, items, received, report):
                 bytes_ok=bytes_ok)
 
 
-def stage_state(torch, server, batch):
+def stage_state(torch, server, batch, digest_bytes_per_s):
     """The SSM path's staging: a prefill, then its recurrent state (one
     item per layer) to host memory over the int8 wire, quantized on the
     card and digested there.  The plan is ordered, so layer i arrives i-th
-    (a restored state must not permute its layers)."""
-    from repro_torch.core.basin import checkpoint_basin
+    (a restored state must not permute its layers); it is planned as the
+    KV staging is."""
+    from repro_torch.core.basin import card_host_basin
     from repro_torch.core.integrity import compress_transform
     from repro_torch.core.mover import MoverConfig, UnifiedDataMover
     from repro_torch.core.planner import plan_transfer
@@ -574,9 +599,12 @@ def stage_state(torch, server, batch):
     _, cache = server.prefill(batch)
     ssm = cache["mamba"].ssm
     items = [ssm[i] for i in range(ssm.shape[0])]
-    plan = plan_transfer(checkpoint_basin(), item_bytes=items[0].nbytes,
+    copy_gbps = pageable_gbps(torch, items[0])
+    plan = plan_transfer(card_host_basin(pageable_gbps=copy_gbps),
+                         item_bytes=items[0].nbytes,
                          stages=("state-stage",), checksum=True,
-                         checksum_placement="accel", ordered=True)
+                         checksum_placement="accel", ordered=True,
+                         accel_digest_bytes_per_s=digest_bytes_per_s)
     mover = UnifiedDataMover(MoverConfig(checksum=True), plan=plan)
     received = []
     torch.cuda.synchronize()
@@ -586,7 +614,7 @@ def stage_state(torch, server, batch):
                                                 t[2])),
         plan=plan, transforms=[("compress", compress_transform())])
     stage_s = time.monotonic() - t0
-    return cache, items, received, report, stage_s
+    return cache, items, received, report, stage_s, copy_gbps
 
 
 def check_mamba_correct(torch, server, batch, tokens, cache, items, received,
@@ -687,12 +715,17 @@ def main() -> int:
 
     t0 = time.monotonic()
     took = build.build_all()
+    sass = tensor_core_sass(build)
     records.append(emit(
         "build", seconds=time.monotonic() - t0, per_source_s=took,
         ptxas={n: [ln.strip() for ln in build.build_log(n).splitlines()
                    if "registers" in ln or "spill" in ln]
                for n in build.KERNELS},
-        tensor_core_sass=tensor_core_sass(build)))
+        tensor_core_sass=sass))
+    ssd_sass = sass[os.path.basename(build.KERNELS["ssd_scan"].source)]
+    if not (ssd_sass["HMMA"] or ssd_sass["HGMMA"]):
+        fail(f"the SSD scan's library runs no tensor-core instruction: "
+             f"{ssd_sass}")
 
     t_phase = time.monotonic()
     cfg = get_config("smollm-360m")
@@ -712,9 +745,12 @@ def main() -> int:
     checks.append(check_decode(torch, S=max_len, dtype=torch.float32,
                                fill=PROMPT + GEN // 2, window=0, ring=False,
                                **G))
-    checks.append(check_digest(torch, nb=65536))          # 64 MiB
-    # SSD over 4 chunks; quantize at a length that needs padding
+    big_digest = check_digest(torch, nb=65536)            # 64 MiB
+    checks.append(big_digest)
+    # SSD over 4 chunks, and over 8 chunks at batch 1 (64 CTAs, fewer than
+    # the SMs); quantize at a length that needs padding
     checks.append(check_ssd(torch, BATCH, mcfg.ssm_heads, 1, 1024))
+    checks.append(check_ssd(torch, 1, mcfg.ssm_heads, 1, 2048))
     checks += check_quantize(torch, 1_000_003)
     # the shapes the serving paths give each kernel: one layer's SSD scan
     # and one layer's state (4 x 64 x 64 x 128 f32) on the int8 wire
@@ -758,8 +794,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    tokens, gen_s, items, received, report, stage_s = serve_and_stage(
-        torch, server, batch)
+    kv_digest = digest_rate(main_shapes["block_digest"])
+    tokens, gen_s, items, received, report, stage_s, kv_copy_gbps = \
+        serve_and_stage(torch, server, batch, kv_digest)
     torch.cuda.synchronize()
     paths = {"smollm_serve": build.launch_counts()}
     records.append(emit(
@@ -769,7 +806,9 @@ def main() -> int:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         kv_items=len(items), kv_bytes=sum(t.nbytes for t in items),
         kv_stage_s=stage_s, kv_stage_gbps=report.throughput_bytes_per_s
-        * 8 / 1e9, launches=paths["smollm_serve"]))
+        * 8 / 1e9, kv_pageable_copy_gbps=kv_copy_gbps,
+        kv_planned_digest_bytes_per_s=kv_digest,
+        launches=paths["smollm_serve"]))
     need(paths, "smollm_serve",
          ("flash_attention", "decode_attention", "block_digest"))
 
@@ -813,8 +852,9 @@ def main() -> int:
              f"{paths['mamba_serve']['ssd_scan']} times, not once per layer")
 
     build.reset_launches()
-    cache, sitems, sreceived, sreport, sstage_s = stage_state(
-        torch, mserver, mbatch)
+    state_digest = digest_rate(big_digest)
+    cache, sitems, sreceived, sreport, sstage_s, state_copy_gbps = \
+        stage_state(torch, mserver, mbatch, state_digest)
     torch.cuda.synchronize()
     paths["stage_state"] = build.launch_counts()
     state_bytes = sum(t.nbytes for t in sitems)
@@ -823,6 +863,8 @@ def main() -> int:
         item_bytes=sitems[0].nbytes, state_bytes=state_bytes,
         wire_bytes=sreport.bytes, ratio=state_bytes / sreport.bytes,
         stage_s=sstage_s, state_gbps=state_bytes * 8 / sstage_s / 1e9,
+        pageable_copy_gbps=state_copy_gbps,
+        planned_digest_bytes_per_s=state_digest,
         launches=paths["stage_state"]))
     need(paths, "stage_state", ("ssd_scan", "quantize_int8", "block_digest"))
 

@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 # ---------------------------------------------------------------------------
 # Units
@@ -653,3 +653,44 @@ def decode_fanout_basin(n_clients: int = 2, *, decode_step_ms: float = 2.0,
     links = [Link("decode-producer", "token-staging")]
     links += [Link("token-staging", c.name) for c in clients]
     return DrainageBasin(tiers, links)
+
+
+# ---------------------------------------------------------------------------
+# The card's HBM to host memory (the port's own staging path)
+# ---------------------------------------------------------------------------
+
+#: one H100 SXM5's HBM3, 3.35 TB/s (NVIDIA H100 Tensor Core GPU data sheet)
+H100_HBM_GBPS = 3.35e12 * 8 / 1e9
+#: PCIe Gen5 x16, one direction: 32 GT/s on each of 16 lanes with 128b/130b
+#: coding, 63.0 GB/s (PCI Express Base Specification, Revision 5.0)
+PCIE5_X16_GBPS = 32.0 * 16 * 128 / 130
+#: eight channels of DDR5-4800 on one host socket, 8 bytes per transfer:
+#: 307.2 GB/s (JEDEC JESD79-5, DDR5 SDRAM)
+HOST_DDR5_GBPS = 4800e6 * 8 * 8 * 8 / 1e9
+
+
+def card_host_basin(*, pageable_gbps: Optional[float] = None
+                    ) -> DrainageBasin:
+    """The H100's staging path to the host: device HBM -> PCIe Gen5 x16 ->
+    host memory.  Into pinned memory the copy engine writes host DRAM
+    directly, so the sink is the DRAM.  Into pageable memory the driver
+    copies through a pinned bounce buffer and the CPU copies on (CUDA C++
+    Best Practices Guide, "Pinned Memory"), a rate no data sheet gives:
+    pass the rate measured on the host as ``pageable_gbps`` and the sink is
+    that copy.  The tiers' latencies are those the copied basins give the
+    same kinds of tier (``hbm`` and ``pcie`` as in :func:`tpu_input_basin`,
+    host memory as in :func:`checkpoint_basin`)."""
+    if pageable_gbps is not None and pageable_gbps <= 0:
+        raise ValueError("pageable_gbps must be > 0")
+    sink = (Tier("host-pinned", TierKind.SINK, HOST_DDR5_GBPS * GBPS,
+                 latency_s=10e-6) if pageable_gbps is None
+            else Tier("host-pageable", TierKind.SINK, pageable_gbps * GBPS,
+                      latency_s=10e-6))
+    return DrainageBasin(
+        tiers=[
+            Tier("hbm", TierKind.SOURCE, H100_HBM_GBPS * GBPS, latency_s=1e-6),
+            Tier("pcie", TierKind.CHANNEL, PCIE5_X16_GBPS * GBPS,
+                 latency_s=20e-6),
+            sink,
+        ]
+    )

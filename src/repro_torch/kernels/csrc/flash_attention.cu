@@ -334,9 +334,9 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
                               int G, const int64_t* st, float scale,
                               int causal, int window, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!encode_rows64(&qm, q, Sq, Hq, B, st[2], st[1], st[0]) ||
-      !encode_rows64(&km, k, Sk, Hkv, B, st[5], st[4], st[3]) ||
-      !encode_rows64(&vm, v, Sk, Hkv, B, st[8], st[7], st[6]))
+  if (!encode_rows(&qm, q, 64, Sq, Hq, B, st[2], st[1], st[0]) ||
+      !encode_rows(&km, k, 64, Sk, Hkv, B, st[5], st[4], st[3]) ||
+      !encode_rows(&vm, v, 64, Sk, Hkv, B, st[8], st[7], st[6]))
     return cudaErrorInvalidValue;
   dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
   flash_fwd_wgmma_kernel<<<grid, 128, WSMEM, stream>>>(

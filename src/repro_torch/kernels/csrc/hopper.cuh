@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
 // tile loads, wgmma shared-memory descriptors and the m64n64k16 bf16 wgmma
-// with A from shared memory or from registers.  No CuTe: these few
-// instructions are all the attention kernel needs, and CuTe's headers would
-// multiply the build time.
+// with A from shared memory or from registers, and ldmatrix for register
+// operands.  No CuTe: these few instructions are all the attention and SSD
+// kernels need, and CuTe's headers would multiply the build time.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; no libcuda link
@@ -39,20 +39,21 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D bf16 tensor map over (64, rows, heads, batch) with element strides
-// (1, srow, shead, sbatch), cut into boxes of 64 x 64 elements with the
-// 128-byte swizzle (one 64-element bf16 row is exactly one swizzle atom
-// row).  Rows past `rows` read as zero.  A dimension of size 1 never moves
-// its coordinate, so its stride is replaced by a valid one.
-inline bool encode_rows64(CUtensorMap* map, const void* base, int rows,
-                          int heads, int batch, int64_t srow, int64_t shead,
-                          int64_t sbatch) {
+// A 4-D bf16 tensor map over (cols, rows, heads, batch) with element
+// strides (1, srow, shead, sbatch), cut into boxes of 64 x 64 elements with
+// the 128-byte swizzle (one 64-element bf16 row is exactly one swizzle atom
+// row); `cols` is a multiple of 64, and a row of 128 values is two boxes,
+// at column 0 and 64.  Rows past `rows` read as zero.  A dimension of size
+// 1 never moves its coordinate, so its stride is replaced by a valid one.
+inline bool encode_rows(CUtensorMap* map, const void* base, int cols,
+                        int rows, int heads, int batch, int64_t srow,
+                        int64_t shead, int64_t sbatch) {
   TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const int64_t es = 2;  // bytes per bf16
-  cuuint64_t dims[4] = {64, (cuuint64_t)rows, (cuuint64_t)heads,
-                        (cuuint64_t)batch};
-  const int64_t s1 = rows > 1 ? srow * es : 128;
+  cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                        (cuuint64_t)heads, (cuuint64_t)batch};
+  const int64_t s1 = rows > 1 ? srow * es : cols * es;
   const int64_t s2 = heads > 1 ? shead * es : s1 * rows;
   const int64_t s3 = batch > 1 ? sbatch * es : s2 * heads;
   cuuint64_t strides[3] = {(cuuint64_t)s1, (cuuint64_t)s2, (cuuint64_t)s3};
@@ -140,6 +141,12 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operands, TMA) before a barrier hands them over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -208,4 +215,25 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
   const __nv_bfloat162 r = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// ---------------------------------------------------------------------------
+// device: register operands from shared memory
+// ---------------------------------------------------------------------------
+
+// four 8 x 8 bf16 matrices from shared memory, each transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes), and receives rows
+// 2t, 2t+1 of column g of each stored matrix (g = l / 4, t = l % 4; the
+// lower row in the low half).  From a tile stored [k][m] this is the A
+// fragment of mma.m16n8k16, which is also each warp's 16-row slice of the
+// register A operand of wgmma m64nNk16: a0 (m g, k 2t..), a1 (m g+8, k 2t..),
+// a2 (m g, k 2t+8..), a3 (m g+8, k 2t+8..), from matrices (k 0-7, m 0-7),
+// (k 0-7, m 8-15), (k 8-15, m 0-7) and (k 8-15, m 8-15).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
 }

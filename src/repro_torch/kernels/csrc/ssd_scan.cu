@@ -1,4 +1,4 @@
-// Chunked Mamba2 SSD scan for sm_90a.
+// Chunked Mamba2 SSD scan for sm_90a, on the tensor cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py (ssd_scan_bhsd,
 // body _ssd_kernel).  Per (b, h), over chunks of Q steps with the (P, N)
@@ -15,108 +15,111 @@
 //
 // Layout: x and y (B, H, S, P), dt (B, H, S), B and C (B, G, S, N), given by
 // element strides with the last dim contiguous, so the model's (B, S, H, P)
-// and (B, S, G, N) views of its conv output go in without a copy.  x, B, C
+// and (B, S, G, N) views of its conv output go in without a copy (rows of
+// x, B and C start on 16 bytes, as TMA needs: the wrapper checks).  x, B, C
 // and y are bf16 (the model's type), dt and A f32.  Only P = 64 and N = 128
-// (mamba2-1.3b) are built; the wrapper refuses other shapes before launch.
+// (mamba2-1.3b) are built, for chunks that are multiples of 32 up to 256;
+// the wrapper refuses other shapes before launch.
 //
-// Design: the TPU grid's sequential chunk axis becomes a loop inside one CTA
-// per (b, h) of 256 threads; the state lives in shared memory (32 KiB f32)
-// for the whole sequence.  Per chunk, x (Q x P) and B^T (N x Q) are staged
-// in shared memory as bf16, and the query rows are taken 32 at a time: a
-// thread per key column j forms the 32 scores C_i . B_j and the masked
-// weights W_ij = exp(cum_i - cum_j) dt_j (C_i . B_j) in a shared 32 x Q f32
-// tile (a Q x Q f32 tile at Q = 256 would be 256 KiB, over the 227 KiB a
-// CTA may have); then a thread per (p, 8 rows) sums W x and C . state.
-// The exponential is computed only where j <= i: above the diagonal
-// cum_i - cum_j > 0 can overflow to inf, and inf * 0 is NaN.  Row tiles
-// skip key columns past their last row (the causal half of the work).
-// cum is a block-wide prefix sum in f32 (a shuffle scan, in another order
-// than torch.cumsum); PERF.md and the tests state the tolerance.
+// Bound on the H100 at the serving shape (B 4, H 64, G 1, S 512, Q 256): by
+// bytes 0.01299 ms (about 43 MB: x, B, C and dt read once, y and the state
+// written once); by operations about 10.7 GFLOP of causal work, 0.011 ms at
+// 989 TFLOP/s, or about 17.4 GFLOP with the second bf16 part of the f32
+// factors below, 0.018 ms.  So the kernel's own tensor work bounds it, and
+// that is the bound the design aims at.
 //
-// Bound on the H100: about 33.5 MFLOP per (b, h, chunk) against about
-// 85 KB, so operations bound it; this first version runs on the f32 CUDA
-// cores (no wgmma/TMA yet), far from the bf16 tensor-core bound.
+// Design.  Every product runs on the tensor cores as wgmma m64n64k16, bf16
+// in and f32 accumulate.  C.B^T has bf16 factors, so one chain is exact.
+// The other three products have one f32 factor: W = exp(cum_i - cum_j) dt_j
+// C.B^T in W.x, the state in C.state, and wdt_j x_j (wdt = exp(total - cum)
+// dt) in the state update.  Each goes in as two bf16 parts, hi = bf16(v) and
+// lo = bf16(v - hi), run as two chains into one accumulator: about 2^-17
+// relative, where one rounding (2^-9) misses the stated tolerance of the
+// final state (tests/test_torch_ssd_design.py).
+//
+// One CTA of one warpgroup (128 threads) per (b, h) walks the chunks in
+// order (the TPU grid's sequential chunk axis).  The state's f32
+// accumulator stays in registers across chunks (64 x 128: two m64n64
+// accumulators), and a bf16 hi/lo copy of it sits in shared memory as the
+// B operand of C.state.  TMA brings C, B and x in 64-row tiles (128-byte
+// swizzle; a 128-value row of B or C is two boxes) into a C tile and two
+// key buffers (B and x), 102,528 bytes of shared memory in all, so two CTAs
+// share an SM: the 256 CTAs of the serving shape are resident at once, and
+// one CTA's loads and barriers overlap the other's products.  Per chunk:
+//   1. dt, cum (a block-wide f32 prefix sum, in another order than
+//      torch.cumsum), wdt, and per step cum log2(e) and
+//      u = cum log2(e) - log2(dt) into shared memory;
+//   2. per 64-row block of C: exp(cum_i) C.state (C and the state from
+//      shared memory), then per key tile at or before the block the 64 x 64
+//      scores S = C.B^T (both from shared memory), W = S exp(cum_i - cum_j)
+//      dt_j = S exp2(cum_i log2(e) - u_j), one exp2 a score, kept only
+//      where j <= i (above it the exponent is positive and can overflow,
+//      and inf * 0 is NaN), packed in registers as the hi and lo A operands
+//      of W.x (x from shared memory, MN-major).  Row block rb takes key tiles 0..rb, ascending when rb is
+//      odd and descending when even, so consecutive blocks begin with the
+//      tiles the last one ended on; each step prefetches the next step's
+//      tile when it is not resident;
+//   3. the last row block meets every key tile once and also runs the
+//      state update: the accumulator scaled by exp(total), then A = (wdt x)^T
+//      (ldmatrix.trans from the x tile, scaled and split in registers)
+//      against the B tile, MN-major.
+// C.B^T is not shared across the heads of a group: a CTA that took two
+// heads would halve the grid to 128 CTAs, fewer than the 132 SMs, and need
+// a second state copy that two CTAs per SM leave no room for.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int P = 64;          // head dim
-constexpr int N = 128;         // state dim
-constexpr int QMAX = 256;      // largest chunk
-constexpr int R = 32;          // query rows per tile
-constexpr int THREADS = 256;
-constexpr int BT_LD = QMAX + 4;  // B^T row pitch (bf16): 8-byte aligned rows
+constexpr int P = 64;           // head dim
+constexpr int N = 128;          // state dim
+constexpr int QMAX = 256;       // largest chunk
+constexpr int QALIGN = 32;      // chunks are whole multiples of this
+constexpr int TILE = 64;        // rows of C, keys of B and x per tile
+constexpr int THREADS = 128;    // one warpgroup
+constexpr int BOX = 64 * 64 * 2;                 // one 64 x 64 bf16 box
+constexpr int OFF_C = 0;                         // C tile: 2 boxes
+constexpr int OFF_B = OFF_C + 2 * BOX;           // B tiles: 2 x 2 boxes
+constexpr int OFF_X = OFF_B + 4 * BOX;           // x tiles: 2 x 1 box
+constexpr int OFF_SH = OFF_X + 2 * BOX;          // state hi: 2 boxes
+constexpr int OFF_SL = OFF_SH + 2 * BOX;         // state lo: 2 boxes
+constexpr int OFF_VEC = OFF_SL + 2 * BOX;        // f32 vectors below
+constexpr int SMEM_BYTES = OFF_VEC + 4 * (3 * QMAX + 32) + 1024;  // + align
+constexpr float LOG2E = 1.4426950408889634f;
+// two CTAs per SM: 228 KiB of shared memory, 1 KiB of it reserved per CTA
+static_assert(2 * (SMEM_BYTES + 64 + 1024) <= 228 * 1024, "two CTAs per SM");
 
 struct Strides {
   int64_t xb, xh, xs;   // x (b, h, s); p contiguous
   int64_t db, dh, ds;   // dt (b, h, s)
-  int64_t bb, bg, bs;   // B (b, g, s); n contiguous
-  int64_t cb, cg, cs;   // C (b, g, s); n contiguous
   int64_t yb, yh, ys;   // y (b, h, s); p contiguous
 };
 
-// shared memory, in bytes
-constexpr size_t SMEM_STATE = sizeof(float) * N * P;            // [n][p]
-constexpr size_t SMEM_X = sizeof(__nv_bfloat16) * QMAX * P;     // [j][p]
-constexpr size_t SMEM_BT = sizeof(__nv_bfloat16) * N * BT_LD;   // [n][j]
-constexpr size_t SMEM_C = sizeof(float) * R * N;                // [i][n]
-constexpr size_t SMEM_W = sizeof(float) * R * QMAX;             // [i][j]
-constexpr size_t SMEM_VEC = sizeof(float) * (3 * QMAX + 32);    // cum, dt, wdt
-constexpr size_t SMEM_BYTES =
-    SMEM_STATE + SMEM_X + SMEM_BT + SMEM_C + SMEM_W + SMEM_VEC;
-
-__device__ __forceinline__ float bf(const __nv_bfloat16 v) {
-  return __bfloat162float(v);
+// byte offset of (row, 16-byte chunk) in a 128-byte-swizzled 64-row box
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ void put(__nv_bfloat16* d, __nv_bfloat16 v) {
-  *d = v;
-}
-__device__ __forceinline__ void put(float* d, __nv_bfloat16 v) { *d = bf(v); }
-
-// Copy `rows` rows of COLS contiguous bf16 values (rows `row_stride` apart)
-// into shared memory at dst[r * ld + c], or dst[c * ld + r] when
-// TRANSPOSE.  Each thread keeps U loads in flight before it stores, so the
-// copy waits on device memory about once per U elements, not once each.
-template <int COLS, bool TRANSPOSE, typename D>
-__device__ __forceinline__ void stage_rows(
-    const __nv_bfloat16* __restrict__ src, int64_t row_stride, int rows,
-    D* __restrict__ dst, int ld) {
-  constexpr int U = 16;
-  const int total = rows * COLS;
-  for (int e0 = threadIdx.x; e0 < total; e0 += THREADS * U) {
-    __nv_bfloat16 v[U];
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int e = e0 + k * THREADS;
-      if (e < total) v[k] = src[(int64_t)(e / COLS) * row_stride + e % COLS];
-    }
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int e = e0 + k * THREADS;
-      if (e < total) {
-        const int r = e / COLS, c = e % COLS;
-        put(dst + (TRANSPOSE ? c * ld + r : r * ld + c), v[k]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
-    const __nv_bfloat16* __restrict__ Cm, __nv_bfloat16* __restrict__ y,
+__global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap cmap, const float* __restrict__ dt,
+    const float* __restrict__ A, __nv_bfloat16* __restrict__ y,
     float* __restrict__ state_out, int H, int G, int S, int Q, Strides st) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* state = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_STATE);
-  __nv_bfloat16* bt =
-      reinterpret_cast<__nv_bfloat16*>(smem + SMEM_STATE + SMEM_X);
-  float* cs = reinterpret_cast<float*>(smem + SMEM_STATE + SMEM_X + SMEM_BT);
-  float* ws = cs + R * N;
-  float* cum = ws + R * QMAX;
-  float* dts = cum + QMAX;
-  float* wdt = dts + QMAX;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_c;
+  __shared__ uint64_t bar_k[2];
+  // the 128-byte swizzle repeats every 1024 bytes: boxes start on it
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* cs = smem + OFF_C;
+  uint8_t* sth = smem + OFF_SH;
+  uint8_t* stl = smem + OFF_SL;
+  // per step of the chunk: cum log2(e); cum log2(e) - log2(dt), so that
+  // exp(cum_i - cum_j) dt_j = exp2(cum2_i - u_j); wdt; and the scan's sums
+  float* cum2 = reinterpret_cast<float*>(smem + OFF_VEC);
+  float* u = cum2 + QMAX;
+  float* wdt = u + QMAX;
   float* warp_tot = wdt + QMAX;
 
   const int tid = threadIdx.x;
@@ -125,151 +128,291 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int g = h / (H / G);
+  const int grp = h / (H / G);
   const float a = A[h];
-
-  const __nv_bfloat16* xp = x + b * st.xb + h * st.xh;
   const float* dtp = dt + b * st.db + h * st.dh;
-  const __nv_bfloat16* bp = Bm + b * st.bb + g * st.bg;
-  const __nv_bfloat16* cp = Cm + b * st.cb + g * st.cg;
   __nv_bfloat16* yp = y + b * st.yb + h * st.yh;
 
-  for (int e = tid; e < N * P; e += THREADS) state[e] = 0.f;
+  // accumulator layout of wgmma m64n64: d[4n + 2i + j] is row r0 + 8i,
+  // column 8n + cq + j of the 64 x 64 tile
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  // ldmatrix.trans of the A operand (wdt x)^T from the x tile [key][p]:
+  // this lane's row (key) and 16-byte chunk (p / 8) of its 8 x 8 matrix
+  const int mi = lane >> 3;
+  const int ld_key = (lane & 7) + (mi >> 1) * 8;
+  const int ld_chunk = 2 * warp + (mi & 1);
 
-  // thread roles in the y and state phases: column p, a group of rows/n
-  const int p = tid % P;
-  const int grp = tid / P;  // 0..3
+  if (tid == 0) {
+    mbar_init(&bar_c, 1);
+    mbar_init(&bar_k[0], 1);
+    mbar_init(&bar_k[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // state[p][n]: sacc[0] holds n 0..63, sacc[1] n 64..127, rows p = r0 (+8)
+  float sacc[2][32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sacc[0][e] = sacc[1][e] = 0.f;
+
+  const int nblk = (Q + TILE - 1) / TILE;   // row blocks = key tiles
+  uint32_t c_loads = 0, k_loads[2] = {0, 0};
 
   for (int c0 = 0; c0 < S; c0 += Q) {
-    // ---- stage the chunk: dt, cum (block prefix sum), x, B^T ----------
-    float d = 0.f, v = 0.f;
-    if (tid < Q) {
-      d = dtp[(int64_t)(c0 + tid) * st.ds];
-      v = d * a;
+    // ---- 1. dt, cum (block prefix sum, two steps a thread), wdt ---------
+    float d0 = 0.f, d1 = 0.f;
+    if (2 * tid < Q) {
+      d0 = dtp[(int64_t)(c0 + 2 * tid) * st.ds];
+      d1 = dtp[(int64_t)(c0 + 2 * tid + 1) * st.ds];
     }
+    const float s0 = d0 * a;
+    const float s1 = s0 + d1 * a;
+    float v = s1;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float u = __shfl_up_sync(0xffffffffu, v, off);
       if (lane >= off) v += u;
     }
     if (lane == 31) warp_tot[warp] = v;
-    stage_rows<P, false>(xp + (int64_t)c0 * st.xs, st.xs, Q, xs, P);
-    stage_rows<N, true>(bp + (int64_t)c0 * st.bs, st.bs, Q, bt, BT_LD);
     __syncthreads();
-    if (tid < Q) {
-      float prefix = 0.f;
-      for (int w = 0; w < warp; ++w) prefix += warp_tot[w];
-      cum[tid] = prefix + v;
-      dts[tid] = d;
+    float prefix = v - s1;
+    for (int w = 0; w < warp; ++w) prefix += warp_tot[w];
+    const float cum0 = prefix + s0, cum1 = prefix + s1;
+    if (2 * tid < Q) {
+      cum2[2 * tid] = cum0 * LOG2E;
+      cum2[2 * tid + 1] = cum1 * LOG2E;
+      // dt = 0 gives u = inf, so exp2 gives exactly 0
+      u[2 * tid] = cum0 * LOG2E - log2f(d0);
+      u[2 * tid + 1] = cum1 * LOG2E - log2f(d1);
     }
+    if (2 * tid + 1 == Q - 1) warp_tot[8] = cum1;   // the chunk's total
     __syncthreads();
-    const float total = cum[Q - 1];
-    if (tid < Q) wdt[tid] = expf(total - cum[tid]) * dts[tid];
+    const float total = warp_tot[8];
+    if (2 * tid < Q) {
+      wdt[2 * tid] = expf(total - cum0) * d0;
+      wdt[2 * tid + 1] = expf(total - cum1) * d1;
+    }
 
-    // ---- y, 32 query rows at a time -------------------------------------
-    for (int r0 = 0; r0 < Q; r0 += R) {
-      const int jmax = r0 + R;  // key columns this row tile needs
-      stage_rows<N, false>(cp + (int64_t)(c0 + r0) * st.cs, st.cs, R, cs, N);
-      __syncthreads();
-      if (tid < jmax) {
-        const int j = tid;
-        float acc[R];
+    // ---- 2. y, 64 rows at a time; 3. the state update -------------------
+    int tile_in[2] = {-1, -1};   // key tile in each buffer
+    int buf = 0;                 // buffer of the current step
+    // key tile kt (B: two boxes, x: one) into buffer kb, by one thread
+    auto load_keys = [&](int kt, int kb) {
+      if (tid == 0) {
+        const int row = c0 + kt * TILE;
+        uint8_t* bt = smem + OFF_B + kb * 2 * BOX;
+        mbar_expect_tx(&bar_k[kb], 3 * BOX);
+        tma_load_4d(bt, &bmap, &bar_k[kb], 0, row, grp, b);
+        tma_load_4d(bt + BOX, &bmap, &bar_k[kb], 64, row, grp, b);
+        tma_load_4d(smem + OFF_X + kb * BOX, &xmap, &bar_k[kb], 0, row, h,
+                    b);
+      }
+      ++k_loads[kb];
+      tile_in[kb] = kt;
+    };
+    for (int rb = 0; rb < nblk; ++rb) {
+      const bool last = rb == nblk - 1;
+      if (tid == 0) {
+        mbar_expect_tx(&bar_c, 2 * BOX);
+        tma_load_4d(cs, &cmap, &bar_c, 0, c0 + rb * TILE, grp, b);
+        tma_load_4d(cs + BOX, &cmap, &bar_c, 64, c0 + rb * TILE, grp, b);
+      }
+      ++c_loads;
+      if (last) {
+        const float decay = expf(total);
 #pragma unroll
-        for (int i = 0; i < R; ++i) acc[i] = 0.f;
-        for (int n = 0; n < N; n += 4) {
-          const float b0 = bf(bt[(n + 0) * BT_LD + j]);
-          const float b1 = bf(bt[(n + 1) * BT_LD + j]);
-          const float b2 = bf(bt[(n + 2) * BT_LD + j]);
-          const float b3 = bf(bt[(n + 3) * BT_LD + j]);
+        for (int e = 0; e < 32; ++e) {
+          sacc[0][e] *= decay;
+          sacc[1][e] *= decay;
+        }
+      }
+      float yacc[32];
 #pragma unroll
-          for (int i = 0; i < R; ++i) {
-            const float4 cv = *reinterpret_cast<const float4*>(cs + i * N + n);
-            acc[i] += cv.x * b0 + cv.y * b1 + cv.z * b2 + cv.w * b3;
+      for (int e = 0; e < 32; ++e) yacc[e] = 0.f;
+      // rows r0 and r0 + 8 of the block, as chunk rows
+      const int row0 = rb * TILE + r0, row1 = row0 + 8;
+
+      for (int step = 0; step <= rb; ++step) {
+        const int kt = (rb & 1) ? step : rb - step;
+        if (tile_in[buf] != kt) {
+          buf = tile_in[0] == kt ? 0 : tile_in[1] == kt ? 1 : buf ^ 1;
+          if (tile_in[buf] != kt) load_keys(kt, buf);  // chunk's first step
+        }
+        // the next step's tile, into the other buffer (free: the step
+        // that last read it ended on a barrier)
+        int nk = -1;
+        if (step < rb) nk = (rb & 1) ? step + 1 : rb - step - 1;
+        else if (!last) nk = (rb & 1) ? rb + 1 : 0;   // (rb + 1)'s first
+        if (nk >= 0 && tile_in[0] != nk && tile_in[1] != nk)
+          load_keys(nk, buf ^ 1);
+        if (step == 0) mbar_wait(&bar_c, (c_loads - 1) & 1);
+        mbar_wait(&bar_k[buf], (k_loads[buf] - 1) & 1);
+        uint8_t* kb = smem + OFF_B + buf * 2 * BOX;
+        uint8_t* kx = smem + OFF_X + buf * BOX;
+
+        if (step == 0 && c0 > 0) {
+          // exp(cum_i) C_i . state_in, state as hi + lo
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const uint64_t ad = wgmma_desc_sw128(cs + (kk >> 2) * BOX) +
+                                2 * (kk & 3);
+            const int so = (kk >> 2) * BOX;
+            wgmma_ss_m64n64k16(yacc, ad, wgmma_desc_sw128(sth + so) +
+                                             2 * (kk & 3), 1);
+            wgmma_ss_m64n64k16(yacc, ad, wgmma_desc_sw128(stl + so) +
+                                             2 * (kk & 3), 1);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(yacc);
+          const float e0 = exp2f(cum2[min(row0, Q - 1)]);
+          const float e1 = exp2f(cum2[min(row1, Q - 1)]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            yacc[4 * n + 0] *= e0;
+            yacc[4 * n + 1] *= e0;
+            yacc[4 * n + 2] *= e1;
+            yacc[4 * n + 3] *= e1;
           }
         }
-        const float cj = cum[j], dj = dts[j];
+
+        // S = C . B^T over N = 128: two boxes of 64 along N
+        float sc[32];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int gi = r0 + i;
-          // exp only on or below the diagonal: never inf * 0
-          ws[i * QMAX + j] = j <= gi ? expf(cum[gi] - cj) * dj * acc[i] : 0.f;
+        for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_m64n64k16(
+              sc, wgmma_desc_sw128(cs + (kk >> 2) * BOX) + 2 * (kk & 3),
+              wgmma_desc_sw128(kb + (kk >> 2) * BOX) + 2 * (kk & 3), kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // W, kept where key <= row < Q, as hi + lo bf16 pairs: ph[2n + i]
+        // holds row r0 + 8i, keys 8n + cq, +1
+        uint32_t ph[16], pl[16];
+        const float ci[2] = {cum2[min(row0, Q - 1)], cum2[min(row1, Q - 1)]};
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int key = kt * TILE + 8 * n + cq;
+          const float2 uj =
+              *reinterpret_cast<const float2*>(u + min(key, Q - 2));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = i ? row1 : row0;
+            const bool ok = row < Q;
+            const float w0 = ok && key <= row
+                                 ? exp2f(ci[i] - uj.x) * sc[4 * n + 2 * i]
+                                 : 0.f;
+            const float w1 = ok && key + 1 <= row
+                                 ? exp2f(ci[i] - uj.y) * sc[4 * n + 2 * i + 1]
+                                 : 0.f;
+            split_bf16x2(w0, w1, ph[2 * n + i], pl[2 * n + i]);
+          }
         }
-      }
-      __syncthreads();
-      // rows grp*8 .. grp*8+7 of the tile, column p
-      float yi[8], yc[8];
+
+        // y += W_hi x + W_lo x: k-step kk takes keys 16kk.., x rows 16kk..
+        const uint64_t xd = wgmma_desc_sw128(kx);
+        wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 8; ++k) yi[k] = yc[k] = 0.f;
-      for (int j = 0; j < jmax; j += 4) {
-        const float x0 = bf(xs[(j + 0) * P + p]);
-        const float x1 = bf(xs[(j + 1) * P + p]);
-        const float x2 = bf(xs[(j + 2) * P + p]);
-        const float x3 = bf(xs[(j + 3) * P + p]);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float4 w =
-              *reinterpret_cast<const float4*>(ws + (grp * 8 + k) * QMAX + j);
-          yi[k] += w.x * x0 + w.y * x1 + w.z * x2 + w.w * x3;
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                                  ph[4 * kk + 3]};
+          const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                                  pl[4 * kk + 3]};
+          wgmma_rs_m64n64k16_tb(yacc, ah, xd + kk * (2048 >> 4));
+          wgmma_rs_m64n64k16_tb(yacc, al, xd + kk * (2048 >> 4));
         }
-      }
-      for (int n = 0; n < N; n += 4) {
-        const float s0 = state[(n + 0) * P + p];
-        const float s1 = state[(n + 1) * P + p];
-        const float s2 = state[(n + 2) * P + p];
-        const float s3 = state[(n + 3) * P + p];
+        wgmma_commit();
+
+        if (last) {
+          // state += (wdt x)^T B over this key tile's 64 keys: A from the
+          // x tile by ldmatrix.trans (register r: rows p 16 warp + g (+8),
+          // keys 2 t + 8 (r / 2), +1), scaled and split; B MN-major
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float4 cv =
-              *reinterpret_cast<const float4*>(cs + (grp * 8 + k) * N + n);
-          yc[k] += cv.x * s0 + cv.y * s1 + cv.z * s2 + cv.w * s3;
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t xa[4], ah[4], al[4];
+            ldsm_x4_t(xa, kx + swz(16 * kk + ld_key, ld_chunk));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int key = kt * TILE + 16 * kk + cq + 8 * (r >> 1);
+              const float2 xv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&xa[r]));
+              const float w0 = key < Q ? wdt[key] : 0.f;
+              const float w1 = key + 1 < Q ? wdt[key + 1] : 0.f;
+              split_bf16x2(xv.x * w0, xv.y * w1, ah[r], al[r]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const uint64_t bd =
+                  wgmma_desc_sw128(kb + hh * BOX) + kk * (2048 >> 4);
+              wgmma_rs_m64n64k16_tb(sacc[hh], ah, bd);
+              wgmma_rs_m64n64k16_tb(sacc[hh], al, bd);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(sacc[0]);
+          fence_regs(sacc[1]);
         }
+        wgmma_wait_all();
+        fence_regs(yacc);
+        __syncthreads();   // this key buffer is free for a prefetch
       }
+
+      // y for the rows of this block inside the chunk
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int gi = r0 + grp * 8 + k;
-        yp[(int64_t)(c0 + gi) * st.ys + p] =
-            __float2bfloat16(yi[k] + expf(cum[gi]) * yc[k]);
+      for (int i = 0; i < 2; ++i) {
+        const int row = i ? row1 : row0;
+        if (row >= Q) continue;
+        __nv_bfloat16* yr = yp + (int64_t)(c0 + row) * st.ys + cq;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(yr + 8 * n) =
+              __floats2bfloat162_rn(yacc[4 * n + 2 * i],
+                                    yacc[4 * n + 2 * i + 1]);
       }
-      __syncthreads();  // cs and ws are rewritten by the next row tile
+      // (the C tile is free: every warp passed the step's barrier)
     }
 
-    // ---- state update: n = grp*32 .. grp*32+31, column p -----------------
-    {
-      const float decay = expf(total);
-      float acc[32];
+    // the hi + lo copy of the state that the next chunk's C.state reads,
+    // in the swizzled layout of its two boxes [p][n 0..63], [p][n 64..127]
+    if (c0 + Q < S) {
 #pragma unroll
-      for (int k = 0; k < 32; ++k) acc[k] = 0.f;
-      for (int j = 0; j < Q; j += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(wdt + j);
-        const float x0 = bf(xs[(j + 0) * P + p]) * wv.x;
-        const float x1 = bf(xs[(j + 1) * P + p]) * wv.y;
-        const float x2 = bf(xs[(j + 2) * P + p]) * wv.z;
-        const float x3 = bf(xs[(j + 3) * P + p]) * wv.w;
+      for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int k = 0; k < 32; ++k) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(
-              bt + (grp * 32 + k) * BT_LD + j);
-          const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-          acc[k] += x0 * __low2float(lo) + x1 * __high2float(lo) +
-                    x2 * __low2float(hi) + x3 * __high2float(hi);
-        }
-      }
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
-        float* s = state + (grp * 32 + k) * P + p;
-        *s = decay * *s + acc[k];
-      }
+          for (int i = 0; i < 2; ++i) {
+            const int p = r0 + 8 * i;
+            const int off = hh * BOX + swz(p, n) + 2 * cq;
+            uint32_t hi, lo;
+            split_bf16x2(sacc[hh][4 * n + 2 * i], sacc[hh][4 * n + 2 * i + 1],
+                         hi, lo);
+            *reinterpret_cast<uint32_t*>(sth + off) = hi;
+            *reinterpret_cast<uint32_t*>(stl + off) = lo;
+          }
+      fence_proxy_async();
     }
-    __syncthreads();  // xs, bt and the state are read by the next chunk
+    __syncthreads();
   }
 
-  // final state, (P, N) for this (b, h), f32
+  // final state, (P, N) for this (b, h), f32, from the registers
   float* so = state_out + (int64_t)bh * P * N;
-  for (int e = tid; e < P * N; e += THREADS) {
-    const int pp = e / N, n = e % N;
-    so[e] = state[n * P + pp];
-  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(so + (r0 + 8 * i) * N + 64 * hh + 8 * n +
+                                   cq) =
+            make_float2(sacc[hh][4 * n + 2 * i], sacc[hh][4 * n + 2 * i + 1]);
 }
 
 }  // namespace
@@ -286,28 +429,30 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             void* stream) {
   if (P_ != P || N_ != N) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || Q <= 0 || Q > QMAX ||
-      Q % R != 0 || S <= 0 || S % Q != 0)
+      Q % QALIGN != 0 || S <= 0 || S % Q != 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int64_t* s = strides;
+  CUtensorMap xm, bm, cm;
+  if (!encode_rows(&xm, x, 64, S, H, B, s[2], s[1], s[0]) ||
+      !encode_rows(&bm, Bm, N, S, G, B, s[8], s[7], s[6]) ||
+      !encode_rows(&cm, Cm, N, S, G, B, s[11], s[10], s[9]))
+    return (int)cudaErrorInvalidValue;
   // above 48 KiB of dynamic shared memory only after opting in (per
   // device, so on every launch; it is a host-side attribute, not a stream
   // operation, and is allowed while a CUDA graph captures)
   const cudaError_t e = cudaFuncSetAttribute(
       ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   Strides st;
-  const int64_t* s = strides;
   st.xb = s[0]; st.xh = s[1]; st.xs = s[2];
   st.db = s[3]; st.dh = s[4]; st.ds = s[5];
-  st.bb = s[6]; st.bg = s[7]; st.bs = s[8];
-  st.cb = s[9]; st.cg = s[10]; st.cs = s[11];
   st.yb = s[12]; st.yh = s[13]; st.ys = s[14];
   ssd_scan_kernel<<<B * H, THREADS, SMEM_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
-      static_cast<const __nv_bfloat16*>(Cm), static_cast<__nv_bfloat16*>(y),
+      xm, bm, cm, static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<__nv_bfloat16*>(y),
       static_cast<float*>(state_out), H, G, S, Q, st);
   return (int)cudaGetLastError();
 }

@@ -169,3 +169,56 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            A.float(), Bm.transpose(1, 2), Cm.transpose(1, 2),
                            chunk)
     return y.transpose(1, 2), state
+
+
+def bf16_parts(v: torch.Tensor, parts: int = 2) -> list[torch.Tensor]:
+    """f32 ``v`` as ``parts`` bf16 values (held in f32) whose sum is ``v``
+    to about 2^-9 (one part) or 2^-17 (two) relative: hi = bf16(v), then
+    lo = bf16(v - hi)."""
+    out, rest = [], v.float()
+    for _ in range(parts):
+        p = rest.to(torch.bfloat16).float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def ssd_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+                       parts: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_ref` computed as the tensor-core kernel computes it:
+    chunk by chunk with the state carried in f32, every product over bf16
+    factors with f32 sums, and each f32 factor (W in W.x, the state in
+    C.state, wdt x in the state update) cut into ``parts`` bf16 parts at
+    the same places as the kernel (two there; one shows what a single
+    rounding costs).  Same arguments and results as :func:`ssd_scan_ref`."""
+    B, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    rep = H // G
+    xf = x.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=1)          # (B, H, S, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=1)
+    a = A.float()[None, :, None]
+    keep = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        d = dt[:, :, sl].float()                           # (B, H, Q)
+        cum = torch.cumsum(d * a, dim=-1)
+        total = cum[..., -1:]
+        xc, Bc, Cc = xf[:, :, sl], Bf[:, :, sl], Cf[:, :, sl]
+        # exp(cum_i) C_i . state_in, then the intra-chunk W . x
+        y = sum(Cc @ s.transpose(-1, -2) for s in bf16_parts(state, parts))
+        y = torch.exp(cum)[..., None] * y
+        li = cum[..., :, None] - cum[..., None, :]
+        L = torch.where(keep, torch.exp(li), 0.0) * d[..., None, :]
+        W = L * (Cc @ Bc.transpose(-1, -2))
+        y = y + sum(w @ xc for w in bf16_parts(W, parts))
+        ys.append(y)
+        # state = exp(total) state + (wdt x)^T B
+        xw = xc * (torch.exp(total - cum) * d)[..., None]
+        state = torch.exp(total)[..., None] * state + sum(
+            u.transpose(-1, -2) @ Bc for u in bf16_parts(xw, parts))
+    return torch.cat(ys, dim=2).to(x.dtype), state

@@ -20,8 +20,7 @@ from . import build, ref
 
 #: (head dim P, state dim N) the kernel is built for: mamba2-1.3b's
 SHAPES = ((64, 128),)
-#: largest chunk the kernel's shared memory holds; chunks are whole
-#: 32-row tiles
+#: largest chunk the kernel takes; chunks are whole multiples of 32 rows
 MAX_CHUNK = 256
 ROW_TILE = 32
 #: shared memory one CTA may use on Hopper
@@ -70,6 +69,10 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError("the last dim of x, B, C and y must be "
                              "contiguous")
+    for t in (x, Bm, Cm):
+        if not build.aligned16(t, (0, 1, 2)):
+            raise ValueError("the SSD kernel loads x, B and C as TMA tiles: "
+                             "their rows must start on 16 bytes")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError("dt and A must be f32")
     for t in (dt, A, Bm, Cm, out):

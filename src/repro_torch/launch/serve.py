@@ -35,6 +35,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import time
 from typing import Iterator, Optional
@@ -61,6 +62,15 @@ DRAIN_RATE_WINDOW = 4
 #: a stream counts as client-limited evidence only when its staging hop
 #: spent at least this fraction of the transfer backpressured by the sink
 CLIENT_LIMITED_STALL = 0.1
+
+#: an eager decode step at batch 4 on the card, by model family, used until
+#: a server has timed steps of its own: PERF.md section 5, run 2a of PR 15
+#: (smollm-360m 36.27 ms, mamba2-1.3b 81.19 ms), measured by chip_smoke.py
+#: on an NVIDIA H100 80GB HBM3 at its 700.00 W power limit
+H100_DECODE_STEP_MS = {"dense": 36.27, "ssm": 81.19}
+
+#: how many recent decode steps the step-time estimate averages over
+STEP_MS_WINDOW = 32
 
 
 def observed_client_gbps(registry: TelemetryRegistry) -> Optional[float]:
@@ -106,26 +116,39 @@ class Server:
         self.replan_every_tokens = replan_every_tokens
         self.params = None
         self.last_report = None
+        #: host wall ms of recent decode steps, each to its tokens on the host
+        self.step_ms: collections.deque[float] = collections.deque(
+            maxlen=STEP_MS_WINDOW)
 
     def load(self, seed: int = 0) -> None:
         """Random weights drawn on the device from ``seed``."""
         self.params = self.api.init(seed, device=self.device)
 
+    def decode_step_ms(self) -> float:
+        """The decode step's time as this server has seen it: the mean of
+        its recent steps, or :data:`H100_DECODE_STEP_MS` before the first."""
+        if self.step_ms:
+            return sum(self.step_ms) / len(self.step_ms)
+        return H100_DECODE_STEP_MS[self.cfg.family]
+
     def stream_basin(self):
-        """The decode-stream basin, its client tier re-estimated from the
-        drain rate previous requests actually observed."""
+        """The decode-stream basin: its producer tier from the decode steps
+        this server has timed, its client tier re-estimated from the drain
+        rate previous requests actually observed."""
+        kw = {"decode_step_ms": self.decode_step_ms()}
         drain = observed_client_gbps(self.telemetry)
-        if drain is None:
-            return decode_stream_basin()
-        return decode_stream_basin(client_gbps=drain)
+        if drain is not None:
+            kw["client_gbps"] = drain
+        return decode_stream_basin(**kw)
 
     def fanout_basin(self, n_clients: int):
         """The decode fan-out basin for ``n_clients`` concurrent streams,
-        its per-client tier re-estimated from observed drain rates."""
+        timed and re-estimated as :meth:`stream_basin`."""
+        kw = {"decode_step_ms": self.decode_step_ms()}
         drain = observed_client_gbps(self.telemetry)
-        if drain is None:
-            return decode_fanout_basin(n_clients)
-        return decode_fanout_basin(n_clients, client_gbps=drain)
+        if drain is not None:
+            kw["client_gbps"] = drain
+        return decode_fanout_basin(n_clients, **kw)
 
     def _tokens(self, batch: dict) -> torch.Tensor:
         return torch.as_tensor(np.asarray(batch["tokens"]),
@@ -166,10 +189,13 @@ class Server:
                        else contextlib.nullcontext())
             with on_card:
                 for _ in range(n_tokens - 1):
+                    t0 = time.perf_counter()
                     logits_i, cache = self.decode(cache, tok)
                     tok = torch.argmax(logits_i[:, -1], dim=-1,
                                        keepdim=True).to(torch.int32)
-                    yield tok.cpu().numpy()
+                    step = tok.cpu().numpy()    # waits for the device
+                    self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    yield step
 
         sinks = list(sink) if isinstance(sink, (list, tuple)) else None
         collected: list[np.ndarray] = []

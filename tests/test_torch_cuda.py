@@ -272,7 +272,7 @@ def _close_to_scale(got, want, atol_share, rtol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,G,S", [(4, 64, 1, 512), (1, 64, 1, 1024),
-                                     (2, 8, 2, 256)])
+                                     (2, 8, 2, 256), (1, 64, 1, 2048)])
 def test_ssd_kernel_matches_plain_on_card(card, B, H, G, S):
     x, dt, A, Bm, Cm = _ssd_inputs(card, B, H, G, S, seed=S + G)
     n = build.KERNELS["ssd_scan"].launches
@@ -283,6 +283,52 @@ def test_ssd_kernel_matches_plain_on_card(card, B, H, G, S):
     assert bool(torch.isfinite(y.float()).all())
     _close_to_scale(y, ry, 1e-3, 8e-3)
     _close_to_scale(state, rstate, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,G", [(32, 1), (64, 1), (64, 2), (96, 1),
+                                     (128, 1), (128, 2)])
+def test_ssd_kernel_takes_every_chunk(card, chunk, G):
+    """Chunks that are multiples of 32 up to 256: whole and partial
+    64-row tiles (96 = 64 + 32), several chunks carrying the state."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 2, 8, G, 4 * chunk, seed=chunk + G)
+    y, state = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=chunk)
+    ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    _close_to_scale(y, ry, 1e-3, 8e-3)
+    _close_to_scale(state, rstate, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_replays_in_a_cuda_graph(card):
+    """The SSD kernel captured in a CUDA graph and replayed gives what an
+    eager call gives, bit for bit."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 4, 64, 1, 512, seed=13)
+    eager = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=256)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up off the capture
+        ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gy, gs = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=256)
+    gy.zero_()
+    gs.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gy, eager[0]) and torch.equal(gs, eager[1])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_unaligned_rows(card):
+    """Rows of x, B and C are copied 16 bytes at a time: a view 4 elements
+    in is refused before launch."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 2, 1, 256)
+    wide = torch.zeros(1, 1, 256, 136, device=card, dtype=torch.bfloat16)
+    n = build.KERNELS["ssd_scan"].launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_scan_bhsd(x, dt, A, wide[..., 4:132], Cm, chunk=256)
+    assert build.KERNELS["ssd_scan"].launches == n
 
 
 @pytest.mark.cuda
