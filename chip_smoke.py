@@ -21,7 +21,12 @@ Phases, one JSON line each:
    the kernel, the plain version and, where one PyTorch call computes the
    same function, that call (``scaled_dot_product_attention``, a yardstick
    the port never calls); ``call_ms`` is the kernel's time per eager call,
-   host included.
+   host included.  The whole-item digest ``digest_items`` is checked at
+   the main paths' shapes (one KV item, a prefill's 64 KV items as one
+   slab, one wire item, 48 wire items as one slab, one 64 MiB item), each
+   record with its bytes, TB/s and launches per call; one more record
+   gives the host time of one ``StreamDigest.add`` of a KV item and
+   whether a slab folded under ``set_sync_debug_mode("error")`` raised.
 4. ``serve`` (smollm-360m): ``Server(get_config("smollm-360m"),
    device="cuda")`` (full width, 32 layers, random weights from a seed)
    serves 4 x 128-token prompts for 32 tokens through the mover, and the
@@ -29,10 +34,14 @@ Phases, one JSON line each:
    planned with ``checksum_placement="accel"`` on the card's staging basin
    (``card_host_basin``: HBM, PCIe Gen5 x16, pageable host memory at the
    copy rate this run measures), its digest priced at the rate phase 3
-   measured for one KV item.  Prefill ms, decode
-   ms/token (eager, and as device time from a CUDA graph), tok/s, peak
-   memory, and a profiler trace of one prefill and one decode step (device
-   busy time, idle share, top kernels).
+   measured for one KV item (the mover hands the digest one item at a
+   time: one launch each).  The run fails unless the staging launched the
+   digest once per item or slab the mover handed over
+   (``kv_digest_folds``), and unless a profiler trace of one more staging
+   shows no kernel but the digest (no padding, no concatenation).
+   Prefill ms, decode ms/token (eager, and as device time from a CUDA
+   graph), tok/s, peak memory, and a profiler trace of one prefill and
+   one decode step (device busy time, idle share, top kernels).
 5. ``correct`` (smollm-360m): the kernel path's prefill logits and 4
    teacher-forced decode steps against the plain path (``impl="ref"``) on
    the same weights; the served tokens against the kernel path's own greedy
@@ -48,7 +57,8 @@ Phases, one JSON line each:
    ``transforms=[("compress", compress_transform())]`` on the card and an
    accel checksum, as int8 codes and scales; ``restore``: the host items
    go back onto the card through ``decompress_transform``.  Planned as
-   in 4, the digest priced at the rate phase 3 measured over 64 MiB.
+   in 4, the digest priced at the rate phase 3 measured for one wire item;
+   one digest launch per item handed over, as in 4.
 8. ``correct`` (mamba2-1.3b): kernel path against plain path as in 5; the
    codes and scales on the host against the plain quantizer's of the same
    state, bit for bit; the transfer's hexdigest against the plain digest
@@ -58,10 +68,12 @@ Phases, one JSON line each:
 The launch counts are set to 0 just before each path (the two ``serve``
 phases, ``stage_state``, ``restore``) and read just after; every kernel a
 path runs must have run there.  Then the kernels line (launches summed
-over the paths), the card line as ``nvidia-smi`` prints it, and last
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
-result lines; without a card, or without the repository's ``src/`` beside
-this file, it exits 2 and prints no result.
+over the paths; ``block_digest``, the TPU kernel's per-row function, is
+checked in phase 3 and runs on no path, so its count is 0), the card line
+as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before the result lines; without a card, or
+without the repository's ``src/`` beside this file, it exits 2 and prints
+no result.
 """
 
 from __future__ import annotations
@@ -124,8 +136,9 @@ def fail(msg: str) -> None:
 
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of ``fn``, in ms: ``iters`` calls captured in
-    one CUDA graph and replayed between two CUDA events, so the host's
-    launch cost is left out (inputs stay warm in L2 across the calls)."""
+    one CUDA graph (on the stream that ran the warm-up calls) and replayed
+    between two CUDA events, so the host's launch cost is left out (inputs
+    stay warm in L2 across the calls)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -134,7 +147,7 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -354,6 +367,109 @@ def check_digest(torch, nb):
                 bound_by=by)
 
 
+def check_digest_items(torch, label, items, plain_items):
+    """``digest_items`` on a slab of items against ``digest_items_ref`` on
+    the same bytes (``plain_items``: the host bytes of ``items`` as tensors
+    on the card, so the plain version can be captured in a graph), bit for
+    bit.  Bound: the slab's bytes read once and 8 bytes per item written,
+    at the memory rate (2 integer operations per 4-byte word, at the f32
+    rate, bound it far less)."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.digest import digest_items
+    n0 = build.launch_counts()["digest_items"]
+    out = digest_items(items)
+    launches = build.launch_counts()["digest_items"] - n0
+    expect = ref.digest_items_ref(plain_items)
+    torch.cuda.synchronize()
+    mismatches = int((out.view(torch.int64)
+                      != expect.view(torch.int64)).sum().item())
+    item_bytes = [sum(p.numel() if hasattr(p, "numel") else len(p)
+                      for p in parts) for parts in items]
+    nbytes = sum(item_bytes) + 8 * len(items)
+    bms, by = bound_ms(nbytes, 0.5 * sum(item_bytes), PEAK_F32)
+    kernel = lambda: digest_items(items)
+    big = nbytes > 2**26
+    ms = device_ms(kernel, iters=10 if big else 20)
+    return emit("check", kernel="digest_items", of=label, items=len(items),
+                bytes=sum(item_bytes), launches_per_call=launches,
+                mismatches=mismatches, max_abs_err=float(mismatches),
+                tol="bit-exact", ok=mismatches == 0 and launches == 1,
+                ms=ms, call_ms=call_ms(kernel, iters=10 if big else 20),
+                plain_ms=device_ms(lambda: ref.digest_items_ref(plain_items),
+                                   iters=2 if big else 5),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                tb_per_s=sum(item_bytes) / (ms / 1e3) / 1e12)
+
+
+def digest_checks(torch, cfg, mcfg):
+    """``digest_items`` at the main paths' shapes: one KV item, the KV
+    items of one prefill as one slab, one wire item (int8 codes, f32
+    scales, the shape's bytes inline), a staging's wire items as one slab,
+    and one 64 MiB item.  Then the host time of one ``StreamDigest.add`` of
+    a KV item (it queues a launch and returns), and one slab folded under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.core.integrity import StreamDigest, as_bytes
+    g = torch.Generator(device="cuda").manual_seed(17)
+    kv_bytes = BATCH * (PROMPT + GEN + 1) * cfg.kv_dim * 2
+    n_kv = 2 * cfg.n_layers
+    kv = torch.randint(0, 256, (n_kv, kv_bytes), generator=g,
+                       dtype=torch.uint8, device="cuda")
+    kv_items = [[kv[i]] for i in range(n_kv)]
+    values = BATCH * mcfg.ssm_heads * mcfg.ssm.head_dim * mcfg.ssm.d_state
+    shape = (BATCH, mcfg.ssm_heads, mcfg.ssm.head_dim, mcfg.ssm.d_state)
+    n_state = mcfg.n_layers
+    codes = torch.randint(0, 256, (n_state, values), generator=g,
+                          dtype=torch.uint8, device="cuda")
+    scales = torch.randint(0, 256, (n_state, values // 256 * 4),
+                           generator=g, dtype=torch.uint8, device="cuda")
+    shape_bytes = as_bytes(shape)
+    shape_dev = torch.frombuffer(bytearray(shape_bytes),
+                                 dtype=torch.uint8).cuda()
+    wire = [[codes[i], scales[i], shape_bytes] for i in range(n_state)]
+    wire_plain = [[codes[i], scales[i], shape_dev] for i in range(n_state)]
+    big = torch.randint(0, 256, (2**26,), generator=g, dtype=torch.uint8,
+                        device="cuda")
+    recs = {
+        "kv_item": check_digest_items(torch, "one KV item", kv_items[:1],
+                                      kv_items[:1]),
+        "kv_slab": check_digest_items(torch, f"{n_kv} KV items, one slab",
+                                      kv_items, kv_items),
+        "wire_item": check_digest_items(torch, "one wire item", wire[:1],
+                                        wire_plain[:1]),
+        "wire_slab": check_digest_items(
+            torch, f"{n_state} wire items, one slab", wire, wire_plain),
+        "big": check_digest_items(torch, "one 64 MiB item", [[big]],
+                                  [[big]]),
+    }
+    # host wall time of one add of a KV item: it must not wait on the card
+    item = kv[0].view(torch.bfloat16)
+    d = StreamDigest(True, "accel")
+    d.add(item)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        d.add(item)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d.add_many([t[0].view(torch.bfloat16) for t in kv_items])
+        synced = False
+    except RuntimeError:
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain = StreamDigest(True, "accel", backend="ref")
+    plain.add_many([item] * 51 + [t[0] for t in kv_items])
+    got, want = d.hexdigest(), plain.hexdigest()
+    recs["add"] = emit(
+        "check", kernel="digest_items", of="StreamDigest.add of a KV item",
+        host_ms_median=statistics.median(walls), host_ms_min=min(walls),
+        add_many_slab_synced=synced, hexdigest=got, plain_hexdigest=want,
+        ok=got == want and not synced)
+    return recs
+
+
 def _ssd_inputs(torch, B, H, G, S, P=64, N=128, seed=0):
     """The SSD scan's inputs as the model makes them: bf16 x/B/C, dt the
     softplus of a raw projection plus a bias (0.001..0.3), A = -(1..16)."""
@@ -474,18 +590,32 @@ def pageable_gbps(torch, t, reps: int = 5) -> float:
 
 
 def digest_rate(rec: dict) -> float:
-    """Bytes per second of a ``check_digest`` record's kernel."""
-    return rec["rows"] * 1024 / (rec["ms"] / 1e3)
+    """Bytes per second of a ``check_digest_items`` record's kernel."""
+    return rec["bytes"] / (rec["ms"] / 1e3)
+
+
+def staging_kernels(torch, items, digest_bytes_per_s, copy_gbps) -> dict:
+    """The kernels (by name, with counts) one more KV staging runs on the
+    card, from a profiler trace; copies are not kernels and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _stage_kv(torch, items, digest_bytes_per_s, copy_gbps)
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith(
+                ("Memcpy", "Memset")):
+            names[ev.name] = names.get(ev.name, 0) + 1
+    return names
 
 
 def serve_and_stage(torch, server, batch, digest_bytes_per_s):
     """The main path: generate through the mover, then stage the prefill's
     KV cache to host memory under an accel-placed checksum, planned on
     the card's staging basin with this run's copy and digest rates."""
-    from repro_torch.core.basin import card_host_basin
-    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
-    from repro_torch.core.planner import plan_transfer
-
     t0 = time.monotonic()
     tokens = server.generate(batch, GEN)
     torch.cuda.synchronize()
@@ -494,20 +624,30 @@ def serve_and_stage(torch, server, batch, digest_bytes_per_s):
     _, cache = server.prefill(batch)
     items = [cache[name][i] for i in range(cache["k"].shape[0])
              for name in ("k", "v")]
-    item_bytes = items[0].nbytes
     copy_gbps = pageable_gbps(torch, items[0])
+    t0 = time.monotonic()
+    received, report = _stage_kv(torch, items, digest_bytes_per_s,
+                                 copy_gbps)
+    stage_s = time.monotonic() - t0
+    return tokens, gen_s, items, received, report, stage_s, copy_gbps
+
+
+def _stage_kv(torch, items, digest_bytes_per_s, copy_gbps=None):
+    """Stage KV items to host memory through the mover, planned on the
+    card's staging basin, under an accel-placed checksum."""
+    from repro_torch.core.basin import card_host_basin
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    from repro_torch.core.planner import plan_transfer
     plan = plan_transfer(card_host_basin(pageable_gbps=copy_gbps),
-                         item_bytes=item_bytes, stages=("kv-stage",),
+                         item_bytes=items[0].nbytes, stages=("kv-stage",),
                          checksum=True, checksum_placement="accel",
                          accel_digest_bytes_per_s=digest_bytes_per_s)
     mover = UnifiedDataMover(MoverConfig(checksum=True), plan=plan)
     received = []
-    t0 = time.monotonic()
     report = mover.bulk_transfer(iter(items),
                                  lambda t: received.append(t.to("cpu")),
                                  plan=plan)
-    stage_s = time.monotonic() - t0
-    return tokens, gen_s, items, received, report, stage_s, copy_gbps
+    return received, report
 
 
 def _teacher_forced(torch, api, params, ctx, tok, forced, max_len):
@@ -772,7 +912,10 @@ def main() -> int:
         "quantize_int8": quant,
         "dequantize_int8": dequant,
     }
+    digests = digest_checks(torch, cfg, mcfg)
+    main_shapes["digest_items"] = digests["kv_item"]
     checks += list(main_shapes.values())
+    checks += [r for k, r in digests.items() if k != "kv_item"]
     records += checks
     records.append(emit("phase_time", of="check",
                         seconds=time.monotonic() - t_phase))
@@ -783,6 +926,7 @@ def main() -> int:
 
     # ---- smollm-360m: serve, stage the KV cache -------------------------
     t_phase = time.monotonic()
+    mib_before = torch.cuda.memory_allocated() / 2**20
     server = Server(cfg, device="cuda", max_len=max_len)
     server.load(SEED)
     rng = torch.Generator().manual_seed(SEED)
@@ -794,23 +938,32 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    kv_digest = digest_rate(main_shapes["block_digest"])
+    # the mover digests one item per launch: plan with that record's rate
+    kv_digest = digest_rate(digests["kv_item"])
     tokens, gen_s, items, received, report, stage_s, kv_copy_gbps = \
         serve_and_stage(torch, server, batch, kv_digest)
     torch.cuda.synchronize()
     paths = {"smollm_serve": build.launch_counts()}
+    kv_trace = staging_kernels(torch, items, kv_digest, kv_copy_gbps)
     records.append(emit(
         "serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         batch=BATCH, prompt=PROMPT, gen=GEN, **timing, generate_s=gen_s,
         tok_per_s=BATCH * GEN / gen_s,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        kv_items=len(items), kv_bytes=sum(t.nbytes for t in items),
+        allocated_before_server_mib=mib_before, kv_items=len(items),
+        kv_bytes=sum(t.nbytes for t in items),
         kv_stage_s=stage_s, kv_stage_gbps=report.throughput_bytes_per_s
         * 8 / 1e9, kv_pageable_copy_gbps=kv_copy_gbps,
         kv_planned_digest_bytes_per_s=kv_digest,
+        kv_digest_folds=report.checksum_folds,
+        kv_staging_device_kernels=kv_trace,
         launches=paths["smollm_serve"]))
     need(paths, "smollm_serve",
-         ("flash_attention", "decode_attention", "block_digest"))
+         ("flash_attention", "decode_attention", "digest_items"))
+    once_per_fold(paths, "smollm_serve", report)
+    others = [n for n in kv_trace if "digest_items_kernel" not in n]
+    if others:
+        fail(f"one KV staging ran other kernels than the digest: {others}")
 
     correct = check_correct(torch, server, batch, tokens, items, received,
                             report)
@@ -852,7 +1005,7 @@ def main() -> int:
              f"{paths['mamba_serve']['ssd_scan']} times, not once per layer")
 
     build.reset_launches()
-    state_digest = digest_rate(big_digest)
+    state_digest = digest_rate(digests["wire_item"])
     cache, sitems, sreceived, sreport, sstage_s, state_copy_gbps = \
         stage_state(torch, mserver, mbatch, state_digest)
     torch.cuda.synchronize()
@@ -865,8 +1018,10 @@ def main() -> int:
         stage_s=sstage_s, state_gbps=state_bytes * 8 / sstage_s / 1e9,
         pageable_copy_gbps=state_copy_gbps,
         planned_digest_bytes_per_s=state_digest,
+        digest_folds=sreport.checksum_folds,
         launches=paths["stage_state"]))
-    need(paths, "stage_state", ("ssd_scan", "quantize_int8", "block_digest"))
+    need(paths, "stage_state", ("ssd_scan", "quantize_int8", "digest_items"))
+    once_per_fold(paths, "stage_state", sreport)
 
     from repro_torch.core.integrity import decompress_transform
     build.reset_launches()
@@ -895,8 +1050,10 @@ def main() -> int:
     kernels = []
     for name, rec in main_shapes.items():
         k = build.KERNELS[name]
+        # block_digest, the TPU kernel's per-row function, is checked above
+        # but no path runs it: the digest path runs digest_items
         launches = sum(c[name] for c in paths.values())
-        if launches == 0:
+        if launches == 0 and name != "block_digest":
             fail(f"no path launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
@@ -937,6 +1094,15 @@ def serve_timing(torch, server, batch, prompt) -> dict:
              "decode_step": device_busy(one_step)}
     return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
                 decode_device_ms_per_token=decode_device_ms, trace=trace)
+
+
+def once_per_fold(paths: dict, path: str, report) -> None:
+    """Fail unless the path's digest launches equal the folds its transfer
+    made: one launch per item or slab the mover handed over."""
+    got = paths[path]["digest_items"]
+    if got != report.checksum_folds:
+        fail(f"the {path} path launched the digest {got} times for "
+             f"{report.checksum_folds} items or slabs handed over")
 
 
 def need(paths: dict, path: str, names) -> None:

@@ -17,7 +17,11 @@ the CPU's hash throughput.  This module is the placement seam:
   the same hexdigest, equal to the JAX package's on the same bytes.  An item
   that is already a tensor on the card, or a tuple or list holding tensors
   there (a compressed item ``(q, scales, shape)``), is digested where it
-  lies, with no copy to the host.
+  lies, with no copy: :func:`~repro_torch.kernels.digest.digest_items`
+  reads each part in place, and a few host bytes (the shape) ride in the
+  launch.  On the card ``add`` is one launch per item and ``add_many`` one
+  per slab; the fingerprints stay on the card until :meth:`hexdigest`
+  reads them, so folding never waits on the card.
 
 Both placements are order-independent (concurrent staging workers deliver
 out of order) and batch-aware: :meth:`StreamDigest.add_many` folds a whole
@@ -48,12 +52,6 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-#: uint32 words per digest block (1 KiB of payload per block row)
-DIGEST_BLOCK = 256
-#: 2**32 / golden ratio, the fold's length mix constant
-_GOLDEN = 0x9E3779B1
-
-
 def as_bytes(item: Any) -> bytes:
     """Stable byte view of an item for integrity hashing."""
     if isinstance(item, (bytes, bytearray)):
@@ -83,45 +81,27 @@ def _holds_tensor(item: Any) -> bool:
         isinstance(e, torch.Tensor) or _holds_tensor(e) for e in item)
 
 
-def _device_bytes(item: Any, dev: torch.device) -> torch.Tensor:
-    """The bytes :func:`as_bytes` gives ``item``, as a flat uint8 tensor
-    on ``dev``: tensors contribute their memory where it lies, tuples and
-    lists their parts in order, anything else (a shape tuple of ints) the
-    bytes ``as_bytes`` makes of it, copied to ``dev``."""
+def _parts(item: Any, dev: torch.device) -> list:
+    """The bytes :func:`as_bytes` gives ``item``, as digest parts (see
+    :func:`repro_torch.kernels.digest.digest_items`): each tensor its own
+    memory as a flat uint8 view on ``dev`` (moved there if it lies
+    elsewhere), tuples and lists their parts in order, anything else (a
+    shape tuple of ints) the host bytes ``as_bytes`` makes of it."""
     if isinstance(item, torch.Tensor):
-        return _tensor_bytes(item).to(dev)
+        return [_tensor_bytes(item).to(dev)]
     if _holds_tensor(item):
-        parts = [_device_bytes(e, dev) for e in item]
-        return torch.cat(parts) if parts else torch.empty(
-            0, dtype=torch.uint8, device=dev)
-    data = as_bytes(item)
-    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev) \
-        if data else torch.empty(0, dtype=torch.uint8, device=dev)
+        return [p for e in item for p in _parts(e, dev)]
+    return [as_bytes(item)]
 
 
-def _item_words(data: bytes):
-    """Item bytes -> zero-padded uint32 words (little-endian), plus the
-    real block count the digest fold keeps."""
-    n = len(data)
-    blocks = max(1, -(-n // (4 * DIGEST_BLOCK)))
-    padded = data + b"\0" * (blocks * 4 * DIGEST_BLOCK - n)
-    return np.frombuffer(padded, dtype="<u4").reshape(-1, DIGEST_BLOCK), \
-        blocks
+def _xor(fps: torch.Tensor) -> int:
+    """XOR of uint64 fingerprints (read on the host)."""
+    v = fps.view(torch.int64).cpu().numpy().view(np.uint64)
+    return int(np.bitwise_xor.reduce(v)) if v.size else 0
 
 
-def _tensor_panels(flat: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """Flat uint8 bytes -> zero-padded (blocks, 256) uint32 panels on the
-    same device, 16-byte aligned, plus the block count."""
-    n = flat.numel()
-    blocks = max(1, -(-n // (4 * DIGEST_BLOCK)))
-    pad = blocks * 4 * DIGEST_BLOCK - n
-    if pad:
-        flat = torch.cat([flat, torch.zeros(pad, dtype=torch.uint8,
-                                            device=flat.device)])
-    elif flat.data_ptr() % 16:
-        flat = flat.clone()
-    return flat.view(torch.int32).view(torch.uint32).reshape(
-        blocks, DIGEST_BLOCK), blocks
+#: fingerprints per device buffer of the card path
+_CHUNK = 1024
 
 
 class StreamDigest:
@@ -155,6 +135,13 @@ class StreamDigest:
         self._enabled = bool(enabled)
         self._acc = 0 if enabled else None
         self._lock = threading.Lock()
+        #: folds made (one per ``add`` and per ``add_many``): on the card,
+        #: one digest launch each
+        self.folds = 0
+        # the card path's fingerprints not yet read: [buffer, used] pairs,
+        # and the streams their launches went on
+        self._chunks: list[list] = []
+        self._streams: dict[int, torch.cuda.Stream] = {}
 
     # -- accel fingerprinting -------------------------------------------------
 
@@ -166,33 +153,6 @@ class StreamDigest:
             self._device = resolve_device(self._device_arg)
         return self._device
 
-    def _block_digests(self, panels: torch.Tensor) -> np.ndarray:
-        if self._backend == "cuda":
-            from ..kernels.digest import block_digest
-            d = block_digest(panels)
-        else:
-            from ..kernels.ref import digest_ref
-            d = digest_ref(panels)
-        return d.view(torch.int32).cpu().numpy().view(np.uint32)
-
-    def _fingerprint(self, item: Any) -> int:
-        dev = self._digest_device()
-        if isinstance(item, torch.Tensor) or _holds_tensor(item):
-            flat = _device_bytes(item, dev)
-            n = flat.numel()
-            panels, blocks = _tensor_panels(flat)
-        else:
-            data = as_bytes(item)
-            n = len(data)
-            words, blocks = _item_words(data)
-            panels = torch.from_numpy(words.view(np.int32).copy()).to(dev)
-            panels = panels.view(torch.uint32)
-        d = self._block_digests(panels)[:blocks].astype(np.uint64)
-        mix = (n * _GOLDEN) & 0xFFFFFFFF
-        hi = int(np.bitwise_xor.reduce(d)) ^ mix
-        lo = (int(np.sum(d)) + mix) & 0xFFFFFFFF
-        return (hi << 32) | lo
-
     def _fold_host(self, items: Sequence[Any]) -> int:
         acc = 0
         for it in items:
@@ -200,32 +160,56 @@ class StreamDigest:
                                   "little")
         return acc
 
-    def _fold(self, items: Sequence[Any]) -> int:
+    def _fold(self, items: Sequence[Any]) -> None:
         if self.placement == "host":
-            return self._fold_host(items)
-        acc = 0
-        for it in items:
-            acc ^= self._fingerprint(it)
-        return acc
+            fold = self._fold_host(items)
+        else:
+            from ..kernels.digest import digest_items
+            from ..kernels.ref import digest_items_ref
+            dev = self._digest_device()
+            parts = [_parts(it, dev) for it in items]
+            if self._backend == "cuda" and dev.type == "cuda":
+                self._fold_card(parts, dev)
+                return
+            fn = digest_items if self._backend == "cuda" else digest_items_ref
+            fold = _xor(fn(parts, device=dev))
+        with self._lock:
+            self._acc ^= fold
+            self.folds += 1
+
+    def _fold_card(self, parts: list, dev: torch.device) -> None:
+        """One launch for the slab (more only past a launch's table), its
+        fingerprints left on the card in the next free slots of a device
+        buffer: nothing here waits on the card."""
+        from ..kernels.digest import digest_items
+        k = len(parts)
+        with self._lock:
+            if not self._chunks or self._chunks[-1][1] + k > len(
+                    self._chunks[-1][0]):
+                self._chunks.append([torch.empty(
+                    (max(_CHUNK, k),), dtype=torch.int64, device=dev), 0])
+            chunk = self._chunks[-1]
+            used = chunk[1]
+            digest_items(parts, device=dev, out=chunk[0][used:used + k])
+            chunk[1] = used + k
+            stream = torch.cuda.current_stream(dev)
+            self._streams[stream.cuda_stream] = stream
+            self.folds += 1
 
     # -- stream API -----------------------------------------------------------
 
     def add(self, item: Any) -> Any:
         if self._acc is not None:
-            fold = self._fold((item,))
-            with self._lock:
-                self._acc ^= fold
+            self._fold((item,))
         return item
 
     def add_many(self, items: Sequence[Any]) -> Sequence[Any]:
-        """Fold a whole slab: the hashes compute outside the lock and
-        the accumulator takes ONE acquisition — the batch-admitted
-        counterpart of per-item ``add``, bit-identical in result
-        (XOR is order-independent and associative)."""
+        """Fold a whole slab: one digest launch for the slab on the card
+        (one fold outside the lock on the host), one lock acquisition —
+        the batch-admitted counterpart of per-item ``add``, bit-identical
+        in result (XOR is order-independent and associative)."""
         if self._acc is not None and items:
-            fold = self._fold(items)
-            with self._lock:
-                self._acc ^= fold
+            self._fold(items)
         return items
 
     # stage-transform protocol: per-item call + the `.many` batch hook
@@ -233,11 +217,24 @@ class StreamDigest:
     many = add_many
 
     def hexdigest(self) -> Optional[str]:
+        """The stream's checksum so far.  On the card it waits for every
+        digest launch folded in (on whichever stream it went), reading
+        their fingerprints with one device-to-host copy per buffer (one
+        for up to 1024 items)."""
         if self._acc is None:
             return None
         if self.placement == "host":
             return self._acc.to_bytes(32, "little").hex()
-        return f"u32:{self._acc:016x}"
+        with self._lock:
+            if self._chunks:
+                here = torch.cuda.current_stream(self._device)
+                for s in self._streams.values():
+                    if s != here:
+                        here.wait_stream(s)
+                for buf, used in self._chunks:
+                    self._acc ^= _xor(buf[:used])
+                self._chunks, self._streams = [], {}
+            return f"u32:{self._acc:016x}"
 
 
 # -- wire compression (float-tensor item streams) ----------------------------

@@ -135,6 +135,9 @@ class TransferReport:
     #: differs from the initial choice when a ``path-revised`` verdict
     #: switched shapes mid-stream
     path: Optional[str] = None
+    #: folds the checksum made (one per item or slab it was handed; on
+    #: the card, one digest launch each)
+    checksum_folds: int = 0
 
     @property
     def throughput_bytes_per_s(self) -> float:
@@ -655,6 +658,7 @@ class UnifiedDataMover:
             planned_bytes_per_s=planned,
             replans=replans,
             path=active.path if active is not None else None,
+            checksum_folds=digest.folds,
         ))
 
     # -- public API -----------------------------------------------------------
@@ -1495,6 +1499,7 @@ class UnifiedDataMover:
             planned_bytes_per_s=planned,
             replans=replans,
             path=active.path if active is not None else None,
+            checksum_folds=digest.folds,
         ))
 
     # -- direct (un-staged) path, for comparison -------------------------------
@@ -1530,4 +1535,5 @@ class UnifiedDataMover:
             checksum=digest.hexdigest(),
             planned_bytes_per_s=planned,
             path="direct",
+            checksum_folds=digest.folds,
         ))

@@ -10,7 +10,8 @@ Kernels (each replaces the Pallas TPU kernel of the same name in the JAX
 package):
 * flash_attention — blocked online-softmax GQA attention (prefill)
 * decode_attention — flash-decode against full or ring KV caches
-* digest — blockwise lattice digest for accelerator-placed integrity
+* digest — lattice digest for accelerator-placed integrity: per row, and
+  whole items or slabs to their fingerprints in one launch
 * ssd_scan — chunked Mamba2 SSD scan (prefill), returning the final state
 * quantize — blockwise int8 quantize / dequantize for the compressed wire
 """

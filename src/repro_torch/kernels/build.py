@@ -57,6 +57,9 @@ KERNELS: dict[str, Kernel] = {
     "block_digest": Kernel(
         "block_digest", "src/repro_torch/kernels/csrc/digest.cu",
         "src/repro/kernels/digest.py:45"),
+    "digest_items": Kernel(
+        "digest_items", "src/repro_torch/kernels/csrc/digest.cu",
+        "src/repro/kernels/digest.py:45"),
     "ssd_scan": Kernel(
         "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:67"),
@@ -72,6 +75,7 @@ KERNELS: dict[str, Kernel] = {
 _SOURCES = {"flash_attention": "flash_attention",
             "decode_attention": "decode_attention",
             "block_digest": "digest",
+            "digest_items": "digest",
             "ssd_scan": "ssd_scan",
             "quantize_int8": "quantize",
             "dequantize_int8": "quantize"}
@@ -197,6 +201,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.block_digest_u32
         fn.argtypes = [p, p, i64, p]
         fn.restype = i
+    elif name == "digest_items":
+        fn = lib.digest_items
+        fn.argtypes = [p, i, p, i, ctypes.c_char_p, i, p, p, p]
+        fn.restype = i
+        lib.digest_items_ws_words.argtypes = []
+        lib.digest_items_ws_words.restype = i
     elif name == "ssd_scan":
         fn = lib.ssd_scan_fwd
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]

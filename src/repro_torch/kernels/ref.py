@@ -136,6 +136,42 @@ def digest_ref(panels: torch.Tensor) -> torch.Tensor:
     return d.to(torch.int32).view(torch.uint32)
 
 
+def digest_items_ref(items, *, device=None) -> torch.Tensor:
+    """Items -> one 64-bit lattice fingerprint each, uint64 ``(k,)``.
+
+    An item is a sequence of parts (flat uint8 tensors, or host bytes)
+    whose bytes in order are the item.  Its ``n`` bytes, zero-padded to
+    ``blocks = max(1, ceil(n / 1024))`` rows of 256 words, give row digests
+    d (:func:`digest_ref`) and the fingerprint ``hi << 32 | lo`` with
+    ``hi = XOR(d) ^ mix``, ``lo = (sum d + mix) mod 2^32``,
+    ``mix = n * GOLDEN mod 2^32``.  Host bytes go to ``device`` (default:
+    the tensors' device)."""
+    fps = []
+    for parts in items:
+        dev = device if device is not None else next(
+            (p.device for p in parts if isinstance(p, torch.Tensor)), "cpu")
+        flat = [p if isinstance(p, torch.Tensor) else torch.frombuffer(
+            bytearray(p), dtype=torch.uint8).to(dev) for p in parts if len(p)]
+        n = sum(p.numel() for p in flat)
+        rows = max(1, -(-n // 1024))
+        flat.append(torch.zeros(rows * 1024 - n, dtype=torch.uint8,
+                                device=dev))
+        panels = torch.cat(flat).view(torch.int32).view(torch.uint32)
+        d = digest_ref(panels.reshape(rows, 256)).view(torch.int32)
+        d = d.to(torch.int64) & _MASK32
+        # XOR of the rows, bit by bit: the parity of each bit's count
+        bit = torch.arange(32, dtype=torch.int64, device=dev)
+        x = ((((d[:, None] >> bit) & 1).sum(dim=0) & 1) << bit).sum()
+        mix = (n * GOLDEN) & _MASK32
+        hi = x ^ mix
+        lo = (d.sum() + mix) & _MASK32
+        # hi << 32 | lo as the int64 of the same 64 bits
+        fps.append((hi - ((hi >> 31) << 32)) * (1 << 32) | lo)
+    if not fps:
+        return torch.empty((0,), dtype=torch.uint64, device=device or "cpu")
+    return torch.stack(fps).view(torch.uint64)
+
+
 def quantize_int8_ref(x: torch.Tensor, *, block: int = 256,
                       tile: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
     """x (any shape) -> (q int8 (nb, block), scales f32 (nb,)) with the

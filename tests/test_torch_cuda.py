@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import decode_attention_bhd
-from repro_torch.kernels.digest import block_digest
+from repro_torch.kernels.digest import block_digest, digest_items
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsd
@@ -403,3 +403,160 @@ def test_quantize_kernel_on_an_unaligned_view(card):
     q, s = quantize_int8(x)
     rq, rs = ref.quantize_int8_ref(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# -- whole-item digest (digest_items) and the accel stream digest -----------
+
+
+def _bytes_on(card, seed, n):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, n, dtype=np.uint8)).to(card)
+
+
+def _fps(t):
+    return t.view(torch.int64).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 1023, 1024, 1025, 5000, 412_160])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])
+def test_digest_items_kernel_bit_exact_on_card(card, n, offset):
+    """One item at any length, its part starting ``offset`` bytes into its
+    storage: the kernel reads it where it lies (vector loads where the
+    address allows, words or bytes elsewhere)."""
+    buf = _bytes_on(card, n + offset, n + offset + 16)
+    items = [[buf[offset:offset + n]]]
+    n0 = build.launch_counts()["digest_items"]
+    got = digest_items(items)
+    assert build.launch_counts()["digest_items"] == n0 + 1
+    assert torch.equal(_fps(got), _fps(ref.digest_items_ref(items)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 300])
+def test_digest_items_kernel_takes_a_slab_in_one_launch(card, k):
+    """A slab of items of mixed shapes: KV-sized views of one storage,
+    wire items (codes, scales, inline shape bytes), ragged and empty
+    items.  300 items take two launches (256 per table)."""
+    kv = _bytes_on(card, 1, 8 * 412_160)
+    q = _bytes_on(card, 2, 4 * 65_536)
+    items = []
+    for i in range(k):
+        r = i % 5
+        if r == 0:
+            items.append([kv[(i % 8) * 412_160:(i % 8 + 1) * 412_160]])
+        elif r == 1:
+            items.append([q[:65_536], q[65_536:65_536 + 1024], b"4161616"])
+        elif r == 2:
+            items.append([kv[i:i + 1000 + i]])
+        elif r == 3:
+            items.append([])
+        else:
+            items.append([b"ab" * (i % 7), kv[:4]])
+    n0 = build.launch_counts()["digest_items"]
+    got = digest_items(items)
+    launches = build.launch_counts()["digest_items"] - n0
+    assert launches == -(-k // 256)
+    assert torch.equal(_fps(got), _fps(ref.digest_items_ref(items,
+                                                            device=card)))
+
+
+@pytest.mark.cuda
+def test_digest_items_copies_only_an_unaligned_item(card):
+    from repro_torch.kernels import digest as dmod
+    s = _bytes_on(card, 3, 4096)
+    items = [[s[:7], s[100:2000]], [s[1:3001]]]
+    before = dmod.copies
+    got = digest_items(items)
+    assert dmod.copies == before + 1
+    assert torch.equal(_fps(got), _fps(ref.digest_items_ref(items)))
+
+
+@pytest.mark.cuda
+def test_digest_items_replays_in_a_cuda_graph(card):
+    kv = _bytes_on(card, 4, 3 * 412_160)
+    items = [[kv[i * 412_160:(i + 1) * 412_160]] for i in range(3)]
+    out = torch.empty(3, dtype=torch.uint64, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        digest_items(items, out=out)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            digest_items(items, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    out.zero_()
+    graph.replay()
+    graph.replay()
+    assert torch.equal(_fps(out), _fps(ref.digest_items_ref(items)))
+
+
+def _kv_items(card, k=64, seed=5):
+    cache = _bytes_on(card, seed, k * 412_160)
+    return [cache[i * 412_160:(i + 1) * 412_160].view(torch.bfloat16)
+            for i in range(k)]
+
+
+@pytest.mark.cuda
+def test_stream_digest_add_many_never_syncs(card):
+    """A slab folds with one launch and no host synchronisation: a hidden
+    ``.cpu()`` or pageable copy per item raises under the debug mode."""
+    from repro_torch.core.integrity import StreamDigest
+    items = _kv_items(card)
+    wire = [(items[0][:1024], items[1][:8], (4, 64, 64, 128))]
+    d = StreamDigest(True, "accel")
+    d.add_many(items[:1])                  # builds and loads the library
+    torch.cuda.synchronize()
+    n0 = build.launch_counts()["digest_items"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d.add_many(items[1:])
+        d.add(wire[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert build.launch_counts()["digest_items"] == n0 + 2
+    plain = StreamDigest(True, "accel", backend="ref", device="cpu")
+    plain.add_many([t.cpu() for t in items])
+    plain.add((wire[0][0].cpu(), wire[0][1].cpu(), wire[0][2]))
+    assert d.hexdigest() == plain.hexdigest()
+    assert d.hexdigest() == plain.hexdigest()
+
+
+@pytest.mark.cuda
+def test_stream_digest_from_four_threads(card):
+    import threading
+    from repro_torch.core.integrity import StreamDigest
+    items = _kv_items(card, 48, 6)
+    d = StreamDigest(True, "accel")
+    d.add(items[0])
+    ts = [threading.Thread(target=lambda w=items[1 + i::4]: [
+        d.add_many(w[j:j + 3]) for j in range(0, len(w), 3)])
+        for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    plain = StreamDigest(True, "accel", backend="ref", device="cpu")
+    plain.add_many([t.cpu() for t in items])
+    assert d.hexdigest() == plain.hexdigest()
+
+
+@pytest.mark.cuda
+def test_mover_accel_transfer_on_card_equals_plain_digest(card):
+    from repro_torch.core import basin as tbasin, planner as tplanner
+    from repro_torch.core.integrity import StreamDigest
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    items = _kv_items(card, 16, 7)
+    plan = tplanner.plan_transfer(
+        tbasin.card_host_basin(), item_bytes=items[0].nbytes,
+        stages=("kv-stage",), checksum=True, checksum_placement="accel")
+    n0 = build.launch_counts()["digest_items"]
+    received = []
+    report = UnifiedDataMover(MoverConfig(checksum=True),
+                              plan=plan).bulk_transfer(
+        iter(items), lambda t: received.append(t.to("cpu")), plan=plan)
+    assert build.launch_counts()["digest_items"] - n0 == \
+        report.checksum_folds == len(items)
+    plain = StreamDigest(True, "accel", backend="ref", device="cpu")
+    plain.add_many(received)
+    assert report.checksum == plain.hexdigest()
