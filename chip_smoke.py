@@ -65,11 +65,27 @@ Phases, one JSON line each:
    of the delivered items; 4 teacher-forced decode steps from the restored
    state against the same from the original state.
 
+9. ``train`` (smollm-360m): ``Trainer(get_config("smollm-360m"),
+   device="cuda")`` (full width, 32 layers, ``remat="full"``, random weights
+   from a seed) trains 8 steps of 8 x 512 tokens from ``InputPipeline`` on
+   ``SyntheticTokenSource``, checkpoints every 4 steps into a temporary
+   directory (removed at the end) and fails once, injected before step 7,
+   restoring the step-4 checkpoint.  It fails unless every loss is finite,
+   the state right after the restore hashes (SHA-256 per leaf) to the
+   manifest's digests, ``verify_checkpoint`` accepts every saved step, the
+   last checkpoint loaded back onto the card equals the trainer's state bit
+   for bit, and no kernel of ``kernels/build.py`` launched while training
+   (the plain ``impl="ref"`` path, as the JAX package trains).  Step ms
+   (the first apart, median of the rest), tokens/s, the input pipeline's
+   consumer stall and fidelity gap, each save's device-to-host snapshot and
+   serialize + hash + write seconds and bytes, restore seconds, peak memory.
+
 The launch counts are set to 0 just before each path (the two ``serve``
-phases, ``stage_state``, ``restore``) and read just after; every kernel a
-path runs must have run there.  Then the kernels line (launches summed
-over the paths; ``block_digest``, the TPU kernel's per-row function, is
-checked in phase 3 and runs on no path, so its count is 0), the card line
+phases, ``stage_state``, ``restore``, ``train``) and read just after; every
+kernel a serving path runs must have run there, and none may run in
+``train``.  Then the kernels line (launches summed over the paths;
+``block_digest``, the TPU kernel's per-row function, is checked in phase 3
+and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the result lines; without a card, or
 without the repository's ``src/`` beside this file, it exits 2 and prints
@@ -80,11 +96,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -98,6 +117,10 @@ PEAK_BYTES = 3.35e12
 
 SEED = 0
 BATCH, PROMPT, GEN = 4, 128, 32
+#: the train phase: global batch, sequence, steps, checkpoint cadence, and
+#: the step index before which the injected failure strikes
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
 #: mamba2-1.3b prompt: two 256-step SSD chunks
 MAMBA_PROMPT = 512
 
@@ -183,10 +206,11 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / iters
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, top: int = 6) -> dict:
     """Profile one call of ``fn`` (ending in a device sync): host wall ms,
     the union of the card's kernel and copy intervals, the idle share
-    between them, and the kernels that took the most device time.  The
+    between them, and the kernels that took the most device time (names
+    cut to 60 characters, kernels that share those summed together).  The
     profiler slows the host, so the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
@@ -204,7 +228,8 @@ def device_busy(fn) -> dict:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a)
+        name = ev.name[:60]
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     busy, end = 0.0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -213,11 +238,11 @@ def device_busy(fn) -> dict:
         elif b > end:
             busy += b - end
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_kernels": len(spans),
             "idle_share": (1.0 - busy / wall_us) if spans else None,
-            "top_device_ms": {n[:60]: t / 1e3 for n, t in top}}
+            "top_device_ms": {n: t / 1e3 for n, t in ranked}}
 
 
 def tensor_core_sass(build) -> dict:
@@ -821,6 +846,166 @@ def _sha(t) -> str:
     return hashlib.sha256(as_bytes(t)).hexdigest()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training at full width, with checkpoints, a failure and a restore
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality of two tensors (``torch.equal`` compares
+    values: it takes -0 for 0 and fails on NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.equal(a.view(ints[a.element_size()]),
+                       b.view(ints[b.element_size()]))
+
+
+def _leaf_hashes(tree) -> dict:
+    import hashlib
+    from repro_torch.tree import flatten_with_paths, host_array
+    return {p: hashlib.sha256(host_array(v).tobytes()).hexdigest()
+            for p, v in flatten_with_paths(tree)}
+
+
+def _manifest_hashes(root, step) -> dict:
+    from repro_torch.checkpoint.manager import _ckpt_dir
+    with open(os.path.join(_ckpt_dir(root, step), "manifest.json")) as f:
+        return {leaf["path"]: leaf["sha256"] for leaf in
+                json.load(f)["leaves"]}
+
+
+def train_phase(torch, cfg, root) -> dict:
+    """Train ``cfg`` on the card through ``Trainer.run`` with checkpoints
+    into ``root`` and one injected failure; returns the phase's record,
+    checks included (``*_ok``).  The launch counts are set to 0 just before
+    the run."""
+    from repro_torch.checkpoint.manager import (complete_steps,
+                                                load_checkpoint,
+                                                verify_checkpoint)
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import Trainer
+    from repro_torch.tree import Stacked, flatten_with_paths
+
+    restores = []
+
+    class Checked(Trainer):
+        """The trainer, timing each restore and hashing the state it
+        restored against the checkpoint's manifest."""
+
+        def try_restore(self):
+            t0 = time.monotonic()
+            ok = super().try_restore()
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+            if ok:
+                want = _manifest_hashes(root, self.step_idx)
+                got = _leaf_hashes(self.state_tree())
+                restores.append({
+                    "step": self.step_idx, "seconds": sec,
+                    "leaves": len(got),
+                    "hashes_ok": got == want})
+            return ok
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Checked(cfg, device="cuda", ckpt_dir=root,
+                      ckpt_every=TRAIN_CKPT_EVERY, total_steps=TRAIN_STEPS)
+    trainer.init_state(SEED)
+    n_params = sum(p.numel() for p in trainer.params.parameters())
+    source = SyntheticTokenSource(
+        cfg, PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            seed=SEED),
+        n_batches=TRAIN_STEPS + 8)
+    build.reset_launches()
+    t0 = time.monotonic()
+    log = trainer.run(source, TRAIN_STEPS, inject_failure_at=TRAIN_FAIL_AT)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    saved = complete_steps(root)
+    verified = {s: verify_checkpoint(root, s) for s in saved}
+    t1 = time.monotonic()
+    back = load_checkpoint(root, saved[-1], trainer.state_tree())
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t1
+    mine = dict(flatten_with_paths(trainer.state_tree()))
+    mismatched = []
+    for p, v in flatten_with_paths(back):
+        pairs = zip(v, mine[p]) if isinstance(v, Stacked) else [(v, mine[p])]
+        if not all(_bits_equal(torch, a, b) for a, b in pairs):
+            mismatched.append(p)
+    del back
+    breakdown = step_breakdown(torch, trainer, source)
+
+    wall = [r["wall_s"] * 1e3 for r in log]
+    rest = statistics.median(wall[1:])
+    losses = [r["loss"] for r in log]
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "remat": cfg.remat, "params": n_params,
+        "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "steps": len(log),
+        "steps_logged": [r["step"] for r in log], "losses": losses,
+        "step_ms_first": wall[0], "step_ms_median": rest,
+        "step_ms": wall,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (rest / 1e3),
+        "run_s": run_s,
+        "run_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(log) / run_s,
+        "input_consumer_stall_s": log[-1]["input_stall_s"],
+        "input_fidelity_gap": log[-1]["input_fidelity_gap"],
+        "saves": [dict(h, write_bytes_per_s=h["bytes"] / h["write_s"],
+                       snapshot_bytes_per_s=h["bytes"] / h["snapshot_s"])
+                  for h in trainer.ckpt.history],
+        "restores": restores, "saved_steps": saved,
+        "verified": {str(s): ok for s, ok in verified.items()},
+        "load_back_s": load_s, "load_back_mismatched": mismatched,
+        "step_breakdown": breakdown,
+        "peak_mem_gib": peak, "launches": launches,
+        "losses_ok": all(map(math.isfinite, losses)),
+        "restore_ok": (len(restores) == 1 and restores[0]["hashes_ok"]
+                       and restores[0]["step"] == TRAIN_CKPT_EVERY),
+        "verify_ok": bool(saved) and all(verified.values()),
+        "load_back_ok": not mismatched,
+        "no_kernel_ok": not any(launches.values()),
+    }
+
+
+def step_breakdown(torch, trainer, source) -> dict:
+    """Where one train step's time goes, on the trainer's state after its
+    run: forward + backward and the AdamW update as eager calls between
+    CUDA events, and a profiler trace of one whole step (device busy, idle
+    share, the kernels that took the most device time)."""
+    from repro_torch.optim.adamw import adamw_update, warmup_cosine
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter(source))
+             .items()}
+    weights = list(trainer.params.parameters())
+
+    def fwd_bwd():
+        loss, _ = trainer.api.loss(trainer.params, batch, trainer.ctx)
+        return torch.autograd.grad(loss, weights)
+
+    grads = fwd_bwd()
+    lr = warmup_cosine(trainer.opt_state.step + 1, peak_lr=3e-4, warmup=1,
+                       total=TRAIN_STEPS)
+    out = {"fwd_bwd_ms": call_ms(fwd_bwd, iters=3, warmup=1),
+           "adamw_ms": call_ms(lambda: adamw_update(
+               grads, trainer.opt_state, weights, lr=lr), iters=3,
+               warmup=1)}
+    del grads
+
+    def step():
+        trainer.params, trainer.opt_state, _ = trainer.train_step(
+            trainer.params, trainer.opt_state, batch)
+    step()
+    out["trace"] = device_busy(step, top=12)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1045,6 +1230,25 @@ def main() -> int:
             "digest_ok", "restored_ok")):
         fail(f"the SSM path's output is wrong: {json.dumps(mcorrect)}")
     records.append(emit("phase_time", of="mamba",
+                        seconds=time.monotonic() - t_phase))
+    del mserver, cache, sitems, sreceived, restored
+    torch.cuda.empty_cache()
+
+    # ---- smollm-360m: train, checkpoint, fail, restore ------------------
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train = train_phase(torch, cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    paths["train"] = train["launches"]
+    records.append(emit("train", nvidia_smi=smi, **train))
+    if not all(train[k] for k in ("losses_ok", "restore_ok", "verify_ok",
+                                   "load_back_ok", "no_kernel_ok")):
+        fail("the training path's checks failed: "
+             + json.dumps({k: v for k, v in train.items()
+                           if k.endswith("_ok")}))
+    records.append(emit("phase_time", of="train",
                         seconds=time.monotonic() - t_phase))
 
     kernels = []

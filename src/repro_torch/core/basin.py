@@ -694,3 +694,32 @@ def card_host_basin(*, pageable_gbps: Optional[float] = None
             sink,
         ]
     )
+
+
+def card_input_basin(*, dataset_gbps: float = 8.0,
+                     dataset_jitter_ms: float = 20.0,
+                     host_copy_gbps: Optional[float] = None
+                     ) -> DrainageBasin:
+    """The training-input path into the H100: dataset store -> host burst
+    buffer -> PCIe Gen5 x16 -> device HBM.  The dataset store keeps the
+    JAX package's model of production storage (:func:`tpu_input_basin`:
+    8 Gbps, 20 ms jitter), a model of storage and not of a chip.  The
+    burst buffer's rate is the host copy into the pinned buffer a batch
+    crosses PCIe from: pass the rate measured on the host as
+    ``host_copy_gbps``, else the host's DDR5 (:data:`HOST_DDR5_GBPS`)
+    bounds it.  Latencies are those the copied basins give the same kinds
+    of tier."""
+    if host_copy_gbps is not None and host_copy_gbps <= 0:
+        raise ValueError("host_copy_gbps must be > 0")
+    host = HOST_DDR5_GBPS if host_copy_gbps is None else host_copy_gbps
+    return DrainageBasin(
+        tiers=[
+            Tier("dataset-store", TierKind.SOURCE, dataset_gbps * GBPS,
+                 latency_s=5e-3, jitter_s=dataset_jitter_ms / 1e3),
+            Tier("host-burst-buffer", TierKind.BURST_BUFFER, host * GBPS,
+                 latency_s=10e-6),
+            Tier("pcie", TierKind.CHANNEL, PCIE5_X16_GBPS * GBPS,
+                 latency_s=20e-6),
+            Tier("hbm", TierKind.SINK, H100_HBM_GBPS * GBPS, latency_s=1e-6),
+        ]
+    )

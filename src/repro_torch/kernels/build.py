@@ -225,6 +225,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         raise KeyError(name)
 
 
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise if autograd would record a launch of kernel ``name``: the
+    kernels write into buffers through ctypes and have no backward pass,
+    so their output would carry no gradient back to these inputs."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"the {name} kernel has no backward pass, and an input requires "
+            "gradients: run it under torch.no_grad(), or train on the plain "
+            "path (impl='ref')")
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:

@@ -73,6 +73,7 @@ def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.copy_(ref.decode_attention_ref(q, k, v, k_pos, q_pos,
                                            window=window))
         return out
+    build.refuse_grad("decode_attention", q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"decode attention takes {list(_DTYPES)}, got {q.dtype}")
     for t in (k, v, out):

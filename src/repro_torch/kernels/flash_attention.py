@@ -43,6 +43,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         out.copy_(ref.attention_ref(q, k, v, causal=causal, window=window))
         return out
+    build.refuse_grad("flash_attention", q, k, v)
     _check_cuda(q, k, v, out)
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")

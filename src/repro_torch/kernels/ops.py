@@ -3,9 +3,12 @@
 Model code calls these through ``ShardCtx.impl == "cuda"``.  They take the
 model's (B, S, H, hd) layout and hand the kernels transposed views, so no
 copy is made; each kernel wrapper dispatches on the tensor's device (the
-kernel on a CUDA tensor, its plain version on a CPU tensor).  The wire
-transforms (:mod:`repro_torch.core.integrity`) call ``quantize`` and
-``dequantize``.
+kernel on a CUDA tensor, its plain version on a CPU tensor).  The kernels
+have no backward pass: on the card, the attention and SSD wrappers raise
+when autograd is on and an input requires gradients, rather than return an
+output that carries none (training runs the plain path, ``impl="ref"``).
+The wire transforms (:mod:`repro_torch.core.integrity`) call ``quantize``
+and ``dequantize``.
 """
 
 from __future__ import annotations

@@ -56,6 +56,7 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y, state = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
         out.copy_(y)
         return out, state
+    build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
     if (P, N) not in SHAPES:
         raise ValueError(f"SSD head dim / state dim ({P}, {N}) not in "
                          f"{SHAPES}")

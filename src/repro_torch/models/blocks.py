@@ -10,7 +10,8 @@ tensors lie on the CPU), ``"ref"`` the plain paths of ``attention`` and
 Parameters are ``nn.Module``s whose attribute names follow the JAX
 package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
 :func:`repro_torch.weights.from_jax_params` maps one onto the other by name.
-They are created without gradients: this package serves, it does not train.
+They are created without gradients, as serving wants them; a trainer asks
+for trainable ones (``init_lm(..., trainable=True)``).
 """
 
 from __future__ import annotations

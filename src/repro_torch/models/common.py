@@ -69,3 +69,20 @@ def embed_init(shape: tuple[int, ...], *, generator: torch.Generator,
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return w.to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       z_loss_coef: float = 1e-4) -> torch.Tensor:
+    """Token-mean cross entropy in f32 with an optional z-loss (keeps the
+    log-partition near 0) and an optional per-token mask."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss_coef:
+        ce = ce + z_loss_coef * torch.square(lse)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(ce)

@@ -1,5 +1,5 @@
-"""Decoder-only language models, dense and SSM families: prefill and
-cached decode.
+"""Decoder-only language models, dense and SSM families: the training
+forward and loss, prefill and cached decode.
 
 The JAX package scans one layer body over layer-stacked parameters
 (``jax.lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
@@ -11,6 +11,12 @@ The dense decode cache holds the K/V of every layer stacked as
 windows (L, B, conv_width-1, conv_dim) bf16 and the recurrent states
 (L, B, H, P, N) f32, both as the JAX package's do, with a host-side int
 ``pos``.  Decode writes each step's entries into the cache in place.
+
+Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
+parameters built with ``trainable=True``; ``cfg.remat`` decides what the
+backward pass keeps, as the JAX package's ``_remat`` does: ``"full"``
+recomputes each layer from its input (``torch.utils.checkpoint``), ``"none"``
+keeps every activation.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import ffn as ffn_lib
@@ -25,8 +32,10 @@ from .attention import (attention, cache_positions_full, cache_positions_ring,
                         cache_update_full, cache_update_ring)
 from . import ssm as ssm_lib
 from .blocks import (DenseLayer, MambaLayer, ShardCtx, _param,
-                     init_dense_layer, init_mamba_layer, self_attention_block)
-from .common import dense_init, embed_init, rms_norm, rope_angles, rotate
+                     dense_layer_apply, init_dense_layer, init_mamba_layer,
+                     self_attention_block)
+from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
+                     rope_angles, rotate)
 from .config import ModelConfig
 
 #: families this package runs; the others are queued in ROADMAP.md
@@ -61,7 +70,9 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
-            device: torch.device | str) -> LM:
+            device: torch.device | str, trainable: bool = False) -> LM:
+    """Random parameters drawn on ``device`` from ``generator``; with
+    ``trainable`` they require gradients (serving leaves them frozen)."""
     cfg.validate()
     _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab
@@ -71,7 +82,7 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
     final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
     lm_head = None if cfg.tie_embeddings else dense_init((D, V), D, **kw)
-    return LM(embed, layers, final_norm, lm_head)
+    return LM(embed, layers, final_norm, lm_head).requires_grad_(trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +111,59 @@ def _ring_pack(k_full: torch.Tensor, window: int) -> torch.Tensor:
     j = torch.arange(window, device=k_full.device)
     p = (S - 1) - torch.remainder((S - 1) - j, window)
     return k_full[:, p]
+
+
+# ---------------------------------------------------------------------------
+# Forward (train)
+# ---------------------------------------------------------------------------
+
+
+def _remat(fn, mode: str):
+    if mode == "none":
+        return fn
+    if mode != "full":
+        raise NotImplementedError(f"remat {mode!r} is not ported "
+                                  "(ported: 'none', 'full')")
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def _dense_layer(x, lp, cfg, ctx, positions, window):
+    return dense_layer_apply(x, lp, cfg, ctx, positions=positions,
+                             window=window)
+
+
+def _mamba_layer(x, lp, cfg, ctx, positions, window):
+    h = rms_norm(x, lp.ln, cfg.norm_eps)
+    return x + ssm_lib.mamba_block_train(h, lp, cfg, impl=ctx.impl)
+
+
+def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+               ctx: ShardCtx) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B, S, V), load-balance
+    loss, router z-loss); the two auxiliary losses are 0 for the dense and
+    SSM families."""
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    body = _remat(_mamba_layer if cfg.family == "ssm" else _dense_layer,
+                  cfg.remat)
+    for lp, w in zip(params.layers, cfg.layer_windows()):
+        x = body(x, lp, cfg, ctx, positions, w)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), zero, zero
+
+
+def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
+            ) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross entropy (z-loss included) of the batch's
+    ``labels`` under the model, and the aux dict of the JAX package
+    (``ce``, ``load_balance``, ``router_z``)."""
+    logits, lb, z = forward_lm(params, cfg, batch["tokens"], ctx)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return ce, {"ce": ce, "load_balance": lb, "router_z": z}
 
 
 # ---------------------------------------------------------------------------

@@ -95,13 +95,14 @@ def ssd_chunked(
     total = cum[:, :, -1, :]                              # (B,nc,H)
 
     # intra-chunk (dual quadratic form): L[i,j] = exp(cum_i - cum_j) * dt_j,
-    # j<=i; selected with where, so exp's overflow above the diagonal
-    # never meets a multiply
+    # j<=i; the exponent above the diagonal is -inf before exp, so exp
+    # never overflows there and its gradient stays finite (selecting after
+    # exp gives the same values, but 0 * inf = NaN in the backward pass)
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,Q,Q,H)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(li),
-                    torch.zeros((), device=x.device))
+    L = torch.exp(torch.where(mask[None, None, :, :, None], li,
+                              float("-inf")))
     L = L * dtc[:, :, None, :, :]                         # x dt_j
     CB = torch.einsum("bnigx,bnjgx->bnijg", Cc, Bc)       # (B,nc,Q,Q,G)
     CB = CB.repeat_interleave(rep, dim=-1)                # (B,nc,Q,Q,H)

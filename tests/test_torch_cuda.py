@@ -560,3 +560,89 @@ def test_mover_accel_transfer_on_card_equals_plain_digest(card):
     plain = StreamDigest(True, "accel", backend="ref", device="cpu")
     plain.add_many(received)
     assert report.checksum == plain.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: the kernels refuse gradients, the train step runs the
+# plain path, and checkpoints and batches cross the card bit for bit.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=card).manual_seed(3)
+    bf = dict(device=card, dtype=torch.bfloat16)
+    q = torch.randn(1, 64, 15, 64, generator=g, **bf).requires_grad_()
+    k = torch.randn(1, 64, 5, 64, generator=g, **bf)
+    before = build.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        ops.flash_attention(q, k, k)
+    kpos = torch.arange(64, dtype=torch.int32, device=card)
+    qpos = torch.full((1,), 63, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        ops.decode_attention(q[:, :1], k, k, kpos, qpos)
+    x = torch.randn(1, 256, 64, 64, generator=g, **bf).requires_grad_()
+    dt = torch.rand(1, 256, 64, generator=g, device=card)
+    A = -torch.rand(64, generator=g, device=card)
+    Bm = torch.randn(1, 256, 1, 128, generator=g, **bf)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        ops.ssd_scan(x, dt, A, Bm, Bm, chunk=256)
+    assert build.launch_counts() == before    # the refusals launched none
+    with torch.no_grad():                 # serving: launches as before
+        ops.flash_attention(q, k, k)
+        ops.ssd_scan(x, dt, A, Bm, Bm, chunk=256)
+    counts = build.launch_counts()
+    assert counts["flash_attention"] == before["flash_attention"] + 1
+    assert counts["ssd_scan"] == before["ssd_scan"] + 1
+
+
+def _smoke_trainer(card, tmp_path, arch="smollm-360m"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import Trainer
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2)
+    t = Trainer(cfg, device=card, ckpt_dir=str(tmp_path), ckpt_every=2,
+                total_steps=4)
+    t.init_state(0)
+    return cfg, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b"])
+def test_train_on_card_runs_no_kernel_and_restores_bit_for_bit(card, arch,
+                                                              tmp_path):
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticTokenSource
+    cfg, t = _smoke_trainer(card, tmp_path, arch)
+    build.reset_launches()
+    log = t.run(SyntheticTokenSource(cfg, PipelineConfig(2, 32, seed=1),
+                                     n_batches=8), 4, inject_failure_at=3)
+    assert all(n == 0 for n in build.launch_counts().values())
+    assert [r["step"] for r in log] == [1, 2, 3, 3]
+    assert all(np.isfinite(r["loss"]) for r in log)
+    _, t2 = _smoke_trainer(card, tmp_path, arch)
+    assert t2.try_restore() and t2.step_idx == 3
+    for a, b in zip(t.params.parameters(), t2.params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    for f in ("master", "m", "v"):
+        for a, b in zip(getattr(t.opt_state, f), getattr(t2.opt_state, f)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pipeline_places_batches_on_card_in_order(card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.telemetry import TelemetryRegistry
+    from repro_torch.data.pipeline import (InputPipeline, PipelineConfig,
+                                           SyntheticTokenSource)
+    cfg = get_smoke_config("smollm-360m")
+    pc = PipelineConfig(global_batch=8, seq_len=512, seed=4)
+    want = list(SyntheticTokenSource(cfg, pc, n_batches=20))
+    got = list(InputPipeline(SyntheticTokenSource(cfg, pc, n_batches=20),
+                             device=card, telemetry=TelemetryRegistry()))
+    torch.cuda.synchronize()
+    assert len(got) == 20
+    for a, b in zip(got, want):
+        for k in b:
+            assert a[k].device.type == "cuda"
+            assert np.array_equal(a[k].cpu().numpy(), b[k])
