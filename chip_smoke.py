@@ -80,10 +80,45 @@ Phases, one JSON line each:
    consumer stall and fidelity gap, each save's device-to-host snapshot and
    serialize + hash + write seconds and bytes, restore seconds, peak memory.
 
+10. ``resume``: the trainer's state left on the card (bf16 params, f32
+   master, m and v: one item per leaf and per layer of a ``Stacked`` leaf,
+   in ``tree.py``'s order) to host memory by a ``bulk_transfer`` planned on
+   ``card_host_basin`` at the measured pageable copy rate with the host
+   checksum (the ledger's identities are host SHA-256, so no digest
+   kernel): (a) unbroken, hexdigest H; (b) with a ``TransferLedger`` on a
+   JSONL file and a sink that fails at delivery k = half the items, so the
+   mover raises; (c) a fresh mover and ledger reopened from the file,
+   resuming; (d) a last resume.  It fails unless (c)'s hexdigest is H, the
+   SHA-256 multiset delivered over (b) and (c) is the source's with each
+   item once, (c) skipped exactly the records (b) left, (d) moved nothing,
+   and the host bytes equal the card's.  Seconds and GB/s per run, bytes
+   skipped, and the time (c) spent hashing the items it skipped (each read
+   across PCIe again: the identity is the content).
+11. ``fleet``: a ``FleetArbiter`` over ``card_host_basin``.  ``state``
+   (bulk: mamba's 48 state items over the int8 wire, accel checksum) is
+   admitted first; at a quarter of its items ``kv`` (interactive: smollm's
+   64 KV items, accel checksum) is admitted and runs on its own thread,
+   and ``late`` (priority: the KV items again) asks for half the line, more
+   than the fleet has left, queues, and runs on its own thread once a
+   release promotes it.  It fails unless the statuses are admitted,
+   admitted, queued, admitted; every grant snapshot conserves every
+   element's rate; ``state`` counts a replan (the re-grant resizes its
+   worker pool in place); each hexdigest equals the plain digest of what
+   arrived; the digest launched once per item or slab handed over and
+   quantize once per state item; and no grant is left.  Per member its
+   time-averaged grant, measured rate, fidelity gap and replans (nothing on
+   this basin paces a member to its grant: it has no windowed link).
+12. ``codesign``: ``predict`` for phase 9's step (8 x 512 tokens, remat
+   full, one card) on ``H100_SXM``, and ``roofline`` of one train step
+   counted with ``count_step`` on the card, beside the measured median
+   step and their ratios.  It fails unless the plan fits (the measured
+   peak too) and the counted FLOPs reach 6 N T.
+
 The launch counts are set to 0 just before each path (the two ``serve``
-phases, ``stage_state``, ``restore``, ``train``) and read just after; every
-kernel a serving path runs must have run there, and none may run in
-``train``.  Then the kernels line (launches summed over the paths;
+phases, ``stage_state``, ``restore``, ``train``, ``resume``, ``fleet``,
+``codesign``) and read just after; every kernel a serving path or the
+fleet runs must have run there, and none may run in ``train``.  Then the
+kernels line (launches summed over the paths;
 ``block_digest``, the TPU kernel's per-row function, is checked in phase 3
 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
@@ -95,6 +130,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -875,11 +911,12 @@ def _manifest_hashes(root, step) -> dict:
                 json.load(f)["leaves"]}
 
 
-def train_phase(torch, cfg, root) -> dict:
+def train_phase(torch, cfg, root) -> tuple:
     """Train ``cfg`` on the card through ``Trainer.run`` with checkpoints
     into ``root`` and one injected failure; returns the phase's record,
-    checks included (``*_ok``).  The launch counts are set to 0 just before
-    the run."""
+    checks included (``*_ok``), the trainer (its state stays on the card
+    for the later phases) and its token source.  The launch counts are set
+    to 0 just before the run."""
     from repro_torch.checkpoint.manager import (complete_steps,
                                                 load_checkpoint,
                                                 verify_checkpoint)
@@ -945,7 +982,7 @@ def train_phase(torch, cfg, root) -> dict:
     wall = [r["wall_s"] * 1e3 for r in log]
     rest = statistics.median(wall[1:])
     losses = [r["loss"] for r in log]
-    return {
+    return ({
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab, "remat": cfg.remat, "params": n_params,
         "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
@@ -972,7 +1009,7 @@ def train_phase(torch, cfg, root) -> dict:
         "verify_ok": bool(saved) and all(verified.values()),
         "load_back_ok": not mismatched,
         "no_kernel_ok": not any(launches.values()),
-    }
+    }, trainer, source)
 
 
 def step_breakdown(torch, trainer, source) -> dict:
@@ -1004,6 +1041,352 @@ def step_breakdown(torch, trainer, source) -> dict:
     step()
     out["trace"] = device_busy(step, top=12)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a resumed transfer of the training state
+# ---------------------------------------------------------------------------
+
+
+class InjectedFailure(RuntimeError):
+    """The failure the ``resume`` phase injects into its sink."""
+
+
+def _state_items(trainer) -> list:
+    """The trainer's state on the card, one item per leaf and per layer of
+    a ``Stacked`` leaf, in the order ``tree.py`` walks them."""
+    from repro_torch.tree import Stacked, flatten_with_paths
+    return [t for _, leaf in flatten_with_paths(trainer.state_tree())
+            for t in (leaf if isinstance(leaf, Stacked) else (leaf,))]
+
+
+def resume_phase(torch, trainer, root) -> dict:
+    """The training state to host memory by ``bulk_transfer`` under the host
+    checksum, planned on ``card_host_basin`` at the measured pageable copy
+    rate: (a) unbroken; (b) with a ``TransferLedger`` on a JSONL file and a
+    sink that fails at delivery k = half the items (the mover raises); (c) a
+    fresh mover and ledger reopened from the file, resuming; (d) one more
+    resume, which moves nothing.  Returns the record, checks included."""
+    import collections
+    from repro_torch.core.basin import card_host_basin
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    from repro_torch.core.planner import plan_transfer
+    from repro_torch.core.resume import TransferLedger
+
+    items = _state_items(trainer)
+    nbytes = sum(t.nbytes for t in items)
+    k = len(items) // 2
+    copy_gbps = pageable_gbps(torch, max(items, key=lambda t: t.nbytes))
+    plan = plan_transfer(card_host_basin(pageable_gbps=copy_gbps),
+                         item_bytes=nbytes / len(items), stages=("d2h",),
+                         checksum=True, checksum_placement="host",
+                         ordered=True)
+    path = os.path.join(root, "resume_ledger.jsonl")
+    pulls: list = []
+
+    def source():
+        # the time of every pull: a resume hashes each item it skips
+        # between two pulls
+        for t in items:
+            pulls.append(time.monotonic())
+            yield t
+
+    def run(sink, ledger=None):
+        pulls.clear()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rep = UnifiedDataMover(MoverConfig(checksum=True),
+                               plan=plan).bulk_transfer(
+            source(), sink, plan=plan,
+            transforms=[("d2h", lambda t: t.cpu())], resume=ledger)
+        return rep, time.monotonic() - t0
+
+    def rate(moved, sec):
+        return {"seconds": sec, "bytes": moved, "gb_per_s": moved / sec / 1e9}
+
+    runs = {}
+    count = [0]
+    rep_a, sec = run(lambda t: count.__setitem__(0, count[0] + 1))
+    runs["a"] = dict(rate(nbytes, sec), items=rep_a.items)
+
+    got_b, got_c = [], []
+
+    def dying(t):
+        if len(got_b) >= k:
+            raise InjectedFailure(f"injected failure at delivery {k}")
+        got_b.append(t)
+
+    ledger_b = TransferLedger(path)
+    t0 = time.monotonic()
+    try:
+        run(dying, ledger_b)
+        b_raised = False
+    except InjectedFailure:
+        b_raised = True
+    ledger_b.close()
+    left = TransferLedger(path)
+    records_left = left.items_recorded
+    left.close()
+    runs["b"] = dict(rate(sum(t.nbytes for t in got_b),
+                          time.monotonic() - t0), items=len(got_b),
+                     raised=b_raised, records_left=records_left)
+
+    ledger_c = TransferLedger(path)
+    rep_c, sec = run(got_c.append, ledger_c)
+    skip_hash_s = pulls[k] - pulls[0] if len(pulls) > k else None
+    ledger_c.close()
+    runs["c"] = dict(rate(nbytes - ledger_c.skipped_bytes, sec),
+                     items=rep_c.items, skipped_items=ledger_c.skipped_items,
+                     skipped_bytes=ledger_c.skipped_bytes,
+                     skip_hash_s=skip_hash_s,
+                     skip_hash_gb_per_s=ledger_c.skipped_bytes / skip_hash_s
+                     / 1e9 if skip_hash_s else None)
+
+    ledger_d = TransferLedger(path)
+    rep_d, sec = run(lambda t: None, ledger_d)
+    ledger_d.close()
+    runs["d"] = dict(seconds=sec, items=rep_d.items,
+                     skipped_items=ledger_d.skipped_items)
+
+    want = collections.Counter(TransferLedger.item_key(t) for t in items)
+    delivered = got_b + got_c
+    got = collections.Counter(TransferLedger.item_key(t) for t in delivered)
+    bytes_ok = len(delivered) == len(items) and all(
+        h.device.type == "cpu" and _bits_equal(torch, h.to("cuda"), c)
+        for h, c in zip(delivered, items))
+    return {
+        "items": len(items), "bytes": nbytes, "k": k,
+        "distinct_items": len(want), "pageable_copy_gbps": copy_gbps,
+        "plan": plan.describe(), "runs": runs,
+        "hexdigest": rep_a.checksum, "resumed_hexdigest": rep_c.checksum,
+        "digest_ok": rep_a.checksum is not None
+        and rep_c.checksum == rep_a.checksum,
+        "exact_ok": got == want and sum(got.values()) == len(items),
+        "skip_ok": b_raised and ledger_c.skipped_items == records_left == k,
+        "noop_ok": rep_d.items == 0 and ledger_d.skipped_items == len(items)
+        and rep_d.checksum == rep_a.checksum,
+        "bytes_ok": bytes_ok,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 11: three transfers under one fleet arbiter
+# ---------------------------------------------------------------------------
+
+
+class _GrantLog:
+    """The arbiter's telemetry: every grant snapshot it publishes (on each
+    admission, release and promotion), with its fairness index."""
+
+    def __init__(self):
+        self.arbiter = None
+        self.snaps: list = []
+
+    def record_fleet(self, stats: dict) -> None:
+        self.snaps.append({"grants": self.arbiter.grants(),
+                           "live": stats["live"], "queued": stats["queued"],
+                           "fairness": stats["fairness_index"]})
+
+
+def fleet_phase(torch, kv_items, state_items, kv_digest, state_digest
+                ) -> dict:
+    """A ``FleetArbiter`` over ``card_host_basin`` at the measured pageable
+    copy rate.  ``state`` (bulk): mamba's SSM state over the int8 wire with
+    an accel checksum, admitted first.  When a quarter of its items have
+    arrived, ``kv`` (interactive: smollm's KV items, accel checksum) is
+    admitted and runs on its own thread, and ``late`` (priority: the KV
+    items again) asks for half the line, more than the fleet has left, so
+    it queues; promoted when a peer releases, it runs on a thread of its
+    own.  Returns the record, checks included."""
+    import threading
+    from repro_torch.core.basin import card_host_basin
+    from repro_torch.core.fleet import FleetArbiter
+    from repro_torch.core.integrity import StreamDigest, compress_transform
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+
+    copy_gbps = pageable_gbps(torch, state_items[0])
+    basin = card_host_basin(pageable_gbps=copy_gbps)
+    log = _GrantLog()
+    arb = FleetArbiter(basin, telemetry=log)
+    log.arbiter = arb
+    line = basin.achievable_throughput()
+    accel = dict(checksum=True, checksum_placement="accel")
+    kv_ask = dict(stages=("kv-stage",), accel_digest_bytes_per_s=kv_digest,
+                  **accel)
+    adm = {"state": arb.admit("state", state_items[0].nbytes, qos="bulk",
+                              stages=("state-stage",),
+                              accel_digest_bytes_per_s=state_digest,
+                              **accel)}
+    statuses = [adm["state"].status]
+    got = {"state": [], "kv": [], "late": []}
+    reports, errors, started = {}, {}, threading.Event()
+
+    def sink_state(t):
+        got["state"].append((t[0].cpu(), t[1].cpu(), t[2]))
+        if len(got["state"]) == len(state_items) // 4:
+            adm["kv"] = arb.admit("kv", kv_items[0].nbytes,
+                                  qos="interactive", **kv_ask)
+            adm["late"] = arb.admit("late", kv_items[0].nbytes,
+                                    qos="priority",
+                                    min_bytes_per_s=0.5 * line, **kv_ask)
+            statuses.extend([adm["kv"].status, adm["late"].status])
+            started.set()
+
+    def transfer(name, items, sink, **kw):
+        t0 = time.monotonic()
+        rep = UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+            iter(items), sink, fleet=adm[name], **kw)
+        reports[name] = (rep, time.monotonic() - t0)
+
+    def thread(name, wait_promotion):
+        try:
+            if not started.wait(timeout=300):
+                raise RuntimeError(f"{name}: state never reached a quarter")
+            if wait_promotion:
+                deadline = time.monotonic() + 300
+                while adm[name].status != "admitted":
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"{name} was never promoted")
+                    time.sleep(0.001)
+                statuses.append(adm[name].status)
+            transfer(name, kv_items, lambda t: got[name].append(t.cpu()))
+        except BaseException as e:          # re-raised on the main thread
+            errors[name] = e
+
+    from repro_torch.kernels import build
+    build.reset_launches()
+    threads = [threading.Thread(target=thread, args=("kv", False)),
+               threading.Thread(target=thread, args=("late", True))]
+    for th in threads:
+        th.start()
+    t0 = time.monotonic()
+    try:
+        transfer("state", state_items, sink_state,
+                 transforms=[("compress", compress_transform())])
+    finally:
+        started.set()
+        for th in threads:
+            th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = build.launch_counts()
+    for e in errors.values():
+        raise e
+    if any(th.is_alive() for th in threads):
+        fail("a fleet member's thread did not finish")
+
+    members, digests_ok = {}, True
+    for name, (rep, sec) in reports.items():
+        plain = StreamDigest(True, "accel", backend="ref")
+        plain.add_many(got[name])
+        ok = rep.checksum is not None and rep.checksum == plain.hexdigest()
+        digests_ok &= ok
+        source_bytes = sum(t.nbytes for t in (
+            state_items if name == "state" else kv_items))
+        members[name] = {
+            "qos": adm[name].qos, "items": rep.items, "seconds": sec,
+            "mean_granted_bytes_per_s": rep.planned_bytes_per_s,
+            "measured_bytes_per_s": rep.throughput_bytes_per_s,
+            "measured_over_granted": rep.throughput_bytes_per_s
+            / rep.planned_bytes_per_s,
+            "source_bytes_per_s": source_bytes / rep.elapsed_s,
+            "fidelity_gap": rep.fidelity_gap, "replans": rep.replans,
+            "checksum_folds": rep.checksum_folds, "digest_ok": ok}
+    rates = ([t.bandwidth_bytes_per_s for t in basin.tiers]
+             + [l.bandwidth_bytes_per_s for l in basin.links
+                if l.bandwidth_bytes_per_s])
+    # every member plans over the whole (linear) basin, so each element
+    # carries the sum of all grants
+    conserved = all(sum(s["grants"].values()) <= r * (1 + 1e-9)
+                    for s in log.snaps for r in rates)
+    folds = sum(m["checksum_folds"] for m in members.values())
+    return {
+        "pageable_copy_gbps": copy_gbps, "line_bytes_per_s": line,
+        "late_min_bytes_per_s": 0.5 * line, "statuses": statuses,
+        "members": members, "wall_s": wall_s,
+        "grant_snapshots": log.snaps,
+        "weighted_fairness": [s["fairness"] for s in log.snaps],
+        "launches": launches,
+        "admission_ok": statuses == ["admitted", "admitted", "queued",
+                                     "admitted"],
+        "conserved_ok": bool(log.snaps) and conserved,
+        "rebalance_ok": members["state"]["replans"] >= 1,
+        "digest_ok": digests_ok and len(members) == 3,
+        "folds_ok": launches["digest_items"] == folds
+        and launches["quantize_int8"] == len(state_items),
+        "released_ok": arb.grants() == {},
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the co-design model's prediction beside the measured step
+# ---------------------------------------------------------------------------
+
+
+def codesign_phase(torch, cfg, trainer, source, train) -> dict:
+    """The analytic prediction for smollm-360m's train step as phase 9 runs
+    it (8 x 512 tokens, remat full, one card) on the H100's data sheet,
+    the roofline of one step counted by ``count_step`` (run on the card:
+    the trainer's state advances one step), and the measured step."""
+    from repro_torch.core.codesign import (CodesignPlan, predict,
+                                           workload_from_config)
+    from repro_torch.core.fidelity import (H100_SXM, count_step,
+                                           model_flops_dense, roofline)
+    from repro_torch.kernels import build
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pred = predict(workload_from_config(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                   CodesignPlan(sharding="dp", microbatches=1,
+                                remat=cfg.remat),
+                   n_chips=1, dp=1, tp=1, hw=H100_SXM)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in next(iter(source)).items()}
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    (trainer.params, trainer.opt_state, _), cost = count_step(
+        trainer.train_step, trainer.params, trainer.opt_state, batch)
+    torch.cuda.synchronize()
+    count_s = time.monotonic() - t0
+    launches = build.launch_counts()
+    # 6 N T over the parameters the trainer holds (the config's formula,
+    # which ``predict`` reads, leaves out the final norm)
+    model_flops = model_flops_dense(train["params"], tokens)
+    roof = roofline(cost, hw=H100_SXM, model_flops=model_flops,
+                    label=f"{cfg.name} train {TRAIN_BATCH}x{TRAIN_SEQ}")
+    measured = train["step_ms_median"]
+    top_bytes = sorted(cost.bytes_by_op.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "arch": cfg.name, "params": train["params"],
+        "params_config": cfg.param_count(), "tokens": tokens,
+        "hw": dataclasses.asdict(H100_SXM),
+        "hbm_bytes_spec": H100_SXM.hbm_bytes,
+        "hbm_bytes_card": torch.cuda.get_device_properties(0).total_memory,
+        "predicted": {
+            "plan": pred.plan.describe(), "t_compute_ms": pred.t_compute * 1e3,
+            "t_memory_ms": pred.t_memory * 1e3,
+            "t_collective_ms": pred.t_collective * 1e3,
+            "step_ms": pred.step_time_s * 1e3, "dominant": pred.dominant,
+            "hbm_bytes_needed": pred.hbm_bytes_needed, "fits": pred.fits},
+        "counted": {
+            "flops": cost.flops, "bytes": cost.bytes_accessed,
+            "ops": cost.ops, "flops_by_op": cost.flops_by_op,
+            "top_bytes_by_op": dict(top_bytes), "count_s": count_s},
+        "roofline": {
+            "t_compute_ms": roof.t_compute * 1e3,
+            "t_memory_ms": roof.t_memory * 1e3,
+            "step_ms": roof.step_time_s * 1e3, "dominant": roof.dominant,
+            "roofline_fraction": roof.roofline_fraction,
+            "useful_compute_fraction": roof.useful_compute_fraction,
+            "fidelity_gap": roof.fidelity_gap},
+        "model_flops": model_flops,
+        "measured_step_ms_median": measured,
+        "measured_over_predicted": measured / (pred.step_time_s * 1e3),
+        "measured_over_roofline": measured / (roof.step_time_s * 1e3),
+        "train_peak_gib": train["peak_mem_gib"], "launches": launches,
+        "fits_ok": pred.fits
+        and train["peak_mem_gib"] * 2**30 <= H100_SXM.hbm_bytes,
+        "flops_ok": cost.flops >= model_flops,
+    }
 
 
 def main() -> int:
@@ -1158,7 +1541,9 @@ def main() -> int:
         fail(f"the serving path's output is wrong: {json.dumps(correct)}")
     records.append(emit("phase_time", of="smollm",
                         seconds=time.monotonic() - t_phase))
-    del server, items, received
+    # the KV items stay on the card for the fleet phase
+    kv_items = items
+    del server, received
 
     # ---- mamba2-1.3b: serve, stage the state over the int8 wire ---------
     t_phase = time.monotonic()
@@ -1231,25 +1616,60 @@ def main() -> int:
         fail(f"the SSM path's output is wrong: {json.dumps(mcorrect)}")
     records.append(emit("phase_time", of="mamba",
                         seconds=time.monotonic() - t_phase))
-    del mserver, cache, sitems, sreceived, restored
+    # the state items (views of the prefill's state) stay for the fleet
+    state_items = sitems
+    del mserver, sreceived, restored
     torch.cuda.empty_cache()
 
     # ---- smollm-360m: train, checkpoint, fail, restore ------------------
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        train = train_phase(torch, cfg, root)
+        train, trainer, source = train_phase(torch, cfg, root)
+        paths["train"] = train["launches"]
+        records.append(emit("train", nvidia_smi=smi, **train))
+        checked(train, "training path", ("losses_ok", "restore_ok",
+                                         "verify_ok", "load_back_ok",
+                                         "no_kernel_ok"))
+        records.append(emit("phase_time", of="train",
+                            seconds=time.monotonic() - t_phase))
+
+        # ---- the training state: a transfer killed and resumed ----------
+        t_phase = time.monotonic()
+        build.reset_launches()
+        resume = resume_phase(torch, trainer, root)
+        paths["resume"] = build.launch_counts()
+        records.append(emit("resume", nvidia_smi=smi,
+                            launches=paths["resume"], **resume))
+        checked(resume, "resume", ("digest_ok", "exact_ok", "skip_ok",
+                                   "noop_ok", "bytes_ok"))
+        records.append(emit("phase_time", of="resume",
+                            seconds=time.monotonic() - t_phase))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    paths["train"] = train["launches"]
-    records.append(emit("train", nvidia_smi=smi, **train))
-    if not all(train[k] for k in ("losses_ok", "restore_ok", "verify_ok",
-                                   "load_back_ok", "no_kernel_ok")):
-        fail("the training path's checks failed: "
-             + json.dumps({k: v for k, v in train.items()
-                           if k.endswith("_ok")}))
-    records.append(emit("phase_time", of="train",
+
+    # ---- three transfers under one fleet arbiter ------------------------
+    t_phase = time.monotonic()
+    fleet = fleet_phase(torch, kv_items, state_items, kv_digest,
+                        state_digest)
+    paths["fleet"] = fleet["launches"]
+    records.append(emit("fleet", nvidia_smi=smi, **fleet))
+    checked(fleet, "fleet", ("admission_ok", "conserved_ok", "rebalance_ok",
+                             "digest_ok", "folds_ok", "released_ok"))
+    need(paths, "fleet", ("digest_items", "quantize_int8"))
+    records.append(emit("phase_time", of="fleet",
                         seconds=time.monotonic() - t_phase))
+    del kv_items, state_items, cache
+
+    # ---- the co-design model beside the measured step --------------------
+    t_phase = time.monotonic()
+    codesign = codesign_phase(torch, cfg, trainer, source, train)
+    paths["codesign"] = codesign["launches"]
+    records.append(emit("codesign", nvidia_smi=smi, **codesign))
+    checked(codesign, "codesign", ("fits_ok", "flops_ok"))
+    records.append(emit("phase_time", of="codesign",
+                        seconds=time.monotonic() - t_phase))
+    del trainer
 
     kernels = []
     for name, rec in main_shapes.items():
@@ -1307,6 +1727,13 @@ def once_per_fold(paths: dict, path: str, report) -> None:
     if got != report.checksum_folds:
         fail(f"the {path} path launched the digest {got} times for "
              f"{report.checksum_folds} items or slabs handed over")
+
+
+def checked(rec: dict, what: str, keys) -> None:
+    """Fail unless every check ``keys`` names in ``rec`` holds."""
+    if not all(rec[k] for k in keys):
+        fail(f"the {what} checks failed: "
+             + json.dumps({k: rec[k] for k in keys}))
 
 
 def need(paths: dict, path: str, names) -> None:

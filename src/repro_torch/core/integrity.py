@@ -216,6 +216,24 @@ class StreamDigest:
     __call__ = add
     many = add_many
 
+    def absorb_digest(self, item_sha256_hex: str) -> None:
+        """Fold a previously recorded per-item SHA-256 into the stream
+        accumulator *without the item* — the resume path's stand-in for
+        re-hashing a ledger-verified item that is being skipped, so a
+        resumed transfer's stream checksum stays bit-identical to an
+        unbroken run's.  Host placement only: the resumable ledger
+        records host SHA-256 identities (the accel lattice fingerprint
+        is a different format by design)."""
+        if self._acc is None:
+            return
+        if self.placement != "host":
+            raise ValueError(
+                "resume digests fold into the host placement only; "
+                "plan the resumed transfer with checksum_placement='host'")
+        fold = int.from_bytes(bytes.fromhex(item_sha256_hex), "little")
+        with self._lock:
+            self._acc ^= fold
+
     def hexdigest(self) -> Optional[str]:
         """The stream's checksum so far.  On the card it waits for every
         digest launch folded in (on whichever stream it went), reading

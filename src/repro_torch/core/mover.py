@@ -466,6 +466,7 @@ class UnifiedDataMover:
         chunk: int,
         damping: float,
         batch_items: Optional[int] = None,
+        fleet=None,
     ) -> tuple[int, int, list[StageReport], int, Optional[TransferPlan]]:
         """The zero-drain hot path: ONE persistent pipeline for the whole
         transfer.  Revision boundaries are accounting-only checkpoints —
@@ -473,13 +474,47 @@ class UnifiedDataMover:
         and the resulting :class:`~repro_torch.core.planner.PlanDelta` is
         applied to the running stages in place (buffer resize, worker
         spawn/retire), so no staged item drains and the supply never
-        falls off line rate while the plan is being corrected."""
+        falls off line rate while the plan is being corrected.
+
+        With a ``fleet`` admission bound, the arbiter pushes re-granted
+        plans through the same in-place resize path as peers arrive and
+        finish — each rebalance counts as a replan, and the pipeline is
+        never torn down for one."""
         active = plan
         params = self._stage_params(all_transforms, active, capacity,
                                     workers)
         pipeline = self._build_pipeline(iter(source), all_transforms,
                                         params, active, batch_items)
         pipeline.start()
+        rebalances = [0]
+        applied = [active]
+        if fleet is not None:
+            fleet_lock = threading.Lock()
+
+            def _fleet_apply(new_plan, _delta) -> None:
+                # diff against what this pipeline actually runs (not the
+                # arbiter's idea of the previous plan): the bind-time
+                # sync call then degrades to a no-op when nothing moved
+                # between plan pickup and bind
+                with fleet_lock:
+                    d = plan_delta(applied[0], new_plan)
+                    applied[0] = new_plan
+                    if not d:
+                        return
+                    rebalances[0] += 1
+                    new_params = self._stage_params(all_transforms,
+                                                    new_plan, capacity,
+                                                    workers)
+                    for st, (cap, wrk, hop) in zip(pipeline.stages,
+                                                   new_params):
+                        st.resize(capacity=cap, workers=wrk,
+                                  window_bytes=self._hop_window(hop),
+                                  rtt_s=self._hop_rtt(hop),
+                                  batch_items=self._hop_batch(hop,
+                                                              batch_items),
+                                  **self._hop_retry(hop))
+
+            fleet.bind(_fleet_apply)
         items = 0
         nbytes = 0
         replans = 0
@@ -522,6 +557,10 @@ class UnifiedDataMover:
                                   batch_items=self._hop_batch(hop,
                                                               batch_items),
                                   **self._hop_retry(hop))
+        if fleet is not None:
+            fleet.unbind()
+            active = applied[0]
+            replans += rebalances[0]
         pipeline.join()
         return items, nbytes, pipeline.reports(), replans, active
 
@@ -592,7 +631,20 @@ class UnifiedDataMover:
         replan_damping: float = 0.5,
         drain_per_segment: bool = False,
         batch_items: Optional[int] = None,
+        fleet=None,
+        resume=None,
     ) -> TransferReport:
+        if fleet is not None:
+            if replan_every_items:
+                raise ValueError(
+                    "a fleet-managed transfer delegates plan revision to "
+                    "the arbiter; replan_every_items must be 0")
+            if fleet.status != "admitted":
+                raise ValueError(
+                    f"fleet admission {fleet.name!r} is {fleet.status}"
+                    f"{': ' + fleet.reason if fleet.reason else ''}")
+            if plan is None:
+                plan = fleet.plan
         own_plan = plan is None
         plan = plan if plan is not None else self.plan
         do_sum = self.config.checksum if checksum is None else checksum
@@ -604,6 +656,20 @@ class UnifiedDataMover:
         placement = plan.checksum_placement if plan is not None else "host"
         digest = _StreamDigest(do_sum, placement=placement,
                                device=self.config.device)
+
+        if resume is not None:
+            # resumable ledger (core.resume): items the ledger already
+            # verified are claimed and skipped at the source — their
+            # recorded digests fold into the live checksum so a resumed
+            # run's stream checksum is bit-identical to an unbroken
+            # one's — and every new delivery records durably through the
+            # wrapped sink
+            if do_sum and placement != "host":
+                raise ValueError(
+                    "a resumable transfer verifies through the host "
+                    "checksum; plan checksum_placement='host'")
+            source = resume.skip_verified(source, digest)
+            sink = resume.recording_sink(sink)
 
         all_transforms = list(transforms)
         if do_sum:
@@ -629,22 +695,33 @@ class UnifiedDataMover:
         # transfer runs as a single segment
         chunk = replan_every_items if plan is not None else 0
         t0 = self._clock()
-        if drain_per_segment and chunk:
-            items, nbytes, merged, replans, active = self._run_segmented(
-                source, sink, all_transforms, capacity, workers, plan,
-                chunk, replan_damping, batch_items)
-        else:
-            items, nbytes, merged, replans, active = self._run_live(
-                source, sink, all_transforms, capacity, workers, plan,
-                chunk, replan_damping, batch_items)
-        elapsed = self._clock() - t0
+        try:
+            if drain_per_segment and chunk:
+                items, nbytes, merged, replans, active = self._run_segmented(
+                    source, sink, all_transforms, capacity, workers, plan,
+                    chunk, replan_damping, batch_items)
+            else:
+                items, nbytes, merged, replans, active = self._run_live(
+                    source, sink, all_transforms, capacity, workers, plan,
+                    chunk, replan_damping, batch_items, fleet)
+            elapsed = self._clock() - t0
+        finally:
+            # one admission, one transfer: completion (or failure) frees
+            # the grant so survivors absorb the share immediately
+            if fleet is not None:
+                fleet.release()
         self.last_plan = active
         if own_plan and self.plan is not None:
             # the mover owns the plan: online revisions persist to the
             # next transfer (the checkpoint engine replans across saves)
             self.plan = active
 
-        if plan is not None:
+        if fleet is not None:
+            # the grant moved while the transfer ran (peers arrived and
+            # finished); the honest promise is its time average — the
+            # fleet analogue of planned_bytes_per_s
+            planned = fleet.mean_granted(t0, t0 + elapsed)
+        elif plan is not None:
             planned = plan.planned_bytes_per_s
         else:
             planned = self.basin.achievable_throughput() if self.basin else None
@@ -677,8 +754,30 @@ class UnifiedDataMover:
         replan_damping: float = 0.5,
         drain_per_segment: bool = False,
         batch_items: Optional[int] = None,
+        fleet=None,
+        resume=None,
     ) -> TransferReport:
         """Move a dataset at rest (paper section 2.2, *Bulk Transfer*).
+
+        ``resume`` takes a :class:`~repro_torch.core.resume.TransferLedger`:
+        items the ledger already verified (recorded by a previous,
+        possibly killed, run) are skipped at the source with their
+        digests folded into the stream checksum — a resumed run's
+        checksum is bit-identical to an unbroken one's — and every new
+        delivery records durably, so after N interruptions the ledger
+        holds each item exactly once.  Requires the host checksum
+        placement when ``checksum`` is on.
+
+        ``fleet`` registers the transfer with a
+        :class:`~repro_torch.core.fleet.FleetArbiter`: pass the ``"admitted"``
+        :class:`~repro_torch.core.fleet.Admission` handle and the transfer runs
+        under the arbiter's granted plan (``plan`` defaults to it),
+        absorbs mid-stream re-grants zero-drain as peers arrive/finish
+        (each counts in ``replans``), measures its fidelity gap against
+        the time-averaged grant, and releases its share on completion.
+        The arbiter owns revision, so ``replan_every_items`` must stay 0;
+        use the same clock for mover and arbiter (a virtual clock in
+        tests) so the time-averaged promise is coherent.
 
         ``replan_every_items > 0`` makes the transfer *self-revising*: the
         observed stall ratios and service-time samples of each revision
@@ -701,7 +800,7 @@ class UnifiedDataMover:
         which is all a receiver can verify."""
         return self._run("bulk", source, sink, transforms, capacity, workers,
                          checksum, plan, replan_every_items, replan_damping,
-                         drain_per_segment, batch_items)
+                         drain_per_segment, batch_items, fleet, resume)
 
     def streaming_transfer(
         self,
@@ -717,6 +816,7 @@ class UnifiedDataMover:
         replan_damping: float = 0.5,
         drain_per_segment: bool = False,
         batch_items: Optional[int] = None,
+        fleet=None,
     ) -> TransferReport:
         """Move a still-growing stream (paper section 2.2, *Streaming
         Transfer*): the source iterator may block while data is produced;
@@ -725,10 +825,12 @@ class UnifiedDataMover:
         contract — the unified-mover property.  ``replan_every_items``
         revises the plan online, applied zero-drain to the persistent
         pipeline as in :meth:`bulk_transfer`; ``batch_items`` overrides
-        the per-hop slab size."""
+        the per-hop slab size and ``fleet`` registers with an arbiter as
+        in :meth:`bulk_transfer`."""
         return self._run("streaming", source, sink, transforms, capacity,
                          workers, checksum, plan, replan_every_items,
-                         replan_damping, drain_per_segment, batch_items)
+                         replan_damping, drain_per_segment, batch_items,
+                         fleet)
 
     # -- parallel-branch path (DAG plans) --------------------------------------
 
@@ -1093,13 +1195,15 @@ class UnifiedDataMover:
         damping: float,
         digest: _StreamDigest,
         batch_items: Optional[int] = None,
+        fleet=None,
     ) -> tuple[int, int, list[StageReport], int, TransferPlan]:
         """Zero-drain parallel path: queues, branch stages, and the
         dispatcher live for the whole transfer.  Revision checkpoints
         compute the window's branch-tagged evidence + split-node intake
         ratios, and apply the resulting plan delta to the running
         machinery — weights swap into the live dispatcher, stages and
-        queues resize in place."""
+        queues resize in place.  A bound ``fleet`` admission pushes
+        arbiter re-grants through the same in-place machinery."""
         active = plan
         queues, pbp = self._branch_pipelines(active, transforms, capacity,
                                              workers, route, batch_items)
@@ -1117,12 +1221,48 @@ class UnifiedDataMover:
             name="branch-dispatch", daemon=True)
         pbp.start()
         dispatch.start()
+        rebalances = [0]
+        applied = [active]
+        if fleet is not None:
+            fleet_lock = threading.Lock()
+
+            def _fleet_apply(new_plan, _delta) -> None:
+                with fleet_lock:
+                    d = plan_delta(applied[0], new_plan)
+                    applied[0] = new_plan
+                    if not d:
+                        return
+                    rebalances[0] += 1
+                    for bid2, pipe in pbp.branches:
+                        b = new_plan.branch(bid2)
+                        for i, st in enumerate(pipe.stages):
+                            hop = b.hop_for(i, st.name)
+                            st.resize(capacity=capacity or hop.capacity,
+                                      workers=workers or hop.workers,
+                                      window_bytes=self._hop_window(hop),
+                                      rtt_s=self._hop_rtt(hop),
+                                      batch_items=self._hop_batch(
+                                          hop, batch_items),
+                                      **self._hop_retry(hop))
+                    if route == "steal":
+                        agg = sum(b.hops[0].capacity
+                                  for b in new_plan.branches)
+                        queues[order[0]].resize(capacity or max(1, agg))
+                    else:
+                        for b in new_plan.branches:
+                            queues[b.branch_id].resize(b.hops[0].capacity)
+                    weights.update(
+                        self._normalized_weights(new_plan.branches))
+
+            fleet.bind(_fleet_apply)
         # -- branch failover bookkeeping --------------------------------
         # the dispatcher already *routes around* a dead branch the moment
         # its intake closes (see _dispatch); what remains here is the
         # accounting side: zero the corpse's weight so replanning never
         # hands it traffic back, write its obituary into the plan
-        # diagnosis (describe() shows the branch as `dead`)
+        # diagnosis (describe() shows the branch as `dead`), and — under
+        # a fleet — tell the arbiter the branch's basin element died so
+        # the member's grant re-levels instead of hanging
         dead_handled: set[str] = set()
         obituaries: dict[str, str] = {}
 
@@ -1139,6 +1279,10 @@ class UnifiedDataMover:
                 err = pbp.branch_error(bid2)
                 obituaries[bid2] = (f"branch-dead({err})" if err
                                     else "branch-dead")
+                if fleet is not None:
+                    b2 = active.branch(bid2)
+                    if b2.private_tiers:
+                        fleet.element_died(b2.private_tiers[-1])
             if obituaries:
                 active.diagnosis.update(obituaries)
 
@@ -1223,6 +1367,10 @@ class UnifiedDataMover:
                         for b in active.branches:
                             queues[b.branch_id].resize(b.hops[0].capacity)
                     weights.update(self._normalized_weights(active.branches))
+        if fleet is not None:
+            fleet.unbind()
+            active = applied[0]
+            replans += rebalances[0]
         dispatch.join()
         if dead_handled or pbp.dead_branches():
             # failover form: survivors' completion is the success
@@ -1364,8 +1512,17 @@ class UnifiedDataMover:
         drain_per_segment: bool = False,
         drainer_pool: bool = False,
         batch_items: Optional[int] = None,
+        fleet=None,
     ) -> TransferReport:
         """Move a stream down every branch of a multipath plan at once.
+
+        ``fleet`` registers the transfer with a
+        :class:`~repro_torch.core.fleet.FleetArbiter` exactly as in
+        :meth:`bulk_transfer`: the admitted plan is the default ``plan``,
+        arbiter re-grants resize branches/queues/weights in place
+        mid-stream, the promise is the time-averaged grant, and the
+        share is released on completion (``replan_every_items`` must
+        stay 0 — the arbiter owns revision).
 
         One stage pipeline per :class:`~repro_torch.core.planner.BranchPlan`; a
         dispatcher thread plays the split node.  ``mode="split"`` routes
@@ -1414,6 +1571,17 @@ class UnifiedDataMover:
             raise ValueError(f"unknown split route {route!r}")
         if route == "steal" and mode != "split":
             raise ValueError("route='steal' requires mode='split'")
+        if fleet is not None:
+            if replan_every_items:
+                raise ValueError(
+                    "a fleet-managed transfer delegates plan revision to "
+                    "the arbiter; replan_every_items must be 0")
+            if fleet.status != "admitted":
+                raise ValueError(
+                    f"fleet admission {fleet.name!r} is {fleet.status}"
+                    f"{': ' + fleet.reason if fleet.reason else ''}")
+            if plan is None:
+                plan = fleet.plan
         own_plan = plan is None
         plan = plan if plan is not None else self.plan
         if plan is None or not plan.branches:
@@ -1448,8 +1616,9 @@ class UnifiedDataMover:
             # also what branch failover rides (the dispatcher re-routes
             # around a dead branch and the tail sweep salvages its
             # debris; the segmented baseline keeps the historical
-            # fail-hard contract).
-            if drain_per_segment:
+            # fail-hard contract).  A fleet admission always takes the
+            # live path: re-grants need persistent machinery to resize.
+            if drain_per_segment and fleet is None:
                 items, nbytes, merged, replans, active = \
                     self._parallel_segmented(
                         source, deliver, plan, mode, route, transforms,
@@ -1460,10 +1629,12 @@ class UnifiedDataMover:
                     self._parallel_live(
                         source, deliver, plan, mode, route, transforms,
                         capacity, workers, chunk, replan_damping, digest,
-                        batch_items)
+                        batch_items, fleet)
         except BaseException:
             # the primary failure wins: drain the pool for cleanup but do
             # not let a retired client's error replace the real traceback
+            if fleet is not None:
+                fleet.release()
             if pool is not None:
                 try:
                     pool.close()
@@ -1473,10 +1644,14 @@ class UnifiedDataMover:
         if pool is not None:
             pool.close()
         elapsed = self._clock() - t0
+        if fleet is not None:
+            fleet.release()
         self.last_plan = active
         if own_plan and self.plan is not None:
             self.plan = active
-        if mode == "mirror":
+        if fleet is not None:
+            planned = fleet.mean_granted(t0, t0 + elapsed)
+        elif mode == "mirror":
             # replication paces at the slowest branch: every branch moves
             # every item, so the honest promise is n x the weakest rate,
             # not the split-mode aggregate.  A replica that DIED

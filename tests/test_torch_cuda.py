@@ -646,3 +646,82 @@ def test_pipeline_places_batches_on_card_in_order(card):
         for k in b:
             assert a[k].device.type == "cuda"
             assert np.array_equal(a[k].cpu().numpy(), b[k])
+
+
+# ---------------------------------------------------------------------------
+# Resumable and fleet-bound transfers of card tensors
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_resumed_transfer_of_card_tensors(card, tmp_path):
+    """Card tensors to host memory, killed at the 5th delivery and
+    resumed: the resumed hexdigest equals an unbroken run's, each item
+    arrives once, the skipped ones are keyed by their host bytes, and no
+    digest kernel runs (the ledger's identities are host SHA-256)."""
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    from repro_torch.core.resume import TransferLedger
+    items = _kv_items(card, 12, 11)
+    move = [("d2h", lambda t: t.cpu())]
+    whole = UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+        iter(items), lambda _: None, transforms=move)
+    path = str(tmp_path / "ledger.jsonl")
+    got = []
+
+    def dying(t):
+        if len(got) >= 5:
+            raise RuntimeError("cut")
+        got.append(t)
+
+    n0 = build.launch_counts()["digest_items"]
+    with pytest.raises(RuntimeError, match="cut"):
+        UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+            iter(items), dying, transforms=move,
+            resume=TransferLedger(path))
+    led = TransferLedger(path)
+    rep = UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+        iter(items), got.append, transforms=move, resume=led)
+    assert build.launch_counts()["digest_items"] == n0
+    assert rep.checksum == whole.checksum
+    assert led.skipped_items == 5 and rep.items == 7
+    assert sorted(TransferLedger.item_key(t) for t in got) == sorted(
+        TransferLedger.item_key(t) for t in items)
+    assert all(t.device.type == "cpu" for t in got)
+
+
+@pytest.mark.cuda
+def test_fleet_bound_transfer_with_accel_checksum(card):
+    """Two fleet members on the card's staging basin: the second admits
+    mid-stream, the first counts the re-grant as a replan, each digest
+    launches once per item and equals the plain digest of what arrived,
+    and completion releases both grants."""
+    from repro_torch.core import basin as tbasin
+    from repro_torch.core.fleet import FleetArbiter
+    from repro_torch.core.integrity import StreamDigest
+    from repro_torch.core.mover import MoverConfig, UnifiedDataMover
+    items = _kv_items(card, 16, 13)
+    arb = FleetArbiter(tbasin.card_host_basin())
+    kw = dict(stages=("kv-stage",), checksum=True,
+              checksum_placement="accel")
+    a = arb.admit("a", items[0].nbytes, qos="bulk", **kw)
+    got_a, got_b, peer = [], [], {}
+
+    def sink_a(t):
+        got_a.append(t.cpu())
+        if len(got_a) == 4:
+            peer["b"] = arb.admit("b", items[0].nbytes, qos="interactive",
+                                  **kw)
+
+    n0 = build.launch_counts()["digest_items"]
+    rep_a = UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+        iter(items), sink_a, fleet=a)
+    rep_b = UnifiedDataMover(MoverConfig(checksum=True)).bulk_transfer(
+        iter(items), lambda t: got_b.append(t.cpu()), fleet=peer["b"])
+    assert build.launch_counts()["digest_items"] - n0 == \
+        rep_a.checksum_folds + rep_b.checksum_folds == 2 * len(items)
+    assert rep_a.replans >= 1
+    for rep, got in ((rep_a, got_a), (rep_b, got_b)):
+        plain = StreamDigest(True, "accel", backend="ref", device="cpu")
+        plain.add_many(got)
+        assert rep.checksum == plain.hexdigest()
+    assert arb.grants() == {}
