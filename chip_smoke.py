@@ -64,8 +64,27 @@ Phases, one JSON line each:
    state, bit for bit; the transfer's hexdigest against the plain digest
    of the delivered items; 4 teacher-forced decode steps from the restored
    state against the same from the original state.
+9. ``gemma3`` (gemma3-1b): the kernels at the phase's shapes first (flash
+   B4 Hq4 Hkv1 S1024 hd 256 at windows 512 and 0; decode against the
+   1057-slot cache at both), then ``Server`` at full width (26 layers, hd
+   256, q_dim 1024 against d_model 1152, 5:1 local:global) serves 4 x
+   1024-token prompts (past the 512 window) for 32 tokens; flash launches
+   once per layer per prefill, decode once per layer per step; logits
+   against the plain path as in 5.
+10. ``zamba2`` (zamba2-1.2b): the kernels at the phase's shapes (flash B2
+   Hq32 S4608 hd 64 at window 4096; decode over the 4096-slot ring, every
+   slot filled as a ring is; SSD B2 H64 S4608 P64 N64; quantize at one
+   state item; the digest of one shared K item and one wire item, the
+   plans' rates), then the hybrid at full width (38 Mamba2 layers, the
+   shared block at 7 sites) serves 2 x 4608-token prompts (18 SSD chunks,
+   past the ring) for 32 tokens: SSD once per layer, flash once per site
+   per prefill, decode once per site per step.  Its decode cache is then
+   staged as in 7 (38 f32 states over the int8 wire, restored onto the
+   card) and its 14 shared K/V items as in 4 (the accel digest), and
+   checked as in 8 (logits at the noise floor, codes bit-exact, both
+   hexdigests, decoding from the restored state, shared K/V bytes).
 
-9. ``train`` (smollm-360m): ``Trainer(get_config("smollm-360m"),
+11. ``train`` (smollm-360m): ``Trainer(get_config("smollm-360m"),
    device="cuda")`` (full width, 32 layers, ``remat="full"``, random weights
    from a seed) trains 8 steps of 8 x 512 tokens from ``InputPipeline`` on
    ``SyntheticTokenSource``, checkpoints every 4 steps into a temporary
@@ -80,7 +99,7 @@ Phases, one JSON line each:
    consumer stall and fidelity gap, each save's device-to-host snapshot and
    serialize + hash + write seconds and bytes, restore seconds, peak memory.
 
-10. ``resume``: the trainer's state left on the card (bf16 params, f32
+12. ``resume``: the trainer's state left on the card (bf16 params, f32
    master, m and v: one item per leaf and per layer of a ``Stacked`` leaf,
    in ``tree.py``'s order) to host memory by a ``bulk_transfer`` planned on
    ``card_host_basin`` at the measured pageable copy rate with the host
@@ -94,7 +113,7 @@ Phases, one JSON line each:
    and the host bytes equal the card's.  Seconds and GB/s per run, bytes
    skipped, and the time (c) spent hashing the items it skipped (each read
    across PCIe again: the identity is the content).
-11. ``fleet``: a ``FleetArbiter`` over ``card_host_basin``.  ``state``
+13. ``fleet``: a ``FleetArbiter`` over ``card_host_basin``.  ``state``
    (bulk: mamba's 48 state items over the int8 wire, accel checksum) is
    admitted first; at a quarter of its items ``kv`` (interactive: smollm's
    64 KV items, accel checksum) is admitted and runs on its own thread,
@@ -108,17 +127,19 @@ Phases, one JSON line each:
    quantize once per state item; and no grant is left.  Per member its
    time-averaged grant, measured rate, fidelity gap and replans (nothing on
    this basin paces a member to its grant: it has no windowed link).
-12. ``codesign``: ``predict`` for phase 9's step (8 x 512 tokens, remat
+14. ``codesign``: ``predict`` for phase 11's step (8 x 512 tokens, remat
    full, one card) on ``H100_SXM``, and ``roofline`` of one train step
    counted with ``count_step`` on the card, beside the measured median
    step and their ratios.  It fails unless the plan fits (the measured
    peak too) and the counted FLOPs reach 6 N T.
 
-The launch counts are set to 0 just before each path (the two ``serve``
-phases, ``stage_state``, ``restore``, ``train``, ``resume``, ``fleet``,
-``codesign``) and read just after; every kernel a serving path or the
+The launch counts are set to 0 just before each path (the four ``serve``
+phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
+``resume``, ``fleet``, ``codesign``) and read just after; every kernel a serving path or the
 fleet runs must have run there, and none may run in ``train``.  Then the
-kernels line (launches summed over the paths;
+kernels line (launches summed over the paths, each kernel's record at
+the smollm / mamba shape and, under ``shapes``, at the gemma3 and zamba2
+phases' shapes;
 ``block_digest``, the TPU kernel's per-row function, is checked in phase 3
 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
@@ -159,6 +180,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
 #: mamba2-1.3b prompt: two 256-step SSD chunks
 MAMBA_PROMPT = 512
+#: gemma3-1b: batch and prompt, past the local layers' 512-token window
+GEMMA_BATCH, GEMMA_PROMPT = 4, 1024
+#: zamba2-1.2b: batch and prompt, 18 SSD chunks, past the 4096-slot ring
+ZAMBA_BATCH, ZAMBA_PROMPT = 2, 4608
 
 # kernel against plain version on the card, both rounding an f32 result to
 # the output dtype once: f32 sums in another order, bf16 about one ulp of
@@ -352,7 +377,11 @@ def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True):
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
-def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring):
+def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
+                 wrapped=False):
+    """``ring`` permutes the slots; ``wrapped`` fills every slot as a ring
+    cache does after step ``fill`` (slot j holds the last position p <=
+    fill with p % S == j)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_bhd,
                                                        split_plan)
@@ -364,6 +393,8 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring):
     v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
     pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
     k_pos = torch.where(pos <= fill, pos, -1).contiguous()
+    if wrapped:
+        k_pos = (fill - torch.remainder(fill - pos, S)).contiguous()
     if ring:   # slots in a permuted order: only k_pos may be trusted
         perm = torch.randperm(S, generator=g, device="cuda")
         k, v, k_pos = k[:, :, perm], v[:, :, perm], k_pos[:, perm].contiguous()
@@ -395,7 +426,8 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring):
                        else PEAK_F32)
     return emit("check", kernel="decode_attention",
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd), fill=fill,
-                window=window, ring=ring, chunk=chunk, n_split=n_split,
+                window=window, ring=ring, wrapped=wrapped, chunk=chunk,
+                n_split=n_split,
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ok=ok, ms=ms, call_ms=per_call, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
@@ -558,10 +590,10 @@ def _within(torch, got, want, atol_share, rtol) -> tuple[float, bool]:
     return err, ok
 
 
-def check_ssd(torch, B, H, G, S, chunk=256):
+def check_ssd(torch, B, H, G, S, chunk=256, N=128):
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bhsd
-    x, dt, A, Bm, Cm = _ssd_inputs(torch, B, H, G, S, seed=S + G)
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, B, H, G, S, N=N, seed=S + G)
     P, N = x.shape[3], Bm.shape[3]
     y, state = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=chunk)
     ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
@@ -750,7 +782,8 @@ def check_logits(torch, server, batch, tokens, *, noise_floor=False) -> dict:
                          dim=1).cpu().numpy()
     greedy_ok = bool((greedy == tokens[:, :greedy.shape[1]]).all())
     finite = all(bool(torch.isfinite(x).all()) for x in kern)
-    shape_ok = (tokens.shape == (BATCH, GEN) and tokens.dtype.kind == "i"
+    shape_ok = (tokens.shape == (len(batch["tokens"]), GEN)
+                and tokens.dtype.kind == "i"
                 and int(tokens.min()) >= 0
                 and int(tokens.max()) < server.cfg.vocab)
     out = dict(logits_max_abs_err=errs, logits_scale=scale,
@@ -772,15 +805,21 @@ def check_logits(torch, server, batch, tokens, *, noise_floor=False) -> dict:
 
 
 def check_correct(torch, server, batch, tokens, items, received, report):
-    from repro_torch.core.integrity import StreamDigest
     fields = check_logits(torch, server, batch, tokens)
+    return emit("correct", arch=server.cfg.name, **fields,
+                **kv_staged_ok(items, received, report))
+
+
+def kv_staged_ok(items, received, report) -> dict:
+    """A KV staging's hexdigest against the plain digest of the bytes that
+    arrived on the host, and those bytes against the card's items."""
+    from repro_torch.core.integrity import StreamDigest
     plain = StreamDigest(True, "accel", backend="ref", device="cpu")
     plain.add_many(received)
     bytes_ok = (len(received) == len(items)
                 and sorted(_sha(t) for t in received)
                 == sorted(_sha(t.cpu()) for t in items))
-    return emit("correct", arch=server.cfg.name, **fields,
-                accel_hexdigest=report.checksum,
+    return dict(accel_hexdigest=report.checksum,
                 plain_hexdigest=plain.hexdigest(),
                 digest_ok=report.checksum == plain.hexdigest(),
                 bytes_ok=bytes_ok)
@@ -847,10 +886,15 @@ def check_mamba_correct(torch, server, batch, tokens, cache, items, received,
     code_bytes = sum(q.nbytes for q, _, _ in received)
     scale_bytes = sum(s.nbytes for _, s, _ in received)
     mamba = cache["mamba"]
+    # decode writes its cache in place: each run gets its own copy (the
+    # hybrid's shared K/V included)
+    kv = {n: cache[n] for n in ("shared_k", "shared_v") if n in cache}
     orig = {"pos": cache["pos"], "mamba": MambaState(mamba.conv.clone(),
-                                                     mamba.ssm.clone())}
+                                                     mamba.ssm.clone()),
+            **{n: t.clone() for n, t in kv.items()}}
     back = {"pos": cache["pos"], "mamba": MambaState(mamba.conv.clone(),
-                                                     restored)}
+                                                     restored),
+            **{n: t.clone() for n, t in kv.items()}}
     forced = torch.as_tensor(tokens, device="cuda")
     errs, scale = [], 0.0
     for t in range(4):
@@ -883,7 +927,7 @@ def _sha(t) -> str:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: training at full width, with checkpoints, a failure and a restore
+# phase 11: training at full width, with checkpoints, a failure and a restore
 # ---------------------------------------------------------------------------
 
 
@@ -1044,7 +1088,7 @@ def step_breakdown(torch, trainer, source) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: a resumed transfer of the training state
+# phase 12: a resumed transfer of the training state
 # ---------------------------------------------------------------------------
 
 
@@ -1170,7 +1214,7 @@ def resume_phase(torch, trainer, root) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: three transfers under one fleet arbiter
+# phase 13: three transfers under one fleet arbiter
 # ---------------------------------------------------------------------------
 
 
@@ -1319,12 +1363,12 @@ def fleet_phase(torch, kv_items, state_items, kv_digest, state_digest
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the co-design model's prediction beside the measured step
+# phase 14: the co-design model's prediction beside the measured step
 # ---------------------------------------------------------------------------
 
 
 def codesign_phase(torch, cfg, trainer, source, train) -> dict:
-    """The analytic prediction for smollm-360m's train step as phase 9 runs
+    """The analytic prediction for smollm-360m's train step as phase 11 runs
     it (8 x 512 tokens, remat full, one card) on the H100's data sheet,
     the roofline of one step counted by ``count_step`` (run on the card:
     the trainer's state advances one step), and the measured step."""
@@ -1487,10 +1531,7 @@ def main() -> int:
     records += checks
     records.append(emit("phase_time", of="check",
                         seconds=time.monotonic() - t_phase))
-    bad = [c for c in checks if not c["ok"]]
-    if bad:
-        fail(f"{len(bad)} kernel check(s) disagree with the plain version: "
-             f"{json.dumps(bad)}")
+    checks_ok(checks)
 
     # ---- smollm-360m: serve, stage the KV cache -------------------------
     t_phase = time.monotonic()
@@ -1621,6 +1662,15 @@ def main() -> int:
     del mserver, sreceived, restored
     torch.cuda.empty_cache()
 
+    # ---- gemma3-1b and zamba2-1.2b: serve at full width ------------------
+    shapes = {}
+    for name, phase in (("gemma3", gemma3_phase), ("zamba2", zamba2_phase)):
+        t_phase = time.monotonic()
+        shapes[name] = phase(torch, paths, rng, records)
+        records.append(emit("phase_time", of=name,
+                            seconds=time.monotonic() - t_phase))
+        torch.cuda.empty_cache()
+
     # ---- smollm-360m: train, checkpoint, fail, restore ------------------
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1685,7 +1735,15 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "call_ms": rec["call_ms"]})
+            "call_ms": rec["call_ms"],
+            # the same kernel at the gemma3 and zamba2 phases' shapes
+            "shapes": [
+                {"of": f"{phase} {label}", **{key: r.get(key) for key in (
+                    "shape", "window", "values", "bytes", "max_abs_err",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "call_ms")}}
+                for phase, recs in shapes.items()
+                for label, r in recs.items() if r["kernel"] == name]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1699,6 +1757,242 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the gemma3-1b and zamba2-1.2b serving phases
+# ---------------------------------------------------------------------------
+
+
+def _prompts(torch, cfg, batch, prompt, rng) -> dict:
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, prompt),
+                                    generator=rng,
+                                    dtype=torch.int32).numpy()}
+
+
+def checks_ok(checks) -> None:
+    """Fail unless every kernel check record in ``checks`` holds."""
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} kernel check(s) disagree with the plain version: "
+             f"{json.dumps(bad)}")
+
+
+def _launches_per_layer(paths, path, name, want) -> None:
+    got = paths[path][name]
+    if got != want:
+        fail(f"the {path} path launched {name} {got} times, not {want}")
+
+
+def _serve_record(torch, server, batch, prompt, timing, gen_s, launches):
+    cfg = server.cfg
+    n = len(batch["tokens"])
+    return emit(
+        "serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params=sum(p.numel() for p in server.params.parameters()),
+        batch=n, prompt=prompt, gen=GEN, max_len=server.max_len, **timing,
+        generate_s=gen_s, tok_per_s=n * GEN / gen_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+
+
+def gemma3_phase(torch, paths, rng, records) -> dict:
+    """gemma3-1b at full width (26 layers, hd 256, 5:1 local:global)
+    serving 4 x 1024-token prompts for 32 tokens against a full cache of
+    1057 slots: the kernels at the phase's shapes (flash at windows 512
+    and 0, decode against the cache at both), the path's launches, and
+    its logits against the plain path.  Appends every record to
+    ``records``; returns the check records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    cfg = get_config("gemma3-1b")
+    max_len = GEMMA_PROMPT + GEN + 1
+    G = dict(B=GEMMA_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    checks = {
+        "flash_local": check_flash(torch, S=GEMMA_PROMPT, dtype=bf16,
+                                   window=cfg.window, **G),
+        "flash_global": check_flash(torch, S=GEMMA_PROMPT, dtype=bf16,
+                                    window=0, **G),
+        "decode_local": check_decode(torch, S=max_len, dtype=bf16,
+                                     fill=GEMMA_PROMPT + GEN // 2,
+                                     window=cfg.window, ring=False, **G),
+        "decode_global": check_decode(torch, S=max_len, dtype=bf16,
+                                      fill=GEMMA_PROMPT + GEN // 2,
+                                      window=0, ring=False, **G),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    batch = _prompts(torch, cfg, GEMMA_BATCH, GEMMA_PROMPT, rng)
+    timing = serve_timing(torch, server, batch, GEMMA_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.monotonic()
+    tokens = server.generate(batch, GEN)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    paths["gemma3_serve"] = build.launch_counts()
+    records.append(_serve_record(torch, server, batch, GEMMA_PROMPT, timing,
+                                 gen_s, paths["gemma3_serve"]))
+    # one prefill: flash once per layer; 31 decode steps: decode per layer
+    _launches_per_layer(paths, "gemma3_serve", "flash_attention",
+                        cfg.n_layers)
+    _launches_per_layer(paths, "gemma3_serve", "decode_attention",
+                        cfg.n_layers * (GEN - 1))
+    correct = emit("correct", arch=cfg.name,
+                   **check_logits(torch, server, batch, tokens))
+    records.append(correct)
+    checked(correct, "gemma3 serving path",
+            ("logits_ok", "tokens_ok", "greedy_ok"))
+    return checks
+
+
+def zamba2_phase(torch, paths, rng, records) -> dict:
+    """zamba2-1.2b at full width (38 Mamba2 layers, the shared block at 7
+    sites) serving 2 x 4608-token prompts for 32 tokens, the shared K/V a
+    4096-slot ring at each site: the kernels at the phase's shapes, the
+    path's launches, then its decode cache staged as the mamba phase stages
+    its own (the 38 f32 states over the int8 wire, restored onto the card;
+    the 14 shared K/V items under the accel digest), both planned on
+    ``card_host_basin`` at the rates measured here, and its logits, codes,
+    digests and decoding from the restored state checked.  Appends every
+    record to ``records``; returns the check records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.integrity import as_bytes, decompress_transform
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    cfg = get_config("zamba2-1.2b")
+    max_len = ZAMBA_PROMPT + GEN + 1
+    slots = min(cfg.window, max_len)
+    G = dict(B=ZAMBA_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    s = cfg.ssm
+    state_shape = (ZAMBA_BATCH, cfg.ssm_heads, s.head_dim, s.d_state)
+    state_values = math.prod(state_shape)
+    quant, dequant = check_quantize(torch, state_values)
+    # one shared K item and one state item on the wire, as the mover hands
+    # them to the digest (one launch each): the plans' digest rates
+    g = torch.Generator(device="cuda").manual_seed(29)
+    kv_bytes = ZAMBA_BATCH * slots * cfg.kv_dim * 2
+    kv = torch.randint(0, 256, (kv_bytes,), generator=g, dtype=torch.uint8,
+                       device="cuda")
+    codes = torch.randint(0, 256, (state_values,), generator=g,
+                          dtype=torch.uint8, device="cuda")
+    scales = torch.randint(0, 256, (state_values // 256 * 4,), generator=g,
+                           dtype=torch.uint8, device="cuda")
+    shape_bytes = as_bytes(state_shape)
+    shape_dev = torch.frombuffer(bytearray(shape_bytes),
+                                 dtype=torch.uint8).cuda()
+    checks = {
+        "flash": check_flash(torch, S=ZAMBA_PROMPT, dtype=bf16,
+                             window=cfg.window, **G),
+        "decode": check_decode(torch, S=slots, dtype=bf16,
+                               fill=ZAMBA_PROMPT + GEN // 2,
+                               window=cfg.window, ring=False, wrapped=True,
+                               **G),
+        "ssd_scan": check_ssd(torch, ZAMBA_BATCH, cfg.ssm_heads, s.n_groups,
+                              ZAMBA_PROMPT, chunk=s.chunk, N=s.d_state),
+        "quantize_int8": quant, "dequantize_int8": dequant,
+        "kv_item": check_digest_items(torch, "one zamba2 shared K item",
+                                      [[kv]], [[kv]]),
+        "wire_item": check_digest_items(
+            torch, "one zamba2 state item on the wire",
+            [[codes, scales, shape_bytes]], [[codes, scales, shape_dev]]),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv, codes, scales
+
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    batch = _prompts(torch, cfg, ZAMBA_BATCH, ZAMBA_PROMPT, rng)
+    timing = serve_timing(torch, server, batch, ZAMBA_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.monotonic()
+    tokens = server.generate(batch, GEN)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    paths["zamba2_serve"] = build.launch_counts()
+    records.append(_serve_record(torch, server, batch, ZAMBA_PROMPT, timing,
+                                 gen_s, paths["zamba2_serve"]))
+    n_sites = len(range(0, cfg.n_layers, cfg.attn_every))
+    _launches_per_layer(paths, "zamba2_serve", "ssd_scan", cfg.n_layers)
+    _launches_per_layer(paths, "zamba2_serve", "flash_attention", n_sites)
+    _launches_per_layer(paths, "zamba2_serve", "decode_attention",
+                        n_sites * (GEN - 1))
+
+    build.reset_launches()
+    state_digest = digest_rate(checks["wire_item"])
+    cache, sitems, sreceived, sreport, sstage_s, state_copy_gbps = \
+        stage_state(torch, server, batch, state_digest)
+    torch.cuda.synchronize()
+    paths["zamba2_stage_state"] = build.launch_counts()
+    state_bytes = sum(t.nbytes for t in sitems)
+    records.append(emit(
+        "stage_state", arch=cfg.name, items=len(sitems),
+        item_bytes=sitems[0].nbytes, state_bytes=state_bytes,
+        wire_bytes=sreport.bytes, ratio=state_bytes / sreport.bytes,
+        stage_s=sstage_s, state_gbps=state_bytes * 8 / sstage_s / 1e9,
+        pageable_copy_gbps=state_copy_gbps,
+        planned_digest_bytes_per_s=state_digest,
+        digest_folds=sreport.checksum_folds,
+        launches=paths["zamba2_stage_state"]))
+    need(paths, "zamba2_stage_state",
+         ("ssd_scan", "quantize_int8", "digest_items"))
+    once_per_fold(paths, "zamba2_stage_state", sreport)
+
+    # the shared block's K and V, one item per site and tensor
+    kv_items = [cache[name][i] for i in range(cache["shared_k"].shape[0])
+                for name in ("shared_k", "shared_v")]
+    kv_digest = digest_rate(checks["kv_item"])
+    kv_copy_gbps = pageable_gbps(torch, kv_items[0])
+    build.reset_launches()
+    t0 = time.monotonic()
+    kreceived, kreport = _stage_kv(torch, kv_items, kv_digest, kv_copy_gbps)
+    kstage_s = time.monotonic() - t0
+    paths["zamba2_stage_kv"] = build.launch_counts()
+    kv_total = sum(t.nbytes for t in kv_items)
+    records.append(emit(
+        "stage_kv", arch=cfg.name, items=len(kv_items),
+        item_bytes=kv_items[0].nbytes, kv_bytes=kv_total,
+        stage_s=kstage_s, kv_gbps=kv_total * 8 / kstage_s / 1e9,
+        pageable_copy_gbps=kv_copy_gbps,
+        planned_digest_bytes_per_s=kv_digest,
+        digest_folds=kreport.checksum_folds,
+        launches=paths["zamba2_stage_kv"]))
+    need(paths, "zamba2_stage_kv", ("digest_items",))
+    once_per_fold(paths, "zamba2_stage_kv", kreport)
+
+    build.reset_launches()
+    t0 = time.monotonic()
+    restored = torch.stack(
+        decompress_transform(device="cuda").many(sreceived))
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    paths["zamba2_restore"] = build.launch_counts()
+    records.append(emit("restore", arch=cfg.name, items=len(sreceived),
+                        seconds=restore_s,
+                        state_gbps=state_bytes * 8 / restore_s / 1e9,
+                        launches=paths["zamba2_restore"]))
+    need(paths, "zamba2_restore", ("dequantize_int8",))
+
+    correct = check_mamba_correct(torch, server, batch, tokens, cache,
+                                  sitems, sreceived, sreport, restored)
+    records.append(correct)
+    checked(correct, "zamba2 serving and state staging path",
+            ("logits_ok", "tokens_ok", "greedy_ok", "codes_ok",
+             "restore_ok", "digest_ok", "restored_ok"))
+    kv_ok = emit("correct", of="zamba2 shared K/V staging", arch=cfg.name,
+                 **kv_staged_ok(kv_items, kreceived, kreport))
+    records.append(kv_ok)
+    checked(kv_ok, "zamba2 shared K/V staging", ("digest_ok", "bytes_ok"))
+    return checks
+
+
 def serve_timing(torch, server, batch, prompt) -> dict:
     """A warm-up request, then prefill ms (eager), decode ms/token (eager,
     and as device time from a CUDA graph replay of the same step: what the
@@ -1707,7 +2001,8 @@ def serve_timing(torch, server, batch, prompt) -> dict:
     server.generate(batch, 4)                              # warm-up request
     prefill_ms = call_ms(lambda: server.prefill(batch), iters=5, warmup=1)
     _, cache = server.prefill(batch)
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+    tok = torch.zeros((len(batch["tokens"]), 1), dtype=torch.int32,
+                      device="cuda")
 
     def one_step():
         cache["pos"] = prompt

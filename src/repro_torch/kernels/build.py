@@ -211,7 +211,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.ssd_scan_fwd
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
         fn.restype = i
-        lib.ssd_scan_smem_bytes.argtypes = []
+        lib.ssd_scan_smem_bytes.argtypes = [i]
         lib.ssd_scan_smem_bytes.restype = i64
     elif name == "quantize_int8":
         fn = lib.quantize_int8_f32

@@ -23,7 +23,9 @@
 // heads of that KV head, b).  A warp takes 8 slots at a time: it reads their
 // positions first, skips the 8 without touching K/V when none is kept, and
 // otherwise reads K and V straight from device memory as 16-byte vector
-// loads (an hd-64 bf16 row is 8 lanes x 16 B), only for kept slots.  The
+// loads (an hd-64 bf16 row is 8 lanes x 16 B), only for kept slots.  At hd
+// 256 in bf16 a row is all 32 lanes, and a warp takes 4 slots at a time:
+// eight slots' K and V in f32 registers would be 128 of them a lane.  The
 // query rows (scaled by hd^-1/2 log2 e) stay in registers; a slot's score is
 // reduced over its lanes by shuffles, and each lane keeps an online softmax
 // (m, l, acc) in f32 for its slots.  The lanes, then the warps (through
@@ -41,7 +43,7 @@ namespace {
 constexpr int DWARPS = 4;           // warps per CTA
 constexpr int DTHREADS = 32 * DWARPS;
 constexpr int GB = 4;               // query heads per CTA at most
-constexpr int WARP_SLOTS = 8;       // slots a warp takes at a time
+constexpr int WARP_SLOTS = 8;       // slots a warp takes at a time (hd 64)
 constexpr int CHUNK_ALIGN = DWARPS * WARP_SLOTS;  // chunk is a multiple of it
 
 // 16 bytes of T: loaded raw, widened to f32
@@ -101,7 +103,10 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
   constexpr int EPL = Vec16<T>::N;       // elements per lane per load
   constexpr int LPS = HD / EPL;          // lanes per slot row
   constexpr int SPL = 32 / LPS;          // slots per warp-wide load
-  constexpr int U = WARP_SLOTS / SPL;    // loads per group of 8 slots
+  constexpr int WS = HD > 64 ? WARP_SLOTS / 2 : WARP_SLOTS;  // per step
+  constexpr int U = WS / SPL;            // loads per group of WS slots
+  static_assert(LPS <= 32 && U >= 1 && CHUNK_ALIGN % (DWARPS * WS) == 0,
+                "a slot row spans at most one warp-wide load");
   __shared__ float sh_m[DWARPS][GB], sh_l[DWARPS][GB];
   __shared__ float sh_acc[DWARPS][GB][HD];
 
@@ -142,11 +147,10 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
   const int s_begin = split * chunk;
   const int s_end = min(S, s_begin + chunk);
 
-  // a warp takes groups of 8 slots, 32 apart: their positions first, then
-  // the K/V of every kept slot (U loads of 16 B per lane for each of K and
-  // V in flight), then the arithmetic
-  for (int s0 = s_begin + warp * WARP_SLOTS; s0 < s_end;
-       s0 += DWARPS * WARP_SLOTS) {
+  // a warp takes groups of WS slots, DWARPS WS apart: their positions
+  // first, then the K/V of every kept slot (U loads of 16 B per lane for
+  // each of K and V in flight), then the arithmetic
+  for (int s0 = s_begin + warp * WS; s0 < s_end; s0 += DWARPS * WS) {
     bool keep[U];
     bool any = false;
 #pragma unroll
@@ -342,20 +346,26 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     float scale, int window, int chunk,
                                     void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || B <= 0 || chunk <= 0 ||
-      chunk % CHUNK_ALIGN != 0 || hd != 64)
+      chunk % CHUNK_ALIGN != 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kp = static_cast<const int*>(k_pos);
   const int* qp = static_cast<const int*>(q_pos);
   float* w = static_cast<float*>(ws);
-  // only the head dim of the ported configs (64) is instantiated
-  if (dtype == DTYPE_F32)
+  // the ported configs' head dims: 64 in f32 and bf16, 256 in bf16 (an f32
+  // row of 256 is 64 lanes of 16 bytes, more than a warp); another one is
+  // added with the config that needs it
+  if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv, S, G,
                                   chunk, strides, scale, window, s);
-  if (dtype == DTYPE_BF16)
+  if (dtype == DTYPE_BF16 && hd == 64)
     return (int)launch<__nv_bfloat16, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
                                           S, G, chunk, strides, scale, window,
                                           s);
+  if (dtype == DTYPE_BF16 && hd == 256)
+    return (int)launch<__nv_bfloat16, 256>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
+                                           S, G, chunk, strides, scale,
+                                           window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,8 @@
 //
 // Bound on the H100: at the serving shapes (S = 128..1000, hd = 64) the
 // work is a few GFLOP against a few MB, so the bf16 tensor cores bound it
-// at S = 1000 and the bytes (a few us of latency) at S = 128.
+// at S = 1000 and the bytes (a few us of latency) at S = 128; at gemma3's
+// (S 1024, hd 256) and zamba2's (S 4608, hd 64) the tensor cores.
 //
 // bf16 (the model's type), FlashAttention-3's shape kept simple: one CTA of
 // one warpgroup (128 threads) owns a 64-row query tile of one (b, h).  TMA
@@ -34,9 +35,19 @@
 // fills rows past the end with zeros.  The output is scaled by 1 / l once
 // and stored from registers.
 //
+// Head dim 256 (gemma3) is the same kernel with each tile four 64-column
+// boxes: S = Q K^T contracts over 16 k-steps, and O is four m64n64
+// accumulators (128 f32 registers a thread), one per box of V, each fed the
+// same P fragments, all four chains under one fence / commit / wait.  Q
+// (32 KiB) and two stages of K and V (32 KiB each) take 161 KiB of shared
+// memory, so one CTA runs per SM.  Four n64 chains rather than one m64n256
+// wgmma: the same tensor work with the helpers the hd-64 kernel uses.
+//
 // f32 keeps the first version: one thread per query row on the f32 CUDA
 // cores (K/V tiles of 32 keys staged as f32 in shared memory, read as
-// broadcasts), no slower than PyTorch's own attention in f32.
+// broadcasts), no slower than PyTorch's own attention in f32.  It holds a
+// query row and its accumulator in registers (2 hd floats a thread), so it
+// is built at hd 64 only: no config serves f32.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -153,16 +164,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 constexpr int WQ = 64;                    // query rows per CTA
 constexpr int WK = 64;                    // keys per tile
 constexpr int WSTAGES = 2;                // K/V ring depth
-constexpr int WTILE = 64 * 64 * 2;        // bytes of one 64 x 64 bf16 tile
-constexpr int WSMEM = WTILE * (1 + 2 * WSTAGES) + 1024;  // + 1 KiB to align
+constexpr int WTILE = 64 * 64 * 2;        // bytes of one 64 x 64 bf16 box
+// dynamic shared memory for head dim HD: the Q tile and WSTAGES K and V
+// tiles of HD / 64 boxes each, + 1 KiB to align
+template <int HD>
+constexpr int wsmem() {
+  return WTILE * (HD / 64) * (1 + 2 * WSTAGES) + 1024;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
+// HD / 64 boxes make a row: box j holds columns 64j..64j+63 of every row of
+// a tile.  S = Q K^T contracts over all of them (k-step kk reads box kk / 4
+// at 32 bytes times kk % 4); O is HD / 64 accumulators of m64n64, one per
+// box of V, fed by the same P fragments.
+template <int HD>
 __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
     int Sq, int Sk, int G, int64_t osb, int64_t osh, int64_t oss,
     float scale_log2, int causal, int window) {
+  constexpr int NB = HD / 64;             // boxes per row
+  constexpr int TILE = NB * WTILE;        // bytes of one Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q;
   __shared__ uint64_t bar_kv[WSTAGES];
@@ -170,8 +193,8 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
-  uint8_t* ks = smem + WTILE;
-  uint8_t* vs = smem + WTILE * (1 + WSTAGES);
+  uint8_t* ks = smem + TILE;
+  uint8_t* vs = smem + TILE * (1 + WSTAGES);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * WQ;  // longest rows first
   const int h = blockIdx.y;
@@ -187,6 +210,18 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
   const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / WK * WK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + WK - 1) / WK : 0;
 
+  // K and V tile t of stage s: NB boxes each, one barrier for all of them
+  auto load_kv = [&](int s, int row) {
+    mbar_expect_tx(&bar_kv[s], 2 * TILE);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      tma_load_4d(ks + s * TILE + j * WTILE, &kmap, &bar_kv[s], 64 * j, row,
+                  hk, b);
+      tma_load_4d(vs + s * TILE + j * WTILE, &vmap, &bar_kv[s], 64 * j, row,
+                  hk, b);
+    }
+  };
+
   if (tid == 0) {
     mbar_init(&bar_q, 1);
     for (int s = 0; s < WSTAGES; ++s) mbar_init(&bar_kv[s], 1);
@@ -194,44 +229,44 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bar_q, WTILE);
-    tma_load_4d(qs, &qmap, &bar_q, 0, q0, h, b);
-    for (int t = 0; t < WSTAGES && t < n_tiles; ++t) {
-      mbar_expect_tx(&bar_kv[t], 2 * WTILE);
-      tma_load_4d(ks + t * WTILE, &kmap, &bar_kv[t], 0, k_begin + t * WK, hk,
-                  b);
-      tma_load_4d(vs + t * WTILE, &vmap, &bar_kv[t], 0, k_begin + t * WK, hk,
-                  b);
-    }
+    mbar_expect_tx(&bar_q, TILE);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load_4d(qs + j * WTILE, &qmap, &bar_q, 64 * j, q0, h, b);
+    for (int t = 0; t < WSTAGES && t < n_tiles; ++t)
+      load_kv(t, k_begin + t * WK);
   }
 
   // accumulator layout of wgmma m64n64: d[4n + 2i + j] is row r0 + 8i,
   // column 8n + cq + j of the 64 x 64 tile
   const int r0 = warp * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
-  float oacc[32];
+  float oacc[NB][32];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) oacc[e] = 0.f;
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
   mbar_wait(&bar_q, 0);
-  const uint64_t qdesc = wgmma_desc_sw128(qs);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % WSTAGES;
     const int k0 = k_begin + t * WK;
     mbar_wait(&bar_kv[s], (t / WSTAGES) & 1);
 
-    // S = Q K^T over hd = 64: four k-steps of 16 (32 bytes each)
+    // S = Q K^T over hd: 4 NB k-steps of 16 (32 bytes each)
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.f;
-    const uint64_t kdesc = wgmma_desc_sw128(ks + s * WTILE);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_m64n64k16(sc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    for (int kk = 0; kk < 4 * NB; ++kk)
+      wgmma_ss_m64n64k16(
+          sc, wgmma_desc_sw128(qs + (kk >> 2) * WTILE) + 2 * (kk & 3),
+          wgmma_desc_sw128(ks + s * TILE + (kk >> 2) * WTILE) + 2 * (kk & 3),
+          kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -280,15 +315,18 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
         l[i] += p0 + p1;
         split_bf16x2(p0, p1, ph[2 * n + i], pl[2 * n + i]);
       }
-      oacc[4 * n + 0] *= alpha[0];
-      oacc[4 * n + 1] *= alpha[0];
-      oacc[4 * n + 2] *= alpha[1];
-      oacc[4 * n + 3] *= alpha[1];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        oacc[j][4 * n + 0] *= alpha[0];
+        oacc[j][4 * n + 1] *= alpha[0];
+        oacc[j][4 * n + 2] *= alpha[1];
+        oacc[j][4 * n + 3] *= alpha[1];
+      }
     }
 
     // O += P_hi V + P_lo V: k-step kk takes keys 16kk..16kk+15, i.e. score
-    // blocks 2kk and 2kk+1, and V rows 16kk.. (2048 bytes further each)
-    const uint64_t vdesc = wgmma_desc_sw128(vs + s * WTILE);
+    // blocks 2kk and 2kk+1, and V rows 16kk.. (2048 bytes further each),
+    // into the accumulator of each box j of V
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -296,20 +334,21 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
                               ph[4 * kk + 3]};
       const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
                               pl[4 * kk + 3]};
-      wgmma_rs_m64n64k16_tb(oacc, ah, vdesc + kk * (2048 >> 4));
-      wgmma_rs_m64n64k16_tb(oacc, al, vdesc + kk * (2048 >> 4));
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const uint64_t vdesc =
+            wgmma_desc_sw128(vs + s * TILE + j * WTILE) + kk * (2048 >> 4);
+        wgmma_rs_m64n64k16_tb(oacc[j], ah, vdesc);
+        wgmma_rs_m64n64k16_tb(oacc[j], al, vdesc);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(oacc);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(oacc[j]);
 
     __syncthreads();  // every warp is done with stage s: refill it
-    if (tid == 0 && t + WSTAGES < n_tiles) {
-      const int kn = k0 + WSTAGES * WK;
-      mbar_expect_tx(&bar_kv[s], 2 * WTILE);
-      tma_load_4d(ks + s * WTILE, &kmap, &bar_kv[s], 0, kn, hk, b);
-      tma_load_4d(vs + s * WTILE, &vmap, &bar_kv[s], 0, kn, hk, b);
-    }
+    if (tid == 0 && t + WSTAGES < n_tiles) load_kv(s, k0 + WSTAGES * WK);
   }
 
 #pragma unroll
@@ -321,40 +360,41 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     if (qi >= Sq) continue;
     __nv_bfloat16* op = o + b * osb + h * osh + (int64_t)qi * oss;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + cq) =
-          __floats2bfloat162_rn(oacc[4 * n + 2 * i] * inv,
-                                oacc[4 * n + 2 * i + 1] * inv);
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(op + 64 * j + 8 * n + cq) =
+            __floats2bfloat162_rn(oacc[j][4 * n + 2 * i] * inv,
+                                  oacc[j][4 * n + 2 * i + 1] * inv);
   }
 }
 
-// one TMA descriptor per operand, encoded on the host for this call
+// one TMA descriptor per operand, encoded on the host for this call; above
+// 48 KiB of dynamic shared memory (hd 256: 161 KiB) only after opting in,
+// per device, so on every launch (a host-side attribute, allowed while a
+// CUDA graph captures)
+template <int HD>
 cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
                               void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                               int G, const int64_t* st, float scale,
                               int causal, int window, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!encode_rows(&qm, q, 64, Sq, Hq, B, st[2], st[1], st[0]) ||
-      !encode_rows(&km, k, 64, Sk, Hkv, B, st[5], st[4], st[3]) ||
-      !encode_rows(&vm, v, 64, Sk, Hkv, B, st[8], st[7], st[6]))
+  if (!encode_rows(&qm, q, HD, Sq, Hq, B, st[2], st[1], st[0]) ||
+      !encode_rows(&km, k, HD, Sk, Hkv, B, st[5], st[4], st[3]) ||
+      !encode_rows(&vm, v, HD, Sk, Hkv, B, st[8], st[7], st[6]))
     return cudaErrorInvalidValue;
+  constexpr int smem = wsmem<HD>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
-  flash_fwd_wgmma_kernel<<<grid, 128, WSMEM, stream>>>(
+  flash_fwd_wgmma_kernel<HD><<<grid, 128, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, G, st[9], st[10],
       st[11], scale * LOG2E, causal, window);
   return cudaGetLastError();
-}
-
-// only the head dim of the ported configs (64) is instantiated: another
-// one is added with the config that needs it
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int Hq, int Sq, int Sk, int G,
-                        const int64_t* st, float scale, int causal, int window,
-                        cudaStream_t stream) {
-  if (hd != 64) return cudaErrorInvalidValue;
-  return launch<T, 64>(q, k, v, o, B, Hq, Sq, Sk, G, st, scale, causal, window,
-                       stream);
 }
 
 }  // namespace
@@ -369,13 +409,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return (int)dispatch_hd<float>(hd, q, k, v, o, B, Hq, Sq, Sk, G, strides,
-                                   scale, causal, window, s);
-  if (dtype == DTYPE_BF16) {
-    if (hd != 64) return (int)cudaErrorInvalidValue;
-    return (int)launch_bf16_wgmma(q, k, v, o, B, Hq, Hkv, Sq, Sk, G, strides,
+  // f32 (the SIMT kernel) at hd 64; bf16 (wgmma) at the ported configs'
+  // head dims, 64 and 256.  Another one is added with the config that
+  // needs it.
+  if (dtype == DTYPE_F32 && hd == 64)
+    return (int)launch<float, 64>(q, k, v, o, B, Hq, Sq, Sk, G, strides,
                                   scale, causal, window, s);
-  }
+  if (dtype == DTYPE_BF16 && hd == 64)
+    return (int)launch_bf16_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
+                                      strides, scale, causal, window, s);
+  if (dtype == DTYPE_BF16 && hd == 256)
+    return (int)launch_bf16_wgmma<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
+                                       strides, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,9 +17,10 @@
 // element strides with the last dim contiguous, so the model's (B, S, H, P)
 // and (B, S, G, N) views of its conv output go in without a copy (rows of
 // x, B and C start on 16 bytes, as TMA needs: the wrapper checks).  x, B, C
-// and y are bf16 (the model's type), dt and A f32.  Only P = 64 and N = 128
-// (mamba2-1.3b) are built, for chunks that are multiples of 32 up to 256;
-// the wrapper refuses other shapes before launch.
+// and y are bf16 (the model's type), dt and A f32.  P = 64 is built with
+// N = 128 (mamba2-1.3b) and N = 64 (zamba2-1.2b), N a template parameter,
+// for chunks that are multiples of 32 up to 256; the wrapper refuses other
+// shapes before launch.
 //
 // Bound on the H100 at the serving shape (B 4, H 64, G 1, S 512, Q 256): by
 // bytes 0.01299 ms (about 43 MB: x, B, C and dt read once, y and the state
@@ -39,13 +40,14 @@
 //
 // One CTA of one warpgroup (128 threads) per (b, h) walks the chunks in
 // order (the TPU grid's sequential chunk axis).  The state's f32
-// accumulator stays in registers across chunks (64 x 128: two m64n64
+// accumulator stays in registers across chunks (64 x N: N / 64 m64n64
 // accumulators), and a bf16 hi/lo copy of it sits in shared memory as the
 // B operand of C.state.  TMA brings C, B and x in 64-row tiles (128-byte
-// swizzle; a 128-value row of B or C is two boxes) into a C tile and two
-// key buffers (B and x), 102,528 bytes of shared memory in all, so two CTAs
-// share an SM: the 256 CTAs of the serving shape are resident at once, and
-// one CTA's loads and barriers overlap the other's products.  Per chunk:
+// swizzle; a row of B or C is N / 64 boxes) into a C tile and two key
+// buffers (B and x), 102,528 bytes of shared memory in all at N = 128 and
+// 61,568 at N = 64, so two CTAs share an SM: the 256 CTAs of mamba2's
+// serving shape (128 of zamba2's) are resident at once, and one CTA's
+// loads and barriers overlap the other's products.  Per chunk:
 //   1. dt, cum (a block-wide f32 prefix sum, in another order than
 //      torch.cumsum), wdt, and per step cum log2(e) and
 //      u = cum log2(e) - log2(dt) into shared memory;
@@ -72,22 +74,28 @@
 namespace {
 
 constexpr int P = 64;           // head dim
-constexpr int N = 128;          // state dim
 constexpr int QMAX = 256;       // largest chunk
 constexpr int QALIGN = 32;      // chunks are whole multiples of this
 constexpr int TILE = 64;        // rows of C, keys of B and x per tile
 constexpr int THREADS = 128;    // one warpgroup
 constexpr int BOX = 64 * 64 * 2;                 // one 64 x 64 bf16 box
-constexpr int OFF_C = 0;                         // C tile: 2 boxes
-constexpr int OFF_B = OFF_C + 2 * BOX;           // B tiles: 2 x 2 boxes
-constexpr int OFF_X = OFF_B + 4 * BOX;           // x tiles: 2 x 1 box
-constexpr int OFF_SH = OFF_X + 2 * BOX;          // state hi: 2 boxes
-constexpr int OFF_SL = OFF_SH + 2 * BOX;         // state lo: 2 boxes
-constexpr int OFF_VEC = OFF_SL + 2 * BOX;        // f32 vectors below
-constexpr int SMEM_BYTES = OFF_VEC + 4 * (3 * QMAX + 32) + 1024;  // + align
 constexpr float LOG2E = 1.4426950408889634f;
-// two CTAs per SM: 228 KiB of shared memory, 1 KiB of it reserved per CTA
-static_assert(2 * (SMEM_BYTES + 64 + 1024) <= 228 * 1024, "two CTAs per SM");
+
+// Shared memory for state dim N: a row of B or C is NB = N / 64 boxes.
+template <int N>
+struct Smem {
+  static constexpr int NB = N / 64;
+  static constexpr int OFF_C = 0;                      // C tile: NB boxes
+  static constexpr int OFF_B = OFF_C + NB * BOX;       // B tiles: 2 x NB
+  static constexpr int OFF_X = OFF_B + 2 * NB * BOX;   // x tiles: 2 x 1 box
+  static constexpr int OFF_SH = OFF_X + 2 * BOX;       // state hi: NB boxes
+  static constexpr int OFF_SL = OFF_SH + NB * BOX;     // state lo: NB boxes
+  static constexpr int OFF_VEC = OFF_SL + NB * BOX;    // f32 vectors below
+  static constexpr int BYTES = OFF_VEC + 4 * (3 * QMAX + 32) + 1024;  // align
+  // two CTAs per SM: 228 KiB of shared memory, 1 KiB of it reserved per CTA
+  static_assert(N % 64 == 0, "a row of B or C is whole 64-value boxes");
+  static_assert(2 * (BYTES + 64 + 1024) <= 228 * 1024, "two CTAs per SM");
+};
 
 struct Strides {
   int64_t xb, xh, xs;   // x (b, h, s); p contiguous
@@ -100,24 +108,27 @@ __device__ __forceinline__ int swz(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
+template <int N>
 __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap bmap,
     const __grid_constant__ CUtensorMap cmap, const float* __restrict__ dt,
     const float* __restrict__ A, __nv_bfloat16* __restrict__ y,
     float* __restrict__ state_out, int H, int G, int S, int Q, Strides st) {
+  using L = Smem<N>;
+  constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_c;
   __shared__ uint64_t bar_k[2];
   // the 128-byte swizzle repeats every 1024 bytes: boxes start on it
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* cs = smem + OFF_C;
-  uint8_t* sth = smem + OFF_SH;
-  uint8_t* stl = smem + OFF_SL;
+  uint8_t* cs = smem + L::OFF_C;
+  uint8_t* sth = smem + L::OFF_SH;
+  uint8_t* stl = smem + L::OFF_SL;
   // per step of the chunk: cum log2(e); cum log2(e) - log2(dt), so that
   // exp(cum_i - cum_j) dt_j = exp2(cum2_i - u_j); wdt; and the scan's sums
-  float* cum2 = reinterpret_cast<float*>(smem + OFF_VEC);
+  float* cum2 = reinterpret_cast<float*>(smem + L::OFF_VEC);
   float* u = cum2 + QMAX;
   float* wdt = u + QMAX;
   float* warp_tot = wdt + QMAX;
@@ -151,10 +162,12 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
   }
   __syncthreads();
 
-  // state[p][n]: sacc[0] holds n 0..63, sacc[1] n 64..127, rows p = r0 (+8)
-  float sacc[2][32];
+  // state[p][n]: sacc[hh] holds n 64hh..64hh+63, rows p = r0 (+8)
+  float sacc[NB][32];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) sacc[0][e] = sacc[1][e] = 0.f;
+  for (int hh = 0; hh < NB; ++hh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[hh][e] = 0.f;
 
   const int nblk = (Q + TILE - 1) / TILE;   // row blocks = key tiles
   uint32_t c_loads = 0, k_loads[2] = {0, 0};
@@ -197,15 +210,17 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     // ---- 2. y, 64 rows at a time; 3. the state update -------------------
     int tile_in[2] = {-1, -1};   // key tile in each buffer
     int buf = 0;                 // buffer of the current step
-    // key tile kt (B: two boxes, x: one) into buffer kb, by one thread
+    // key tile kt (B: NB boxes, x: one) into buffer kb, by one thread
     auto load_keys = [&](int kt, int kb) {
       if (tid == 0) {
         const int row = c0 + kt * TILE;
-        uint8_t* bt = smem + OFF_B + kb * 2 * BOX;
-        mbar_expect_tx(&bar_k[kb], 3 * BOX);
-        tma_load_4d(bt, &bmap, &bar_k[kb], 0, row, grp, b);
-        tma_load_4d(bt + BOX, &bmap, &bar_k[kb], 64, row, grp, b);
-        tma_load_4d(smem + OFF_X + kb * BOX, &xmap, &bar_k[kb], 0, row, h,
+        uint8_t* bt = smem + L::OFF_B + kb * NB * BOX;
+        mbar_expect_tx(&bar_k[kb], (NB + 1) * BOX);
+#pragma unroll
+        for (int hh = 0; hh < NB; ++hh)
+          tma_load_4d(bt + hh * BOX, &bmap, &bar_k[kb], 64 * hh, row, grp,
+                      b);
+        tma_load_4d(smem + L::OFF_X + kb * BOX, &xmap, &bar_k[kb], 0, row, h,
                     b);
       }
       ++k_loads[kb];
@@ -214,18 +229,19 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     for (int rb = 0; rb < nblk; ++rb) {
       const bool last = rb == nblk - 1;
       if (tid == 0) {
-        mbar_expect_tx(&bar_c, 2 * BOX);
-        tma_load_4d(cs, &cmap, &bar_c, 0, c0 + rb * TILE, grp, b);
-        tma_load_4d(cs + BOX, &cmap, &bar_c, 64, c0 + rb * TILE, grp, b);
+        mbar_expect_tx(&bar_c, NB * BOX);
+#pragma unroll
+        for (int hh = 0; hh < NB; ++hh)
+          tma_load_4d(cs + hh * BOX, &cmap, &bar_c, 64 * hh, c0 + rb * TILE,
+                      grp, b);
       }
       ++c_loads;
       if (last) {
         const float decay = expf(total);
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          sacc[0][e] *= decay;
-          sacc[1][e] *= decay;
-        }
+        for (int hh = 0; hh < NB; ++hh)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) sacc[hh][e] *= decay;
       }
       float yacc[32];
 #pragma unroll
@@ -248,14 +264,14 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
           load_keys(nk, buf ^ 1);
         if (step == 0) mbar_wait(&bar_c, (c_loads - 1) & 1);
         mbar_wait(&bar_k[buf], (k_loads[buf] - 1) & 1);
-        uint8_t* kb = smem + OFF_B + buf * 2 * BOX;
-        uint8_t* kx = smem + OFF_X + buf * BOX;
+        uint8_t* kb = smem + L::OFF_B + buf * NB * BOX;
+        uint8_t* kx = smem + L::OFF_X + buf * BOX;
 
         if (step == 0 && c0 > 0) {
           // exp(cum_i) C_i . state_in, state as hi + lo
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
+          for (int kk = 0; kk < 4 * NB; ++kk) {
             const uint64_t ad = wgmma_desc_sw128(cs + (kk >> 2) * BOX) +
                                 2 * (kk & 3);
             const int so = (kk >> 2) * BOX;
@@ -278,13 +294,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
           }
         }
 
-        // S = C . B^T over N = 128: two boxes of 64 along N
+        // S = C . B^T over N: NB boxes of 64 along N
         float sc[32];
 #pragma unroll
         for (int e = 0; e < 32; ++e) sc[e] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < 4 * NB; ++kk)
           wgmma_ss_m64n64k16(
               sc, wgmma_desc_sw128(cs + (kk >> 2) * BOX) + 2 * (kk & 3),
               wgmma_desc_sw128(kb + (kk >> 2) * BOX) + 2 * (kk & 3), kk);
@@ -348,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
             }
             wgmma_fence();
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
+            for (int hh = 0; hh < NB; ++hh) {
               const uint64_t bd =
                   wgmma_desc_sw128(kb + hh * BOX) + kk * (2048 >> 4);
               wgmma_rs_m64n64k16_tb(sacc[hh], ah, bd);
@@ -357,8 +373,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
           }
           wgmma_commit();
           wgmma_wait_all();
-          fence_regs(sacc[0]);
-          fence_regs(sacc[1]);
+#pragma unroll
+          for (int hh = 0; hh < NB; ++hh) fence_regs(sacc[hh]);
         }
         wgmma_wait_all();
         fence_regs(yacc);
@@ -381,10 +397,10 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     }
 
     // the hi + lo copy of the state that the next chunk's C.state reads,
-    // in the swizzled layout of its two boxes [p][n 0..63], [p][n 64..127]
+    // in the swizzled layout of its NB boxes [p][n 64hh..64hh+63]
     if (c0 + Q < S) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
+      for (int hh = 0; hh < NB; ++hh)
 #pragma unroll
         for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -405,7 +421,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
   // final state, (P, N) for this (b, h), f32, from the registers
   float* so = state_out + (int64_t)bh * P * N;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
+  for (int hh = 0; hh < NB; ++hh)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -415,44 +431,61 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
             make_float2(sacc[hh][4 * n + 2 * i], sacc[hh][4 * n + 2 * i + 1]);
 }
 
+template <int N>
+cudaError_t launch(const void* x, const void* dt, const void* A,
+                   const void* Bm, const void* Cm, void* y, void* state_out,
+                   int B, int H, int G, int S, int Q, const int64_t* s,
+                   cudaStream_t stream) {
+  CUtensorMap xm, bm, cm;
+  if (!encode_rows(&xm, x, P, S, H, B, s[2], s[1], s[0]) ||
+      !encode_rows(&bm, Bm, N, S, G, B, s[8], s[7], s[6]) ||
+      !encode_rows(&cm, Cm, N, S, G, B, s[11], s[10], s[9]))
+    return cudaErrorInvalidValue;
+  // above 48 KiB of dynamic shared memory only after opting in (per
+  // device, so on every launch; it is a host-side attribute, not a stream
+  // operation, and is allowed while a CUDA graph captures)
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<N>::BYTES);
+  if (e != cudaSuccess) return e;
+  Strides st;
+  st.xb = s[0]; st.xh = s[1]; st.xs = s[2];
+  st.db = s[3]; st.dh = s[4]; st.ds = s[5];
+  st.yb = s[12]; st.yh = s[13]; st.ys = s[14];
+  ssd_scan_kernel<N><<<B * H, THREADS, Smem<N>::BYTES, stream>>>(
+      xm, bm, cm, static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(state_out), H, G, S, Q, st);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" long long ssd_scan_smem_bytes() { return (long long)SMEM_BYTES; }
+// shared memory one CTA takes at state dim N (0 for a dim not built)
+extern "C" long long ssd_scan_smem_bytes(int N) {
+  return N == 128 ? (long long)Smem<128>::BYTES
+         : N == 64 ? (long long)Smem<64>::BYTES
+                   : 0;
+}
 
 // x, y: (B, H, S, 64) bf16; dt: (B, H, S) f32; A: (H,) f32; Bm, Cm:
-// (B, G, S, 128) bf16; state_out: (B, H, 64, 128) f32 contiguous.
-// strides: 15 int64 element strides, (b, h|g, s) for x, dt, Bm, Cm, y.
+// (B, G, S, N) bf16 with N 128 or 64; state_out: (B, H, 64, N) f32
+// contiguous.  strides: 15 int64 element strides, (b, h|g, s) for x, dt,
+// Bm, Cm, y.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm, void* y,
                             void* state_out, int B, int H, int G, int S,
                             int Q, int P_, int N_, const int64_t* strides,
                             void* stream) {
-  if (P_ != P || N_ != N) return (int)cudaErrorInvalidValue;
+  if (P_ != P || (N_ != 128 && N_ != 64)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || Q <= 0 || Q > QMAX ||
       Q % QALIGN != 0 || S <= 0 || S % Q != 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int64_t* s = strides;
-  CUtensorMap xm, bm, cm;
-  if (!encode_rows(&xm, x, 64, S, H, B, s[2], s[1], s[0]) ||
-      !encode_rows(&bm, Bm, N, S, G, B, s[8], s[7], s[6]) ||
-      !encode_rows(&cm, Cm, N, S, G, B, s[11], s[10], s[9]))
-    return (int)cudaErrorInvalidValue;
-  // above 48 KiB of dynamic shared memory only after opting in (per
-  // device, so on every launch; it is a host-side attribute, not a stream
-  // operation, and is allowed while a CUDA graph captures)
-  const cudaError_t e = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  Strides st;
-  st.xb = s[0]; st.xh = s[1]; st.xs = s[2];
-  st.db = s[3]; st.dh = s[4]; st.ds = s[5];
-  st.yb = s[12]; st.yh = s[13]; st.ys = s[14];
-  ssd_scan_kernel<<<B * H, THREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
-      xm, bm, cm, static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(state_out), H, G, S, Q, st);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N_ == 128)
+    return (int)launch<128>(x, dt, A, Bm, Cm, y, state_out, B, H, G, S, Q,
+                            strides, st);
+  return (int)launch<64>(x, dt, A, Bm, Cm, y, state_out, B, H, G, S, Q,
+                         strides, st);
 }

@@ -26,8 +26,12 @@ import torch
 from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is built for: those of the ported configs
-_HEAD_DIMS = (64,)
+#: head dims the kernel is built for: those of the ported configs (smollm,
+#: zamba2: 64; gemma3: 256)
+_HEAD_DIMS = (64, 256)
+#: head dims in f32: an f32 row of 256 is 64 lanes of 16 bytes, more than
+#: the one warp a slot row may span
+_F32_HEAD_DIMS = (64,)
 #: slots per range are a multiple of this (4 warps x 8 slots a step)
 CHUNK_ALIGN = 32
 #: query heads one CTA takes at most (csrc GB)
@@ -87,8 +91,9 @@ def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("k_pos and q_pos must be int32 on q's device")
     if k_pos.stride(1) != 1 or not q_pos.is_contiguous():
         raise ValueError("k_pos slots and q_pos must be contiguous")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
+    dims = _HEAD_DIMS if q.dtype == torch.bfloat16 else _F32_HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"head dim {hd} not in {dims} for {q.dtype}")
     if not (build.aligned16(q, (0, 1)) and build.aligned16(k, (0, 1, 2))
             and build.aligned16(v, (0, 1, 2))):
         raise ValueError("q, k and v rows must start on 16 bytes "

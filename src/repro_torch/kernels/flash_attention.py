@@ -18,8 +18,12 @@ import torch
 from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is built for: those of the ported configs
-_HEAD_DIMS = (64,)
+#: head dims the kernel is built for: those of the ported configs (smollm,
+#: zamba2: 64; gemma3: 256)
+_HEAD_DIMS = (64, 256)
+#: head dims of the f32 kernel (one thread per query row holds 2 hd f32
+#: registers): no config serves f32, so 64 only
+_F32_HEAD_DIMS = (64,)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,8 +49,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     build.refuse_grad("flash_attention", q, k, v)
     _check_cuda(q, k, v, out)
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
+    dims = _HEAD_DIMS if q.dtype == torch.bfloat16 else _F32_HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"head dim {hd} not in {dims} for {q.dtype}")
     if q.dtype == torch.bfloat16 and not all(
             build.aligned16(t, (0, 1, 2)) for t in (q, k, v, out)):
         raise ValueError("bf16 q, k, v and out rows must start on 16 bytes "

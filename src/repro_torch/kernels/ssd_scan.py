@@ -18,8 +18,9 @@ import torch
 
 from . import build, ref
 
-#: (head dim P, state dim N) the kernel is built for: mamba2-1.3b's
-SHAPES = ((64, 128),)
+#: (head dim P, state dim N) the kernel is built for: mamba2-1.3b's and
+#: zamba2-1.2b's
+SHAPES = ((64, 128), (64, 64))
 #: largest chunk the kernel takes; chunks are whole multiples of 32 rows
 MAX_CHUNK = 256
 ROW_TILE = 32
@@ -82,7 +83,7 @@ def ssd_scan_bhsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A = A.contiguous()
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = build.library("ssd_scan")
-    smem = lib.ssd_scan_smem_bytes()
+    smem = lib.ssd_scan_smem_bytes(N)
     if smem > _MAX_SMEM:
         raise ValueError(f"the SSD kernel needs {smem} B of shared memory, "
                          f"over {_MAX_SMEM}")

@@ -13,12 +13,14 @@ The serving path is the paper's two workload classes composed:
   (:func:`~repro_torch.core.basin.decode_fanout_basin` + the mover's
   parallel mirror mode), each client drained by its own drainer.
 
-A dense model prefills through the flash-attention kernel and decodes
-through the decode-attention kernel; an SSM model (mamba2-1.3b) prefills
-through the SSD-scan kernel and decodes with the plain recurrent step
-(``ShardCtx(impl="cuda")``).  An SSM prompt must be a whole number of SSD
-chunks long, as the reference asks: another length raises, it is not
-padded.  All CUDA work is issued on the device's current stream; the
+A dense model (smollm-360m, gemma3-1b) prefills through the
+flash-attention kernel and decodes through the decode-attention kernel; an
+SSM model (mamba2-1.3b) prefills through the SSD-scan kernel and decodes
+with the plain recurrent step; the hybrid (zamba2-1.2b) does both, its
+shared attention block decoding against a ring cache
+(``ShardCtx(impl="cuda")``).  An SSM or hybrid prompt must be a whole
+number of SSD chunks long, as the reference asks: another length raises,
+it is not padded.  All CUDA work is issued on the device's current stream; the
 decode steps run on the mover's producer thread, and each step's
 ``.cpu()`` copy of the new tokens is the one device sync per token — the
 host copy that is the stream's item.
@@ -30,6 +32,10 @@ Usage:
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
       --device cpu --prompt-len 32 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch gemma3-1b --smoke \\
+      --device cpu --prompt-len 48 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \\
+      --device cpu --prompt-len 48 --gen 4                        # CPU smoke
 """
 
 from __future__ import annotations
@@ -63,14 +69,30 @@ DRAIN_RATE_WINDOW = 4
 #: spent at least this fraction of the transfer backpressured by the sink
 CLIENT_LIMITED_STALL = 0.1
 
-#: an eager decode step at batch 4 on the card, by model family, used until
-#: a server has timed steps of its own: PERF.md section 5, run 2a of PR 15
-#: (smollm-360m 36.27 ms, mamba2-1.3b 81.19 ms), measured by chip_smoke.py
-#: on an NVIDIA H100 80GB HBM3 at its 700.00 W power limit
-H100_DECODE_STEP_MS = {"dense": 36.27, "ssm": 81.19}
+#: an eager decode step on the card, by config, used until a server has
+#: timed steps of its own; each measured by chip_smoke.py on an NVIDIA H100
+#: 80GB HBM3 at its 700.00 W power limit (PERF.md section 5): smollm-360m
+#: and mamba2-1.3b at batch 4, gemma3-1b at batch 4 (1057-slot cache) and
+#: zamba2-1.2b at batch 2 (4096-slot rings), the serving cells' batches
+H100_DECODE_STEP_MS = {"smollm-360m": 36.27, "mamba2-1.3b": 81.19,
+                       "gemma3-1b": 27.27, "zamba2-1.2b": 61.09}
+
+#: the served config whose step prices a config without an entry, by family
+FAMILY_STAND_IN = {"dense": "smollm-360m", "ssm": "mamba2-1.3b",
+                   "hybrid": "zamba2-1.2b"}
 
 #: how many recent decode steps the step-time estimate averages over
 STEP_MS_WINDOW = 32
+
+
+def h100_step_ms(cfg) -> float:
+    """:data:`H100_DECODE_STEP_MS` for ``cfg``: its own entry (a smoke
+    variant takes its full-width config's), else that of its family's
+    served config."""
+    name = cfg.name.removesuffix("-smoke")
+    if name not in H100_DECODE_STEP_MS:
+        name = FAMILY_STAND_IN[cfg.family]
+    return H100_DECODE_STEP_MS[name]
 
 
 def observed_client_gbps(registry: TelemetryRegistry) -> Optional[float]:
@@ -126,10 +148,10 @@ class Server:
 
     def decode_step_ms(self) -> float:
         """The decode step's time as this server has seen it: the mean of
-        its recent steps, or :data:`H100_DECODE_STEP_MS` before the first."""
+        its recent steps, or :func:`h100_step_ms` before the first."""
         if self.step_ms:
             return sum(self.step_ms) / len(self.step_ms)
-        return H100_DECODE_STEP_MS[self.cfg.family]
+        return h100_step_ms(self.cfg)
 
     def stream_basin(self):
         """The decode-stream basin: its producer tier from the decode steps
@@ -251,7 +273,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="default 128, rounded up to a whole number of "
-                         "SSD chunks for an SSM model")
+                         "SSD chunks for an SSM or hybrid model")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -261,7 +283,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     prompt_len = args.prompt_len
     if prompt_len is None:
-        chunk = cfg.ssm.chunk if cfg.family == "ssm" else 1
+        chunk = cfg.ssm.chunk if cfg.family in ("ssm", "hybrid") else 1
         prompt_len = -(-128 // chunk) * chunk
     server = Server(cfg, device=args.device,
                     max_len=prompt_len + args.gen + 1)

@@ -55,7 +55,9 @@ def _attn_core(q, k, v, *, q_pos, k_pos, causal, window) -> torch.Tensor:
         mask = mask[..., None, :, :] if mask.ndim >= 2 else mask
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    # a cache may be kept in another dtype than q (bf16 under an f32
+    # model): v is promoted to the probabilities' dtype, as JAX promotes
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(probs.dtype))
     return out.reshape(B, Sq, Hq, hd)
 
 
@@ -89,10 +91,9 @@ def attention(
     if Sq * Sk <= ATTN_CHUNK_ELEMS or q_pos.ndim != 1:
         return _attn_core(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                           window=window)
-    # query-chunked evaluation: bounds the live score workspace
+    # query-chunked evaluation: bounds the live score workspace (the last
+    # chunk may be shorter)
     q_chunk = max(128, ATTN_CHUNK_ELEMS // Sk)
-    while Sq % q_chunk:
-        q_chunk //= 2
     outs = [_attn_core(q[:, i:i + q_chunk], k, v,
                        q_pos=q_pos[i:i + q_chunk], k_pos=k_pos,
                        causal=causal, window=window)

@@ -1,5 +1,5 @@
-"""Decoder-only language models, dense and SSM families: the training
-forward and loss, prefill and cached decode.
+"""Decoder-only language models, dense, SSM and hybrid families: the
+training forward and loss, prefill and cached decode.
 
 The JAX package scans one layer body over layer-stacked parameters
 (``jax.lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
@@ -10,7 +10,17 @@ The dense decode cache holds the K/V of every layer stacked as
 (L, B, S_cache, Hkv, hd) bf16, the SSM cache a ``MambaState`` of the conv
 windows (L, B, conv_width-1, conv_dim) bf16 and the recurrent states
 (L, B, H, P, N) f32, both as the JAX package's do, with a host-side int
-``pos``.  Decode writes each step's entries into the cache in place.
+``pos``.  The hybrid (zamba2) runs segments of ``attn_every`` Mamba layers,
+each followed by one shared attention block (the same weights at every
+site); its cache is the SSM cache plus the shared block's K/V per site,
+(n_sites, B, S_cache, Hkv, hd) bf16, a ring of ``min(window, max_len)``
+slots when the config has a window.  Decode writes each step's entries
+into the cache in place.
+
+One deliberate divergence: the hybrid's decode rings over the shared
+cache's slot count, where the JAX package rings over ``cfg.window`` (equal
+wherever the JAX package runs, ``max_len >= window``; below that the JAX
+package raises and the port attends to the whole, unwrapped cache).
 
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
@@ -39,22 +49,25 @@ from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
 from .config import ModelConfig
 
 #: families this package runs; the others are queued in ROADMAP.md
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class LM(nn.Module):
     """Parameters of a decoder: embedding, layers (``DenseLayer`` or
-    ``MambaLayer``), final norm and (unless tied) the LM head."""
+    ``MambaLayer``), final norm, (unless tied) the LM head and, for the
+    hybrid, the one shared attention block ``shared_attn``."""
 
     def __init__(self, embed: torch.Tensor,
                  layers: list[DenseLayer] | list[MambaLayer],
                  final_norm: torch.Tensor,
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None,
+                 shared_attn: Optional[DenseLayer] = None):
         super().__init__()
         self.embed = _param(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _param(final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
+        self.shared_attn = shared_attn
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -78,11 +91,14 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
     embed = embed_init((V, D), **kw)
-    init_layer = init_mamba_layer if cfg.family == "ssm" else init_dense_layer
+    mamba = cfg.family in ("ssm", "hybrid")
+    init_layer = init_mamba_layer if mamba else init_dense_layer
     layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
+    shared = init_dense_layer(cfg, **kw) if cfg.family == "hybrid" else None
     final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
     lm_head = None if cfg.tie_embeddings else dense_init((D, V), D, **kw)
-    return LM(embed, layers, final_norm, lm_head).requires_grad_(trainable)
+    return LM(embed, layers, final_norm, lm_head,
+              shared).requires_grad_(trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +127,17 @@ def _ring_pack(k_full: torch.Tensor, window: int) -> torch.Tensor:
     j = torch.arange(window, device=k_full.device)
     p = (S - 1) - torch.remainder((S - 1) - j, window)
     return k_full[:, p]
+
+
+def _segment_bounds(n_layers: int, every: int) -> list[tuple[int, int]]:
+    """The hybrid's Mamba segments, [lo, hi) each; the shared attention
+    block follows every one of them."""
+    return [(lo, min(lo + every, n_layers))
+            for lo in range(0, n_layers, every)]
+
+
+def _sites(cfg: ModelConfig) -> list[tuple[int, int]]:
+    return _segment_bounds(cfg.n_layers, cfg.attn_every or cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -148,12 +175,28 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed_inputs(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    body = _remat(_mamba_layer if cfg.family == "ssm" else _dense_layer,
-                  cfg.remat)
-    for lp, w in zip(params.layers, cfg.layer_windows()):
-        x = body(x, lp, cfg, ctx, positions, w)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, cfg, x, ctx, positions)
+    else:
+        body = _remat(_mamba_layer if cfg.family == "ssm" else _dense_layer,
+                      cfg.remat)
+        for lp, w in zip(params.layers, cfg.layer_windows()):
+            x = body(x, lp, cfg, ctx, positions, w)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), zero, zero
+
+
+def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
+                    ctx: ShardCtx, positions: torch.Tensor) -> torch.Tensor:
+    """Zamba2: Mamba segments, the shared attention block (same weights,
+    window ``cfg.window``) after each."""
+    body = _remat(_mamba_layer, cfg.remat)
+    for lo, hi in _sites(cfg):
+        for lp in params.layers[lo:hi]:
+            x = body(x, lp, cfg, ctx, positions, 0)
+        x = dense_layer_apply(x, params.shared_attn, cfg, ctx,
+                              positions=positions, window=cfg.window)
+    return x
 
 
 def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
@@ -176,30 +219,32 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                ctx: ShardCtx, max_len: int) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the stack, returning (last-token logits
     (B, 1, V), populated decode cache).  The serving 'bulk' phase: the
-    cache is staged once, decode then streams against it.  An SSM prompt
-    must be a whole number of SSD chunks long, as the reference asks."""
+    cache is staged once, decode then streams against it.  An SSM or
+    hybrid prompt must be a whole number of SSD chunks long, as the
+    reference asks."""
     x = _embed_inputs(params, cfg, tokens)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     cache = init_lm_cache(cfg, B, max_len, device=x.device)
-    if cfg.family == "ssm":
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
         if S % cfg.ssm.chunk:
             raise ValueError(
                 f"{cfg.name}: a prompt of {S} tokens is not a multiple of "
                 f"the SSD chunk ({cfg.ssm.chunk}); pad or cut the prompt")
-        mamba = cache["mamba"]
-        for i, lp in enumerate(params.layers):
-            hn = rms_norm(x, lp.ln, cfg.norm_eps)
-            y, st = ssm_lib.mamba_block_train(hn, lp, cfg, impl=ctx.impl,
-                                              return_state=True)
-            x = x + y
-            mamba.conv[i] = st.conv
-            mamba.ssm[i] = st.ssm
+        sites = _sites(cfg) if cfg.family == "hybrid" else [
+            (0, cfg.n_layers)]
+        for site, (lo, hi) in enumerate(sites):
+            for i in range(lo, hi):
+                x = _mamba_prefill(x, params.layers[i], cfg, ctx,
+                                   cache["mamba"], i)
+            if cfg.family == "hybrid":
+                x = _shared_prefill(x, params.shared_attn, cfg, ctx,
+                                    positions, cache, site)
         cache["pos"] = S
         return _logits(params, cfg, x[:, -1:, :]), cache
 
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ring = cache_kind(cfg) == "ring"
     s_cache = _attn_cache_len(cfg, max_len)
 
@@ -220,6 +265,40 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
 
     cache["pos"] = S
     return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def _mamba_prefill(x, lp: MambaLayer, cfg, ctx, mamba, i: int):
+    """Mamba layer ``i`` over the prompt; its final conv window and SSM
+    state go into the cache."""
+    hn = rms_norm(x, lp.ln, cfg.norm_eps)
+    y, st = ssm_lib.mamba_block_train(hn, lp, cfg, impl=ctx.impl,
+                                      return_state=True)
+    mamba.conv[i] = st.conv
+    mamba.ssm[i] = st.ssm
+    return x + y
+
+
+def _shared_prefill(x, sp: DenseLayer, cfg, ctx, positions, cache,
+                    site: int):
+    """The hybrid's shared attention block at ``site`` over the prompt;
+    its K/V go into that site's cache, ring-packed when the config has a
+    window (the last ``slots`` steps, each at slot position % slots)."""
+    S = x.shape[1]
+    hn = rms_norm(x, sp.ln1, cfg.norm_eps)
+    attn_out, k_new, v_new = self_attention_block(
+        hn, sp.attn, cfg, ctx, q_pos=positions, k_pos=positions,
+        window=cfg.window)
+    x = x + attn_out
+    h2 = rms_norm(x, sp.ln2, cfg.norm_eps)
+    x = x + ffn_lib.swiglu(h2, sp.mlp.w_gate, sp.mlp.w_up, sp.mlp.w_down)
+    slots = cache["shared_k"].shape[2]
+    if cfg.window > 0:
+        cache["shared_k"][site] = _ring_pack(k_new, slots)
+        cache["shared_v"][site] = _ring_pack(v_new, slots)
+    else:
+        cache["shared_k"][site, :, :S] = k_new
+        cache["shared_v"][site, :, :S] = v_new
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -243,11 +322,12 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   ctx: Optional[ShardCtx] = None, *,
                   device: torch.device | str) -> dict:
     """Decode cache: stacked bf16 K/V (L, B, S_cache, Hkv, hd), or for the
-    SSM family a ``MambaState`` stacked over layers, and the host-side
-    clock ``pos``."""
+    SSM and hybrid families a ``MambaState`` stacked over layers (and the
+    hybrid's shared K/V, (n_sites, B, S_cache, Hkv, hd) bf16), and the
+    host-side clock ``pos``."""
     _check_family(cfg)
     cache: dict[str, Any] = {"pos": 0}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         st = ssm_lib.init_mamba_state(cfg, batch, device=device)
         L = cfg.n_layers
         cache["mamba"] = ssm_lib.MambaState(
@@ -255,6 +335,13 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                              device=device),
             ssm=torch.zeros((L,) + st.ssm.shape, dtype=st.ssm.dtype,
                             device=device))
+        if cfg.family == "hybrid":
+            s = min(cfg.window, max_len) if cfg.window > 0 else max_len
+            shape = (len(_sites(cfg)), batch, s, cfg.n_kv_heads, cfg.hd)
+            cache["shared_k"] = torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=device)
+            cache["shared_v"] = torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=device)
         return cache
     s = _attn_cache_len(cfg, max_len)
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
@@ -302,14 +389,13 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     pos = cache["pos"]
     if cfg.family == "ssm":
         x = _embed_inputs(params, cfg, tokens)
-        mamba = cache["mamba"]
         for i, lp in enumerate(params.layers):
-            hn = rms_norm(x, lp.ln, cfg.norm_eps)
-            y, st = ssm_lib.mamba_block_decode(
-                hn, lp, cfg, ssm_lib.MambaState(mamba.conv[i], mamba.ssm[i]))
-            x = x + y
-            mamba.conv[i] = st.conv
-            mamba.ssm[i] = st.ssm
+            x = _mamba_decode(x, lp, cfg, cache["mamba"], i)
+        cache["pos"] = pos + 1
+        return _logits(params, cfg, x), cache
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, cache,
+                           _embed_inputs(params, cfg, tokens), ctx, pos)
         cache["pos"] = pos + 1
         return _logits(params, cfg, x), cache
     s_cache = cache["k"].shape[2]
@@ -331,3 +417,42 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
         x = x + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
+
+
+def _mamba_decode(x, lp: MambaLayer, cfg, mamba, i: int):
+    """One step through Mamba layer ``i``, its cache entries updated."""
+    hn = rms_norm(x, lp.ln, cfg.norm_eps)
+    y, st = ssm_lib.mamba_block_decode(
+        hn, lp, cfg, ssm_lib.MambaState(mamba.conv[i], mamba.ssm[i]))
+    mamba.conv[i] = st.conv
+    mamba.ssm[i] = st.ssm
+    return x + y
+
+
+def _hybrid_decode(params: LM, cfg: ModelConfig, cache: dict,
+                   x: torch.Tensor, ctx: ShardCtx, pos: int) -> torch.Tensor:
+    """One step through the hybrid: each Mamba segment, then the shared
+    block against its site's cache.  With a window the shared cache is a
+    ring over its own slot count, ``min(window, max_len)`` (the JAX
+    package rings over ``cfg.window``, the same wherever it runs); a ring
+    shorter than the window cannot wrap without dropping a key the window
+    keeps, so a step past it raises, as a full cache does."""
+    slots = cache["shared_k"].shape[2]
+    ring = slots if cfg.window > 0 else 0
+    if pos >= slots and (not ring or slots < cfg.window):
+        raise ValueError(f"decode position {pos} is past the shared cache "
+                         f"({slots} slots)")
+    q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    k_pos = (cache_positions_ring(ring, pos, x.device) if ring
+             else cache_positions_full(slots, pos, x.device))
+    angles = rope_angles(q_pos, cfg.hd, cfg.rope_theta)
+    sp = params.shared_attn
+    for site, (lo, hi) in enumerate(_sites(cfg)):
+        for i in range(lo, hi):
+            x = _mamba_decode(x, params.layers[i], cfg, cache["mamba"], i)
+        x, _, _ = _decode_attn_block(x, sp, cfg, ctx, cache["shared_k"][site],
+                                     cache["shared_v"][site], pos,
+                                     cfg.window, ring, q_pos, k_pos, angles)
+        h2 = rms_norm(x, sp.ln2, cfg.norm_eps)
+        x = x + ffn_lib.swiglu(h2, sp.mlp.w_gate, sp.mlp.w_up, sp.mlp.w_down)
+    return x

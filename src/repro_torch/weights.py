@@ -7,7 +7,8 @@ values: layer-stacked leaves (leading L axis, for ``jax.lax.scan``) are
 split per layer, bf16 arrays keep their bits.  Dense trees carry
 ``layers.{attn.{wq,wk,wv,wo}, mlp.{w_gate,w_up,w_down}, ln1, ln2}``, SSM
 trees ``layers.{ln, in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w,
-out_proj}``.
+out_proj}``, hybrid trees the SSM layers and one unstacked dense layer
+``shared_attn``.
 
 :func:`to_jax_params` is its inverse (numpy leaves, bf16 as raw 2-byte
 values, :data:`repro_torch.tree.BF16_HOST`); :func:`jax_tree` lays any
@@ -48,15 +49,23 @@ def _tensor(a: Any, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _dense_layer(lay: Mapping[str, Any], dev: torch.device,
+                 i: int | None = None) -> DenseLayer:
+    """A dense layer's subtree as a ``DenseLayer``: layer ``i`` of stacked
+    leaves, or the leaves themselves when ``i`` is None (``shared_attn``)."""
+    at = (lambda a: a) if i is None else (lambda a: a[i])
+    a, m = lay["attn"], lay["mlp"]
+    return DenseLayer(
+        AttnParams(*(_tensor(at(a[n]), dev)
+                     for n in ("wq", "wk", "wv", "wo"))),
+        MlpParams(*(_tensor(at(m[n]), dev)
+                    for n in ("w_gate", "w_up", "w_down"))),
+        _tensor(at(lay["ln1"]), dev), _tensor(at(lay["ln2"]), dev))
+
+
 def _dense_layers(lay: Mapping[str, Any], L: int,
                   dev: torch.device) -> list[DenseLayer]:
-    a, m = lay["attn"], lay["mlp"]
-    return [DenseLayer(
-        AttnParams(*(_tensor(a[n][i], dev) for n in ("wq", "wk", "wv", "wo"))),
-        MlpParams(*(_tensor(m[n][i], dev) for n in ("w_gate", "w_up",
-                                                     "w_down"))),
-        _tensor(lay["ln1"][i], dev), _tensor(lay["ln2"][i], dev))
-        for i in range(L)]
+    return [_dense_layer(lay, dev, i) for i in range(L)]
 
 
 def _mamba_layers(lay: Mapping[str, Any], L: int,
@@ -75,16 +84,18 @@ def from_jax_params(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
     dev = resolve_device(device)
     lay = np_tree["layers"]
     L = cfg.n_layers
-    ssm = cfg.family == "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
     first = ("ln", lay["ln"]) if ssm else ("ln1", lay["ln1"])
     if np.shape(first[1])[0] != L:
         raise ValueError(f"layers.{first[0]} stacks {np.shape(first[1])[0]} "
                          f"layers, config has {L}")
     layers = (_mamba_layers if ssm else _dense_layers)(lay, L, dev)
     head = None if cfg.tie_embeddings else _tensor(np_tree["lm_head"], dev)
+    shared = (_dense_layer(np_tree["shared_attn"], dev)
+              if cfg.family == "hybrid" else None)
     return LM(_tensor(np_tree["embed"], dev), layers,
-              _tensor(np_tree["final_norm"], dev),
-              head).requires_grad_(trainable)
+              _tensor(np_tree["final_norm"], dev), head,
+              shared).requires_grad_(trainable)
 
 
 def param_names(lm: LM) -> list[str]:

@@ -16,7 +16,8 @@ from repro_torch.core import basin, planner
 
 torch.set_num_threads(1)
 
-ARCHS = ["smollm-360m", "repro-100m", "mamba2-1.3b"]
+ARCHS = ["smollm-360m", "repro-100m", "mamba2-1.3b", "gemma3-1b",
+         "zamba2-1.2b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -103,6 +103,89 @@ def test_flash_bf16_kernel_tails_and_windows(card, S, causal, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(1024, 512), (1024, 0), (1000, 512),
+                                      (65, 16), (1, 0)])
+def test_flash_hd256_kernel_matches_plain_on_card(card, S, window):
+    """The hd-256 instantiation at gemma3's grouping (4 query heads over
+    1 KV head): its local (512) and global (0) layers, a ragged tail."""
+    g = torch.Generator(device=card).manual_seed(2560 + S + window)
+    q = torch.randn(4, 4, S, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    k = torch.randn(4, 1, S, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(4, 1, S, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    n = build.KERNELS["flash_attention"].launches
+    out = flash_attention_bhsd(q, k, v, window=window)
+    assert build.KERNELS["flash_attention"].launches == n + 1
+    expect = ref.attention_ref(q, k, v, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_hd256_kernel_takes_model_views(card):
+    """gemma3's (B, S, H, 256) projections: q rows of 1024 values, k/v
+    rows of 256, through ops.flash_attention as transposed views."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(2, 300, 4, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    k = torch.randn(2, 300, 1, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(2, 300, 1, 256, generator=g, device=card).to(
+        torch.bfloat16)
+    out = ops.flash_attention(q, k, v, window=100)
+    expect = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), window=100).transpose(1, 2)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_zamba2s_window(card):
+    """hd 64 at zamba2's shared block: 32 heads, S 4608 past the 4096
+    window."""
+    g = torch.Generator(device=card).manual_seed(4096)
+    q, k, v = (torch.randn(1, 32, 4608, 64, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(3))
+    out = flash_attention_bhsd(q, k, v, window=4096)
+    expect = ref.attention_ref(q, k, v, window=4096)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,fill,ring,window", [
+    (1057, 1040, False, 512), (1057, 1040, False, 0), (1057, 1040, True, 0),
+    (1057, 20, False, 512), (100, 3, True, 0)])
+def test_decode_hd256_kernel_matches_plain_on_card(card, S, fill, ring,
+                                                   window):
+    """The hd-256 bf16 instantiation (a slot row is one warp-wide load) at
+    gemma3's grouping, full and permuted caches, both window kinds."""
+    g = torch.Generator(device=card).manual_seed(S + fill)
+    B, Hq, Hkv, hd = 4, 4, 1, 256
+    q = torch.randn(B, Hq, hd, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=card).expand(B, S)
+    k_pos = torch.where(pos <= fill, pos, -1).contiguous()
+    if ring:
+        perm = torch.randperm(S, generator=g, device=card)
+        k, v, k_pos = k[:, :, perm], v[:, :, perm], k_pos[:, perm].contiguous()
+    q_pos = torch.full((B,), fill, dtype=torch.int32, device=card)
+    n = build.KERNELS["decode_attention"].launches
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos, window=window)
+    assert build.KERNELS["decode_attention"].launches == n + 1
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_takes_model_views(card, dtype):
     """(B, S, H, hd) tensors through ops.flash_attention: the kernel gets
@@ -229,8 +312,9 @@ def test_decode_kernel_on_an_empty_cache_is_zero(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 256])
 def test_attention_kernels_refuse_an_unbuilt_head_dim(card, hd):
+    """f32 is built at hd 64 only (256 is bf16's)."""
     q = torch.zeros(1, 3, 8, hd, device=card)
     k = torch.zeros(1, 1, 8, hd, device=card)
     with pytest.raises(ValueError, match="head dim"):
@@ -280,6 +364,24 @@ def test_ssd_kernel_matches_plain_on_card(card, B, H, G, S):
     assert build.KERNELS["ssd_scan"].launches == n + 1
     ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=256)
     assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    _close_to_scale(y, ry, 1e-3, 8e-3)
+    _close_to_scale(state, rstate, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,S,chunk", [
+    (2, 64, 1, 4608, 256),    # zamba2's prefill: 18 chunks
+    (2, 8, 2, 512, 256), (2, 8, 1, 384, 96), (1, 4, 1, 128, 32)])
+def test_ssd_n64_kernel_matches_plain_on_card(card, B, H, G, S, chunk):
+    """The N = 64 instantiation (zamba2's state dim: one box per B/C row,
+    one state accumulator), whole and partial row tiles."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, B, H, G, S, N=64, seed=S + chunk)
+    n = build.KERNELS["ssd_scan"].launches
+    y, state = ssd_scan_bhsd(x, dt, A, Bm, Cm, chunk=chunk)
+    assert build.KERNELS["ssd_scan"].launches == n + 1
+    assert state.shape == (B, H, 64, 64)
+    ry, rstate = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
     assert bool(torch.isfinite(y.float()).all())
     _close_to_scale(y, ry, 1e-3, 8e-3)
     _close_to_scale(state, rstate, 1e-4, 1e-3)
@@ -345,7 +447,7 @@ def test_ssd_kernel_takes_strided_model_views(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,N", [(32, 128), (64, 64), (128, 128)])
+@pytest.mark.parametrize("P,N", [(32, 128), (64, 32), (128, 128)])
 def test_ssd_kernel_refuses_an_unbuilt_shape(card, P, N):
     x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 2, 1, 256, P=P, N=N)
     n = build.KERNELS["ssd_scan"].launches

@@ -33,7 +33,7 @@ from repro_torch.models.api import build
 from repro_torch.models.attention import (attention, cache_positions_full,
                                           cache_positions_ring)
 from repro_torch.models.blocks import ShardCtx
-from repro_torch.models.config import SSMConfig
+from repro_torch.models.config import MoEConfig
 from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.weights import from_jax_params
 
@@ -153,9 +153,10 @@ def test_random_init_is_seeded():
 
 def test_unported_family_raises():
     cfg = get_smoke_config("repro-100m")
-    hybrid = dataclasses.replace(cfg, family="hybrid", ssm=SSMConfig())
+    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
+        n_experts=4, top_k=2, d_ff_expert=64))
     with pytest.raises(NotImplementedError):
-        build(hybrid).init(0, device="cpu")
+        build(moe).init(0, device="cpu")
 
 
 def test_primitives_match_reference():
