@@ -132,14 +132,28 @@ Phases, one JSON line each:
    counted with ``count_step`` on the card, beside the measured median
    step and their ratios.  It fails unless the plan fits (the measured
    peak too) and the counted FLOPs reach 6 N T.
+15. ``qwen3_moe`` (qwen3-moe-30b-a3b), last, once every earlier phase's
+   tensors are freed: the kernels at the phase's shapes (flash B4 Hq32
+   Hkv4 S512 hd 128, causal; decode against the 545-slot cache filled to
+   528; the digest of one 2,232,320-byte KV item), then ``Server`` at full
+   width (48 MoE layers of 128 experts, top 8; 61 GB of weights from a
+   seed) and one layer's ``moe_dispatch`` against ``moe_ref`` on the same
+   2048 tokens (routing identical, y within ``MOE_TOL``); the server
+   serves 4 x 512-token prompts for 32 tokens (flash once per layer per
+   prefill, decode once per layer per step), with host syncs per decode
+   step and peak memory (under 80 GB); the logits and routing against the
+   plain path (``check_moe_logits``: routing disagreements counted, the
+   logits held under the kernel path's routing, near-ties checked layer
+   by layer); and the prefill's 96 KV items staged under the accel
+   digest, as in 4.
 
-The launch counts are set to 0 just before each path (the four ``serve``
+The launch counts are set to 0 just before each path (the five ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
 ``resume``, ``fleet``, ``codesign``) and read just after; every kernel a serving path or the
 fleet runs must have run there, and none may run in ``train``.  Then the
 kernels line (launches summed over the paths, each kernel's record at
-the smollm / mamba shape and, under ``shapes``, at the gemma3 and zamba2
-phases' shapes;
+the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2 and
+qwen3_moe phases' shapes;
 ``block_digest``, the TPU kernel's per-row function, is checked in phase 3
 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
@@ -152,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -184,6 +199,9 @@ MAMBA_PROMPT = 512
 GEMMA_BATCH, GEMMA_PROMPT = 4, 1024
 #: zamba2-1.2b: batch and prompt, 18 SSD chunks, past the 4096-slot ring
 ZAMBA_BATCH, ZAMBA_PROMPT = 2, 4608
+#: qwen3-moe-30b-a3b: batch and prompt (a whole number of flash's 128-row
+#: tiles), a 545-slot cache
+QWEN_BATCH, QWEN_PROMPT = 4, 512
 
 # kernel against plain version on the card, both rounding an f32 result to
 # the output dtype once: f32 sums in another order, bf16 about one ulp of
@@ -200,6 +218,18 @@ SSD_TOL = {"y": dict(atol_share=1e-3, rtol=8e-3),
 # smollm-360m's served logits, kernel path against plain path, as a share
 # of the plain path's logit scale
 LOGIT_SHARE = 0.05
+# one MoE layer, moe_dispatch against moe_ref on the same input and the
+# same routing: the two run g, u and each expert's down matmul as GEMMs of
+# other shapes (bf16 out, f32 sums in another order), so g, u, h and an
+# expert's output may each round an ulp apart; y is held to two bf16 ulps
+# (rtol) above a floor of 4e-3 of its largest magnitude
+MOE_TOL = dict(atol_share=4e-3, rtol=1.6e-2)
+# qwen3's routing, kernel path against plain path: a decision that differs
+# is a near-tie when the plain path's k-th and (k+1)-th router logits lie
+# closer than this.  The router logits have unit scale (unit-rms inputs
+# against f32 weights of std D^-1/2), so this is LOGIT_SHARE of their
+# scale: the divergence between the two paths the logit check allows.
+ROUTE_NEAR_TIE = LOGIT_SHARE
 # mamba2-1.3b's served logits (48 layers) are held to the noise of bf16
 # itself: the kernel path may differ from the plain path, and decoding from
 # the restored int8 state from decoding from the original state, by at most
@@ -1709,7 +1739,7 @@ def main() -> int:
     need(paths, "fleet", ("digest_items", "quantize_int8"))
     records.append(emit("phase_time", of="fleet",
                         seconds=time.monotonic() - t_phase))
-    del kv_items, state_items, cache
+    del kv_items, state_items, cache, items, sitems
 
     # ---- the co-design model beside the measured step --------------------
     t_phase = time.monotonic()
@@ -1719,7 +1749,15 @@ def main() -> int:
     checked(codesign, "codesign", ("fits_ok", "flops_ok"))
     records.append(emit("phase_time", of="codesign",
                         seconds=time.monotonic() - t_phase))
-    del trainer
+    del trainer, source
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- qwen3-moe-30b-a3b: serve at full width, last and alone ---------
+    t_phase = time.monotonic()
+    shapes["qwen3_moe"] = qwen3_phase(torch, paths, rng, records)
+    records.append(emit("phase_time", of="qwen3_moe",
+                        seconds=time.monotonic() - t_phase))
 
     kernels = []
     for name, rec in main_shapes.items():
@@ -1736,7 +1774,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
-            # the same kernel at the gemma3 and zamba2 phases' shapes
+            # the same kernel at the gemma3, zamba2 and qwen3 phases'
+            # shapes
             "shapes": [
                 {"of": f"{phase} {label}", **{key: r.get(key) for key in (
                     "shape", "window", "values", "bytes", "max_abs_err",
@@ -1782,7 +1821,8 @@ def _launches_per_layer(paths, path, name, want) -> None:
         fail(f"the {path} path launched {name} {got} times, not {want}")
 
 
-def _serve_record(torch, server, batch, prompt, timing, gen_s, launches):
+def _serve_record(torch, server, batch, prompt, timing, gen_s, launches,
+                  **extra):
     cfg = server.cfg
     n = len(batch["tokens"])
     return emit(
@@ -1791,7 +1831,7 @@ def _serve_record(torch, server, batch, prompt, timing, gen_s, launches):
         batch=n, prompt=prompt, gen=GEN, max_len=server.max_len, **timing,
         generate_s=gen_s, tok_per_s=n * GEN / gen_s,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches)
+        launches=launches, **extra)
 
 
 def gemma3_phase(torch, paths, rng, records) -> dict:
@@ -1993,11 +2033,324 @@ def zamba2_phase(torch, paths, rng, records) -> dict:
     return checks
 
 
-def serve_timing(torch, server, batch, prompt) -> dict:
+# ---------------------------------------------------------------------------
+# the qwen3-moe-30b-a3b serving phase
+# ---------------------------------------------------------------------------
+
+
+def host_syncs(torch, fn) -> int:
+    """Synchronizing CUDA operations (device-to-host copies and waits) in
+    one call of ``fn``, as torch's sync debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_moe_layer(torch, cfg, moe, T):
+    """One layer's ``moe_dispatch`` against ``moe_ref`` (the plain
+    version) on the same T tokens of unit-rms values, as the layer's normed
+    input is, each path's routing recorded: the routing identical, y
+    within ``MOE_TOL``, the load-balance and z losses within f32 rounding.
+    Times are per eager call (the dispatch syncs once with the host, so no
+    CUDA graph).  Bound: the experts this routing uses, read once, and the
+    tokens in and out (bytes), or 2 T k 3 D F operations at the bf16 rate;
+    no single PyTorch call computes a top-k MoE, so no library time."""
+    from repro_torch.models import ffn
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(1, T, cfg.d_model, generator=g, device="cuda").to(
+        torch.bfloat16)
+    args = (x, moe.router, moe.w_gate, moe.w_up, moe.w_down)
+    klog, plog = ffn.RouteLog(), ffn.RouteLog()
+    y, lb, z = ffn.moe_dispatch(*args, cfg=cfg, log=klog)
+    y_ref, lb_ref, z_ref = ffn.moe_ref(*args, cfg=cfg, log=plog)
+    torch.cuda.synchronize()
+    routing_ok = bool(torch.equal(klog.calls[0][0], plog.calls[0][0]))
+    err, ok = _within(torch, y, y_ref, **MOE_TOL)
+    aux_ok = bool(torch.allclose(lb, lb_ref, rtol=1e-5)
+                  and torch.allclose(z, z_ref, rtol=1e-5))
+    ms = call_ms(lambda: ffn.moe_dispatch(*args, cfg=cfg), iters=10)
+    plain_ms = call_ms(lambda: ffn.moe_ref(*args, cfg=cfg), iters=3,
+                       warmup=1)
+    D, F, k = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.top_k
+    used = int(torch.unique(klog.calls[0][0]).numel())
+    nbytes = used * 3 * D * F * 2 + 2 * T * D * 2 + moe.router.nbytes
+    bms, by = bound_ms(nbytes, 2.0 * T * k * 3 * D * F, PEAK_BF16)
+    return emit("check", of="moe layer", path="moe_dispatch",
+                plain="moe_ref", tokens=T, experts_used=used,
+                max_abs_err=err, tol=MOE_TOL, ok=ok, routing_ok=routing_ok,
+                aux_ok=aux_ok, lb=[lb.item(), lb_ref.item()],
+                z=[z.item(), z_ref.item()], call_ms=ms, plain_call_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def _routing_gaps(torch, probs, k):
+    """Per row of router ``probs``, the k-th minus the (k+1)-th largest
+    router logit (log-probability): how far the row is from a tie at the
+    top-k boundary."""
+    lg = torch.log(probs).sort(-1, descending=True).values
+    return lg[:, k - 1] - lg[:, k]
+
+
+def routing_layer_by_layer(torch, server, batch) -> dict:
+    """Each MoE layer's routing by the kernel path and by the plain path on
+    the same layer input (the plain path's own stream through a prefill of
+    ``batch``): every decision of every prompt token in every layer.  The
+    two differ only by one layer of attention rounding, so a decision may
+    differ only at a near-tie: fails unless the plain path's k-th and
+    (k+1)-th router logits lie closer than ``ROUTE_NEAR_TIE`` wherever the
+    expert sets differ."""
+    from repro_torch.models import ffn
+    from repro_torch.models.blocks import ShardCtx, moe_layer_apply
+    params, cfg = server.params, server.cfg
+    k = cfg.moe.top_k
+    tok = torch.as_tensor(batch["tokens"], device="cuda")
+    pos = torch.arange(tok.shape[1], dtype=torch.int32, device="cuda")
+    x = params.embed[tok.long()]
+    gaps, differ = [], []
+    with torch.no_grad():
+        for lp in params.layers:
+            klog, plog = ffn.RouteLog(), ffn.RouteLog()
+            moe_layer_apply(x, lp, cfg,
+                            dataclasses.replace(server.ctx, routes=klog),
+                            positions=pos)
+            x, _, _ = moe_layer_apply(x, lp, cfg,
+                                      ShardCtx(impl="ref", routes=plog),
+                                      positions=pos)
+            (ke, _), (pe, pp) = klog.calls[0], plog.calls[0]
+            same = (ke.sort(-1).values == pe.sort(-1).values).all(-1)
+            gap = _routing_gaps(torch, pp, k)
+            gaps.append(gap)
+            differ.append(gap[~same])
+    gaps, differ = torch.cat(gaps).cpu(), torch.cat(differ).cpu()
+    return dict(
+        layer_local_decisions=gaps.numel() * k,
+        layer_local_differing=int(differ.numel()),
+        layer_local_max_gap=differ.max().item() if differ.numel() else None,
+        layer_local_gap_quantiles={str(q): torch.quantile(gaps, q).item()
+                                   for q in (0.01, 0.1, 0.5)},
+        near_tie_bound=ROUTE_NEAR_TIE,
+        near_tie_ok=bool((differ < ROUTE_NEAR_TIE).all()))
+
+
+def check_moe_logits(torch, server, batch, tokens) -> dict:
+    """``check_logits`` for the MoE, each path's routing recorded.
+
+    The kernel path and the plain path round attention at different
+    places, so a token whose k-th and (k+1)-th router probabilities nearly
+    tie may take another expert in one path; its output then moves by far
+    more than bf16 noise, and through attention so does every later token
+    of its sequence, and so on through 48 layers.  So:
+
+    * free runs (prefill and 4 teacher-forced decode steps per path): the
+      routing decisions that differ at the compared positions (each
+      prompt's last token at the prefill, every sequence at each decode
+      step), with their expert ids and the plain path's gaps; the
+      positions whose routing agreed in every layer, and the logits there;
+    * the logits, held to ``LOGIT_SHARE`` at every compared position, come
+      from the plain path run again with the kernel path's expert choices
+      imposed (``ffn.RouteLog(forced=...)``): the same function with the
+      same tie-breaks;
+    * the near-tie check runs layer by layer on the same inputs
+      (:func:`routing_layer_by_layer`), where one layer's rounding is the
+      only difference.
+
+    The f32 noise floor of the dense phases cannot run: qwen3's weights in
+    f32 would take 122 GB, more than the card holds."""
+    from repro_torch.models import ffn
+    from repro_torch.models.blocks import ShardCtx
+    api, params, cfg = server.api, server.params, server.cfg
+    tok = torch.as_tensor(batch["tokens"], device="cuda")
+    forced = torch.as_tensor(tokens, device="cuda")
+    run = lambda ctx: _teacher_forced(torch, api, params, ctx, tok, forced,
+                                      server.max_len)
+    klog, plog = ffn.RouteLog(), ffn.RouteLog()
+    kern = run(dataclasses.replace(server.ctx, routes=klog))
+    plain = run(ShardCtx(impl="ref", routes=plog))
+    plain_forced = run(ShardCtx(impl="ref", routes=ffn.RouteLog(
+        forced=[e for e, _ in klog.calls])))
+    klog, plog = klog.calls, plog.calls
+    L, k = cfg.n_layers, cfg.moe.top_k
+    B, S = tok.shape
+    steps = len(kern)
+    if len(klog) != steps * L or len(plog) != steps * L:
+        fail(f"{len(klog)} / {len(plog)} route calls for {steps} steps of "
+             f"{L} layers")
+    last = torch.arange(B, device="cuda") * S + S - 1
+    rows = [last] + [torch.arange(B, device="cuda")] * (steps - 1)
+    agreed = torch.ones((steps, B), dtype=torch.bool)
+    differing, gaps = [], []
+    for step in range(steps):
+        for layer in range(L):
+            ke = klog[step * L + layer][0][rows[step]]
+            pe, pp = (t[rows[step]] for t in plog[step * L + layer])
+            same = (ke.sort(-1).values == pe.sort(-1).values).all(-1).cpu()
+            gap = _routing_gaps(torch, pp, k).cpu()
+            gaps.append(gap)
+            agreed[step] &= same
+            for b in (~same).nonzero().flatten().tolist():
+                kset, pset = set(ke[b].tolist()), set(pe[b].tolist())
+                differing.append(dict(
+                    step=step, seq=b, layer=layer, gap=gap[b].item(),
+                    kernel_only=sorted(kset - pset),
+                    plain_only=sorted(pset - kset)))
+    errs = torch.stack([(x.float() - y.float()).abs().amax(dim=(1, 2))
+                        for x, y in zip(kern, plain)]).cpu()   # (steps, B)
+    forced_errs = _max_err(kern, plain_forced)
+    scale = max(x.abs().max().item() for x in plain)
+    tol = LOGIT_SHARE * scale
+    gaps = torch.cat(gaps)
+    diff_gaps = torch.tensor([d["gap"] for d in differing] or [0.0])
+    quant = lambda t: {str(q): torch.quantile(t, q).item()
+                       for q in (0.1, 0.5, 0.9)}
+    greedy = torch.stack([torch.argmax(x[:, -1], dim=-1) for x in kern],
+                         dim=1).cpu().numpy()
+    finite = all(bool(torch.isfinite(x).all()) for x in kern)
+    return dict(
+        compared_positions=steps * B, decisions=steps * B * L * k,
+        differing_decisions=len(differing),
+        differing_experts=sum(len(d["kernel_only"]) for d in differing),
+        differing_by_step=[sum(d["step"] == i for d in differing)
+                           for i in range(steps)],
+        differing=differing[:32], differing_gap_quantiles=quant(diff_gaps),
+        gap_quantiles=quant(gaps),
+        agreed_positions=int(agreed.sum()),
+        agreed_logits_max_abs_err=errs[agreed].tolist(),
+        free_logits_max_abs_err=errs.tolist(),
+        logits_max_abs_err=forced_errs, logits_scale=scale,
+        logits_tol=tol, logits_ok=finite and max(forced_errs) <= tol,
+        **routing_layer_by_layer(torch, server, batch),
+        tokens_shape=list(tokens.shape),
+        tokens_ok=(tokens.shape == (B, GEN) and tokens.dtype.kind == "i"
+                   and int(tokens.min()) >= 0
+                   and int(tokens.max()) < cfg.vocab),
+        greedy_steps=int(greedy.shape[1]),
+        greedy_ok=bool((greedy == tokens[:, :greedy.shape[1]]).all()))
+
+
+def qwen3_phase(torch, paths, rng, records) -> dict:
+    """qwen3-moe-30b-a3b at full width (48 MoE layers of 128 experts, top
+    8, hd 128, 32 query heads over 4 KV heads; 61 GB of bf16 weights, the
+    router f32) serving 4 x 512-token prompts for 32 tokens against a full
+    545-slot cache.  Runs after every other phase, with their tensors
+    freed.  The kernels at the phase's shapes (flash hd 128, decode hd 128
+    filled to 528 slots, the digest of one KV item), one MoE layer's
+    dispatch against ``moe_ref``, the serving path's launches, peak memory
+    and host syncs per decode step, its logits and routing against the
+    plain path, and the prefill's KV cache (96 items) staged under the
+    accel digest.  Appends every record to ``records``; returns the check
+    records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    torch.cuda.reset_peak_memory_stats()
+    resident_mib = torch.cuda.memory_allocated() / 2**20
+    cfg = get_config("qwen3-moe-30b-a3b")
+    max_len = QWEN_PROMPT + GEN + 1
+    G = dict(B=QWEN_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(31)
+    kv = torch.randint(0, 256, (QWEN_BATCH * max_len * cfg.kv_dim * 2,),
+                       generator=g, dtype=torch.uint8, device="cuda")
+    checks = {
+        "flash": check_flash(torch, S=QWEN_PROMPT, dtype=bf16, window=0, **G),
+        "decode": check_decode(torch, S=max_len, dtype=bf16,
+                               fill=QWEN_PROMPT + GEN // 2, window=0,
+                               ring=False, **G),
+        "kv_item": check_digest_items(torch, "one qwen3 KV item", [[kv]],
+                                      [[kv]]),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv
+
+    t0 = time.monotonic()
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    moe = check_moe_layer(torch, cfg, server.params.layers[0].moe,
+                          QWEN_BATCH * QWEN_PROMPT)
+    records.append(moe)
+    checked(moe, "MoE layer", ("ok", "routing_ok", "aux_ok"))
+    batch = _prompts(torch, cfg, QWEN_BATCH, QWEN_PROMPT, rng)
+    timing = serve_timing(torch, server, batch, QWEN_PROMPT, graph=False)
+    _, cache = server.prefill(batch)
+    step_tok = torch.zeros((QWEN_BATCH, 1), dtype=torch.int32, device="cuda")
+
+    def one_step():
+        cache["pos"] = QWEN_PROMPT
+        server.decode(cache, step_tok)
+    syncs = host_syncs(torch, one_step)
+    del cache
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.monotonic()
+    tokens = server.generate(batch, GEN)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    paths["qwen3_serve"] = build.launch_counts()
+    records.append(_serve_record(torch, server, batch, QWEN_PROMPT, timing,
+                                 gen_s, paths["qwen3_serve"], load_s=load_s,
+                                 allocated_before_phase_mib=resident_mib,
+                                 host_syncs_per_decode_step=syncs))
+    _launches_per_layer(paths, "qwen3_serve", "flash_attention",
+                        cfg.n_layers)
+    _launches_per_layer(paths, "qwen3_serve", "decode_attention",
+                        cfg.n_layers * (GEN - 1))
+    correct = emit("correct", arch=cfg.name,
+                   **check_moe_logits(torch, server, batch, tokens))
+    records.append(correct)
+    checked(correct, "qwen3 serving path",
+            ("logits_ok", "near_tie_ok", "tokens_ok", "greedy_ok"))
+
+    # the prefill's KV cache, one item per layer and tensor, to host memory
+    _, cache = server.prefill(batch)
+    items = [cache[name][i] for i in range(cache["k"].shape[0])
+             for name in ("k", "v")]
+    kv_digest = digest_rate(checks["kv_item"])
+    copy_gbps = pageable_gbps(torch, items[0])
+    build.reset_launches()
+    t0 = time.monotonic()
+    received, report = _stage_kv(torch, items, kv_digest, copy_gbps)
+    stage_s = time.monotonic() - t0
+    paths["qwen3_stage_kv"] = build.launch_counts()
+    kv_total = sum(t.nbytes for t in items)
+    records.append(emit(
+        "stage_kv", arch=cfg.name, items=len(items),
+        item_bytes=items[0].nbytes, kv_bytes=kv_total, stage_s=stage_s,
+        kv_gbps=kv_total * 8 / stage_s / 1e9, pageable_copy_gbps=copy_gbps,
+        planned_digest_bytes_per_s=kv_digest,
+        digest_folds=report.checksum_folds,
+        launches=paths["qwen3_stage_kv"]))
+    need(paths, "qwen3_stage_kv", ("digest_items",))
+    once_per_fold(paths, "qwen3_stage_kv", report)
+    kv_ok = emit("correct", of="qwen3 KV staging", arch=cfg.name,
+                 **kv_staged_ok(items, received, report))
+    records.append(kv_ok)
+    checked(kv_ok, "qwen3 KV staging", ("digest_ok", "bytes_ok"))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    records.append(emit("memory", of="qwen3 phase", peak_gib=peak / 2**30,
+                        peak_ok=peak < 80e9))
+    checked(records[-1], "qwen3 phase memory", ("peak_ok",))
+    return checks
+
+
+def serve_timing(torch, server, batch, prompt, *, graph=True) -> dict:
     """A warm-up request, then prefill ms (eager), decode ms/token (eager,
     and as device time from a CUDA graph replay of the same step: what the
     card itself spends per token) and a profiler trace of one prefill and
-    one decode step."""
+    one decode step.  A step that syncs with the host (the MoE's expert
+    counts) cannot be captured: without ``graph`` its device time is the
+    trace's busy time."""
     server.generate(batch, 4)                              # warm-up request
     prefill_ms = call_ms(lambda: server.prefill(batch), iters=5, warmup=1)
     _, cache = server.prefill(batch)
@@ -2008,9 +2361,10 @@ def serve_timing(torch, server, batch, prompt) -> dict:
         cache["pos"] = prompt
         server.decode(cache, tok)
     decode_ms = call_ms(one_step, iters=10, warmup=2)
-    decode_device_ms = device_ms(one_step, iters=5)
     trace = {"prefill": device_busy(lambda: server.prefill(batch)),
              "decode_step": device_busy(one_step)}
+    decode_device_ms = (device_ms(one_step, iters=5) if graph
+                        else trace["decode_step"]["device_busy_ms"])
     return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
                 decode_device_ms_per_token=decode_device_ms, trace=trace)
 

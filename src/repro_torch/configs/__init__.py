@@ -1,9 +1,9 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
 The architectures this package serves (the dense decoders, gemma3's
-local:global one included, the Mamba2 SSM stack and zamba2's hybrid), each
-a copy of the JAX package's module of the same name (exact published
-dims).
+local:global one included, qwen3's MoE, the Mamba2 SSM stack and zamba2's
+hybrid), each a copy of the JAX package's module of the same name (exact
+published dims).
 ``get_smoke_config`` returns the reduced same-family variant used by CPU
 smoke tests.
 """
@@ -21,6 +21,7 @@ _REGISTRY: dict[str, str] = {
     "mamba2-1.3b": "mamba2_1_3b",
     "gemma3-1b": "gemma3_1b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 

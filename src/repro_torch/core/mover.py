@@ -233,6 +233,21 @@ class _DrainerPool:
             raise RuntimeError(f"client sink {bid!r} failed:\n{tb}")
 
 
+def _aborting(sink: Callable[[Any], None],
+              pipeline: StagePipeline) -> Callable[[Any], None]:
+    """``sink`` that aborts ``pipeline`` when it raises: the stage workers
+    then end instead of blocking for good on buffers nobody drains, each
+    still holding the source's items.  (The JAX package's mover leaves
+    them blocked.)"""
+    def deliver(item: Any) -> None:
+        try:
+            sink(item)
+        except BaseException:
+            pipeline.abort()
+            raise
+    return deliver
+
+
 @dataclasses.dataclass
 class MoverConfig:
     """Global tuning (paper section 2.3): one configuration effective across
@@ -526,6 +541,7 @@ class UnifiedDataMover:
         out_batch = self._hop_batch(params[-1][2], batch_items)
         out_iter = (pipeline.output.drain() if out_batch <= 1
                     else _drain_batched(pipeline.output, out_batch))
+        sink = _aborting(sink, pipeline)
         for item in out_iter:
             sink(item)
             items += 1
@@ -608,8 +624,9 @@ class UnifiedDataMover:
             out_batch = self._hop_batch(params[-1][2], batch_items)
             out_iter = (pipeline.output.drain() if out_batch <= 1
                         else _drain_batched(pipeline.output, out_batch))
+            deliver = _aborting(sink, pipeline)
             for item in out_iter:
-                sink(item)
+                deliver(item)
                 items += 1
                 nbytes += _default_sizeof(item)
             pipeline.join()

@@ -348,6 +348,9 @@ class Stage(Generic[T, U]):
         self._upstream: Optional[Callable[[], Optional[T]]] = None
         self._upstream_many: Optional[
             Callable[[int], Optional[list[T]]]] = None
+        #: the stage buffer this stage reads from (None for the first
+        #: stage): closed when this stage stops early, see _run_worker
+        self._upstream_buffer: Optional[BurstBuffer] = None
         self._active = 0        # spawned minus exited workers
         self._retire = 0        # pending lazy-retirement requests
         #: items a worker held when its transform failed for good (budget
@@ -365,13 +368,17 @@ class Stage(Generic[T, U]):
 
     def start(self, upstream: Callable[[], Optional[T]],
               upstream_many: Optional[
-                  Callable[[int], Optional[list[T]]]] = None) -> None:
+                  Callable[[int], Optional[list[T]]]] = None,
+              upstream_buffer: Optional[BurstBuffer] = None) -> None:
         """Begin staging.  ``upstream()`` returns the next item or ``None``
         at end-of-stream; it must be thread-safe for ``workers > 1``.
         ``upstream_many(k)`` (optional) returns up to ``k`` items as a
         list, or ``None``/``[]`` at end-of-stream, in ONE upstream lock
         round-trip — the slab pull the batched worker loop rides.  When
-        absent, ``batch_items > 1`` falls back to the per-item loop."""
+        absent, ``batch_items > 1`` falls back to the per-item loop.
+        ``upstream_buffer`` is the previous stage's buffer the pulls read,
+        if any: a worker that stops early closes it."""
+        self._upstream_buffer = upstream_buffer
         self._t_start = self._clock()
         # snapshot the channel's cumulative retransmit counter so this
         # stage reports only ITS OWN window of losses (segmented movers
@@ -467,6 +474,13 @@ class Stage(Generic[T, U]):
                 self._backoff(wait)
 
     def _run_worker(self) -> None:
+        # a worker that stops early (it raised, or its own buffer was
+        # closed under it by a failed stage downstream or an abort) closes
+        # the buffer it reads from: the stage upstream then ends in
+        # BufferClosed instead of blocking in put on a buffer nobody
+        # drains, and the closure runs up the chain to the source.  This
+        # diverges from the JAX package's copy, which hangs there.
+        stopped = False
         try:
             while True:
                 with self._lock:
@@ -483,11 +497,15 @@ class Stage(Generic[T, U]):
                         break
                 elif not self._step_one():
                     break
+            stopped = self.buffer.closed
         except Exception:
+            stopped = True
             with self._lock:
                 self._errors += 1
                 self._error_tb = traceback.format_exc()
         finally:
+            if stopped and self._upstream_buffer is not None:
+                self._upstream_buffer.close()
             with self._lock:
                 # last worker out closes the buffer (explicit counter:
                 # checking thread liveness races when several workers
@@ -1027,10 +1045,12 @@ class StagePipeline:
         else:
             upstream = self._source_pull
             upstream_many = self._source_pull_many
+        upstream_buffer = None    # a shared source buffer is never closed
         for stage in self.stages:
-            stage.start(upstream, upstream_many)
+            stage.start(upstream, upstream_many, upstream_buffer)
             upstream = self._buffer_pull(stage.buffer)
             upstream_many = self._buffer_pull_many(stage.buffer)
+            upstream_buffer = stage.buffer
         return self
 
     @property

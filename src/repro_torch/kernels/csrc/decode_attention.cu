@@ -25,7 +25,9 @@
 // otherwise reads K and V straight from device memory as 16-byte vector
 // loads (an hd-64 bf16 row is 8 lanes x 16 B), only for kept slots.  At hd
 // 256 in bf16 a row is all 32 lanes, and a warp takes 4 slots at a time:
-// eight slots' K and V in f32 registers would be 128 of them a lane.  The
+// eight slots' K and V in f32 registers would be 128 of them a lane.  At hd
+// 128 a row is 16 lanes, two slots a warp-wide load, and a warp takes 4
+// slots at a time as well (two loads each of K and V in flight).  The
 // query rows (scaled by hd^-1/2 log2 e) stay in registers; a slot's score is
 // reduced over its lanes by shuffles, and each lane keeps an online softmax
 // (m, l, acc) in f32 for its slots.  The lanes, then the warps (through
@@ -353,9 +355,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const int* kp = static_cast<const int*>(k_pos);
   const int* qp = static_cast<const int*>(q_pos);
   float* w = static_cast<float*>(ws);
-  // the ported configs' head dims: 64 in f32 and bf16, 256 in bf16 (an f32
-  // row of 256 is 64 lanes of 16 bytes, more than a warp); another one is
-  // added with the config that needs it
+  // the ported configs' head dims: 64 in f32 and bf16, 128 and 256 in bf16
+  // (an f32 row of 256 is 64 lanes of 16 bytes, more than a warp); another
+  // one is added with the config that needs it
   if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv, S, G,
                                   chunk, strides, scale, window, s);
@@ -363,6 +365,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
     return (int)launch<__nv_bfloat16, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
                                           S, G, chunk, strides, scale, window,
                                           s);
+  if (dtype == DTYPE_BF16 && hd == 128)
+    return (int)launch<__nv_bfloat16, 128>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
+                                           S, G, chunk, strides, scale,
+                                           window, s);
   if (dtype == DTYPE_BF16 && hd == 256)
     return (int)launch<__nv_bfloat16, 256>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
                                            S, G, chunk, strides, scale,

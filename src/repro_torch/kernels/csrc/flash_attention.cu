@@ -15,7 +15,8 @@
 // Bound on the H100: at the serving shapes (S = 128..1000, hd = 64) the
 // work is a few GFLOP against a few MB, so the bf16 tensor cores bound it
 // at S = 1000 and the bytes (a few us of latency) at S = 128; at gemma3's
-// (S 1024, hd 256) and zamba2's (S 4608, hd 64) the tensor cores.
+// (S 1024, hd 256), qwen3-moe's (S 512, hd 128) and zamba2's (S 4608, hd
+// 64) the tensor cores.
 //
 // bf16 (the model's type), FlashAttention-3's shape kept simple: one CTA of
 // one warpgroup (128 threads) owns a 64-row query tile of one (b, h).  TMA
@@ -42,6 +43,9 @@
 // (32 KiB) and two stages of K and V (32 KiB each) take 161 KiB of shared
 // memory, so one CTA runs per SM.  Four n64 chains rather than one m64n256
 // wgmma: the same tensor work with the helpers the hd-64 kernel uses.
+// Head dim 128 (qwen3-moe, and the other hd-128 configs) takes two boxes:
+// 8 k-steps for S, two O accumulators (64 f32 registers a thread), and
+// 81 KiB of shared memory (opted in), so two CTAs can share an SM.
 //
 // f32 keeps the first version: one thread per query row on the f32 CUDA
 // cores (K/V tiles of 32 keys staged as f32 in shared memory, read as
@@ -410,7 +414,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // f32 (the SIMT kernel) at hd 64; bf16 (wgmma) at the ported configs'
-  // head dims, 64 and 256.  Another one is added with the config that
+  // head dims, 64, 128 and 256.  Another one is added with the config that
   // needs it.
   if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, o, B, Hq, Sq, Sk, G, strides,
@@ -418,6 +422,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == DTYPE_BF16 && hd == 64)
     return (int)launch_bf16_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
                                       strides, scale, causal, window, s);
+  if (dtype == DTYPE_BF16 && hd == 128)
+    return (int)launch_bf16_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
+                                       strides, scale, causal, window, s);
   if (dtype == DTYPE_BF16 && hd == 256)
     return (int)launch_bf16_wgmma<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
                                        strides, scale, causal, window, s);

@@ -14,20 +14,24 @@ The serving path is the paper's two workload classes composed:
   parallel mirror mode), each client drained by its own drainer.
 
 A dense model (smollm-360m, gemma3-1b) prefills through the
-flash-attention kernel and decodes through the decode-attention kernel; an
-SSM model (mamba2-1.3b) prefills through the SSD-scan kernel and decodes
-with the plain recurrent step; the hybrid (zamba2-1.2b) does both, its
-shared attention block decoding against a ring cache
-(``ShardCtx(impl="cuda")``).  An SSM or hybrid prompt must be a whole
-number of SSD chunks long, as the reference asks: another length raises,
-it is not padded.  All CUDA work is issued on the device's current stream; the
-decode steps run on the mover's producer thread, and each step's
-``.cpu()`` copy of the new tokens is the one device sync per token — the
-host copy that is the stream's item.
+flash-attention kernel and decodes through the decode-attention kernel; the
+MoE (qwen3-moe-30b-a3b) does the same, its expert layers through the
+no-drop sorted dispatch (``ffn.moe_dispatch``: one host sync per layer for
+the expert counts); an SSM model (mamba2-1.3b) prefills through the
+SSD-scan kernel and decodes with the plain recurrent step; the hybrid
+(zamba2-1.2b) does both, its shared attention block decoding against a
+ring cache (``ShardCtx(impl="cuda")``).  An SSM or hybrid prompt must be
+a whole number of SSD chunks long, as the reference asks: another length
+raises, it is not padded.  All CUDA work is issued on the device's
+current stream; the decode steps run on the mover's producer thread, and
+each step's ``.cpu()`` copy of the new tokens is its device sync (the
+MoE's adds one per layer) — the host copy that is the stream's item.
 
 Usage:
   python -m repro_torch.launch.serve --arch smollm-360m          # on the card
   python -m repro_torch.launch.serve --arch mamba2-1.3b          # on the card
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+      --prompt-len 512                                            # on the card
   python -m repro_torch.launch.serve --arch smollm-360m --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
@@ -36,6 +40,8 @@ Usage:
       --device cpu --prompt-len 48 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \\
       --device cpu --prompt-len 48 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \\
+      --device cpu --prompt-len 16 --gen 4                        # CPU smoke
 """
 
 from __future__ import annotations
@@ -72,14 +78,16 @@ CLIENT_LIMITED_STALL = 0.1
 #: an eager decode step on the card, by config, used until a server has
 #: timed steps of its own; each measured by chip_smoke.py on an NVIDIA H100
 #: 80GB HBM3 at its 700.00 W power limit (PERF.md section 5): smollm-360m
-#: and mamba2-1.3b at batch 4, gemma3-1b at batch 4 (1057-slot cache) and
-#: zamba2-1.2b at batch 2 (4096-slot rings), the serving cells' batches
+#: and mamba2-1.3b at batch 4, gemma3-1b at batch 4 (1057-slot cache),
+#: zamba2-1.2b at batch 2 (4096-slot rings) and qwen3-moe-30b-a3b at batch
+#: 4 (545-slot cache), the serving cells' batches
 H100_DECODE_STEP_MS = {"smollm-360m": 36.27, "mamba2-1.3b": 81.19,
-                       "gemma3-1b": 27.27, "zamba2-1.2b": 61.09}
+                       "gemma3-1b": 27.27, "zamba2-1.2b": 61.09,
+                       "qwen3-moe-30b-a3b": 253.49}
 
 #: the served config whose step prices a config without an entry, by family
-FAMILY_STAND_IN = {"dense": "smollm-360m", "ssm": "mamba2-1.3b",
-                   "hybrid": "zamba2-1.2b"}
+FAMILY_STAND_IN = {"dense": "smollm-360m", "moe": "qwen3-moe-30b-a3b",
+                   "ssm": "mamba2-1.3b", "hybrid": "zamba2-1.2b"}
 
 #: how many recent decode steps the step-time estimate averages over
 STEP_MS_WINDOW = 32

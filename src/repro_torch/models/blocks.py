@@ -4,8 +4,9 @@ through the models.
 ``ShardCtx`` keeps the JAX package's name so a reader finds the
 counterpart; here it holds no mesh, only the kernel implementation:
 ``"cuda"`` runs the hand-written kernels (their plain versions when the
-tensors lie on the CPU), ``"ref"`` the plain paths of ``attention`` and
-``ssm.ssd_chunked``.
+tensors lie on the CPU) and the MoE's sorted dispatch
+(``ffn.moe_dispatch``), ``"ref"`` the plain paths of ``attention``,
+``ssm.ssd_chunked`` and ``ffn.moe_ref``.
 
 Parameters are ``nn.Module``s whose attribute names follow the JAX
 package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -33,10 +35,19 @@ class ShardCtx:
     """Single-device model context."""
 
     impl: str = "cuda"             # attention / SSD kernels: cuda | ref
+    #: records (or imposes) the MoE layers' routing decisions
+    routes: Optional[ffn_lib.RouteLog] = None
 
     def __post_init__(self):
         if self.impl not in ("cuda", "ref"):
             raise ValueError(f"impl must be 'cuda' or 'ref', got {self.impl!r}")
+
+    def choose_moe(self, cfg: ModelConfig) -> str:
+        """The MoE path: ``"ref"`` (``ffn.moe_ref``, every expert on every
+        token: the JAX package's path on one device) under ``impl="ref"``,
+        else ``"dispatch"`` (``ffn.moe_dispatch``, the same function over
+        each expert's own tokens)."""
+        return "ref" if self.impl == "ref" else "dispatch"
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -67,6 +78,31 @@ class DenseLayer(nn.Module):
         super().__init__()
         self.attn = attn
         self.mlp = mlp
+        self.ln1 = _param(ln1)
+        self.ln2 = _param(ln2)
+
+
+class MoeParams(nn.Module):
+    """An MoE block: ``router`` f32 (D, E); ``w_gate``, ``w_up`` (E, D, F);
+    ``w_down`` (E, F, D)."""
+
+    def __init__(self, router, w_gate, w_up, w_down):
+        super().__init__()
+        self.router, self.w_gate, self.w_up, self.w_down = (
+            _param(w) for w in (router, w_gate, w_up, w_down))
+
+
+#: parameter names of an MoE block, in constructor order
+MOE_PARAMS = ("router", "w_gate", "w_up", "w_down")
+
+
+class MoeLayer(nn.Module):
+    """A transformer layer whose feed-forward is an MoE block ``moe``."""
+
+    def __init__(self, attn: AttnParams, moe: MoeParams, ln1, ln2):
+        super().__init__()
+        self.attn = attn
+        self.moe = moe
         self.ln1 = _param(ln1)
         self.ln2 = _param(ln2)
 
@@ -108,6 +144,27 @@ def init_mlp_params(cfg: ModelConfig, *, generator: torch.Generator,
     kw = dict(generator=generator, device=device)
     return MlpParams(dense_init((D, F), D, **kw), dense_init((D, F), D, **kw),
                      dense_init((F, D), F, **kw))
+
+
+def init_moe_params(cfg: ModelConfig, *, generator: torch.Generator,
+                    device: torch.device | str) -> MoeParams:
+    """f32 router, bf16 experts; each tensor drawn in f32 and cast, one at
+    a time (one layer's f32 ``w_gate`` at full qwen3 width is 805 MB)."""
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    kw = dict(generator=generator, device=device)
+    return MoeParams(dense_init((D, E), D, dtype=torch.float32, **kw),
+                     dense_init((E, D, F), D, **kw),
+                     dense_init((E, D, F), D, **kw),
+                     dense_init((E, F, D), F, **kw))
+
+
+def init_moe_layer(cfg: ModelConfig, *, generator: torch.Generator,
+                   device: torch.device | str) -> MoeLayer:
+    D = cfg.d_model
+    zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=device)
+    return MoeLayer(init_attn_params(cfg, generator=generator, device=device),
+                    init_moe_params(cfg, generator=generator, device=device),
+                    zeros(), zeros())
 
 
 def init_dense_layer(cfg: ModelConfig, *, generator: torch.Generator,
@@ -180,3 +237,32 @@ def dense_layer_apply(
     x = x + attn_out
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     return x + ffn_lib.swiglu(h2, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
+
+
+def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
+              ctx: ShardCtx) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                                      Optional[torch.Tensor]]:
+    """The layer's feed-forward on its normed input: (y, load-balance loss,
+    router z-loss), the losses None for a dense layer's SwiGLU."""
+    if isinstance(p, MoeLayer):
+        m = p.moe
+        fn = (ffn_lib.moe_ref if ctx.choose_moe(cfg) == "ref"
+              else ffn_lib.moe_dispatch)
+        return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
+                  log=ctx.routes)
+    return ffn_lib.swiglu(h, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down), \
+        None, None
+
+
+def moe_layer_apply(
+    x: torch.Tensor, p: MoeLayer, cfg: ModelConfig, ctx: ShardCtx, *,
+    positions: torch.Tensor, window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full pre-norm causal MoE layer (no cache); returns (x, load-balance
+    loss, router z-loss)."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    attn_out, _, _ = self_attention_block(
+        h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)
+    x = x + attn_out
+    y, lb, z = ffn_apply(rms_norm(x, p.ln2, cfg.norm_eps), p, cfg, ctx)
+    return x + y, lb, z

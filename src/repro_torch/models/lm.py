@@ -1,4 +1,4 @@
-"""Decoder-only language models, dense, SSM and hybrid families: the
+"""Decoder-only language models, dense, MoE, SSM and hybrid families: the
 training forward and loss, prefill and cached decode.
 
 The JAX package scans one layer body over layer-stacked parameters
@@ -6,7 +6,7 @@ The JAX package scans one layer body over layer-stacked parameters
 Python loop, and each layer's attention window is a Python int
 (``ModelConfig.layer_windows``), so the kernels see it as a constant.
 
-The dense decode cache holds the K/V of every layer stacked as
+The dense and MoE decode cache holds the K/V of every layer stacked as
 (L, B, S_cache, Hkv, hd) bf16, the SSM cache a ``MambaState`` of the conv
 windows (L, B, conv_width-1, conv_dim) bf16 and the recurrent states
 (L, B, H, P, N) f32, both as the JAX package's do, with a host-side int
@@ -41,24 +41,26 @@ from . import ffn as ffn_lib
 from .attention import (attention, cache_positions_full, cache_positions_ring,
                         cache_update_full, cache_update_ring)
 from . import ssm as ssm_lib
-from .blocks import (DenseLayer, MambaLayer, ShardCtx, _param,
-                     dense_layer_apply, init_dense_layer, init_mamba_layer,
+from .blocks import (DenseLayer, MambaLayer, MoeLayer, ShardCtx, _param,
+                     dense_layer_apply, ffn_apply, init_dense_layer,
+                     init_mamba_layer, init_moe_layer, moe_layer_apply,
                      self_attention_block)
 from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
                      rope_angles, rotate)
 from .config import ModelConfig
 
 #: families this package runs; the others are queued in ROADMAP.md
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class LM(nn.Module):
-    """Parameters of a decoder: embedding, layers (``DenseLayer`` or
-    ``MambaLayer``), final norm, (unless tied) the LM head and, for the
-    hybrid, the one shared attention block ``shared_attn``."""
+    """Parameters of a decoder: embedding, layers (``DenseLayer``,
+    ``MoeLayer`` or ``MambaLayer``), final norm, (unless tied) the LM head
+    and, for the hybrid, the one shared attention block ``shared_attn``."""
 
     def __init__(self, embed: torch.Tensor,
-                 layers: list[DenseLayer] | list[MambaLayer],
+                 layers: list[DenseLayer] | list[MoeLayer]
+                 | list[MambaLayer],
                  final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None,
                  shared_attn: Optional[DenseLayer] = None):
@@ -91,8 +93,9 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
     embed = embed_init((V, D), **kw)
-    mamba = cfg.family in ("ssm", "hybrid")
-    init_layer = init_mamba_layer if mamba else init_dense_layer
+    init_layer = {"dense": init_dense_layer, "moe": init_moe_layer,
+                  "ssm": init_mamba_layer,
+                  "hybrid": init_mamba_layer}[cfg.family]
     layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
     shared = init_dense_layer(cfg, **kw) if cfg.family == "hybrid" else None
     final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
@@ -160,6 +163,11 @@ def _dense_layer(x, lp, cfg, ctx, positions, window):
                              window=window)
 
 
+def _moe_layer(x, lp, cfg, ctx, positions, window):
+    return moe_layer_apply(x, lp, cfg, ctx, positions=positions,
+                           window=window)
+
+
 def _mamba_layer(x, lp, cfg, ctx, positions, window):
     h = rms_norm(x, lp.ln, cfg.norm_eps)
     return x + ssm_lib.mamba_block_train(h, lp, cfg, impl=ctx.impl)
@@ -169,21 +177,27 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                ctx: ShardCtx) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), load-balance
-    loss, router z-loss); the two auxiliary losses are 0 for the dense and
-    SSM families."""
+    loss, router z-loss): for the MoE family each summed over the layers,
+    as the JAX package's scan carries them; 0 for the other families."""
     _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, cfg, x, ctx, positions)
+    elif cfg.family == "moe":
+        body = _remat(_moe_layer, cfg.remat)
+        for lp, w in zip(params.layers, cfg.layer_windows()):
+            x, lbi, zi = body(x, lp, cfg, ctx, positions, w)
+            lb, z = lb + lbi, z + zi
     else:
         body = _remat(_mamba_layer if cfg.family == "ssm" else _dense_layer,
                       cfg.remat)
         for lp, w in zip(params.layers, cfg.layer_windows()):
             x = body(x, lp, cfg, ctx, positions, w)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, cfg, x), zero, zero
+    return _logits(params, cfg, x), lb, z
 
 
 def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -202,11 +216,16 @@ def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
 def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
             ) -> tuple[torch.Tensor, dict]:
     """Token-mean cross entropy (z-loss included) of the batch's
-    ``labels`` under the model, and the aux dict of the JAX package
-    (``ce``, ``load_balance``, ``router_z``)."""
+    ``labels`` under the model, plus, for an MoE config,
+    ``load_balance_coef * lb + router_z_coef * z``; and the aux dict of the
+    JAX package (``ce``, ``load_balance``, ``router_z``)."""
     logits, lb, z = forward_lm(params, cfg, batch["tokens"], ctx)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
-    return ce, {"ce": ce, "load_balance": lb, "router_z": z}
+    total = ce
+    if cfg.moe:
+        total = (total + cfg.moe.load_balance_coef * lb
+                 + cfg.moe.router_z_coef * z)
+    return total, {"ce": ce, "load_balance": lb, "router_z": z}
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +273,7 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             hn, lp.attn, cfg, ctx, q_pos=positions, k_pos=positions,
             window=w)
         x = x + attn_out
-        h2 = rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = x + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+        x = x + ffn_apply(rms_norm(x, lp.ln2, cfg.norm_eps), lp, cfg, ctx)[0]
         if ring:
             cache["k"][i] = _ring_pack(k_new, s_cache)
             cache["v"][i] = _ring_pack(v_new, s_cache)
@@ -350,9 +368,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _decode_attn_block(x, lp: DenseLayer, cfg, ctx, k_cache, v_cache,
-                       pos: int, window: int, ring_len: int, q_pos, k_pos,
-                       angles):
+def _decode_attn_block(x, lp: DenseLayer | MoeLayer, cfg, ctx, k_cache,
+                       v_cache, pos: int, window: int, ring_len: int, q_pos,
+                       k_pos, angles):
     """One decode step through one attention layer against its cache
     (updated in place).  ``q_pos`` (1,), the cache's ``k_pos`` and the RoPE
     ``angles`` at ``pos`` are the step's, shared by every layer.  Returns
@@ -413,8 +431,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
         x, _, _ = _decode_attn_block(x, lp, cfg, ctx, cache["k"][i],
                                      cache["v"][i], pos, w, ring, q_pos,
                                      k_pos, angles)
-        h2 = rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = x + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+        x = x + ffn_apply(rms_norm(x, lp.ln2, cfg.norm_eps), lp, cfg, ctx)[0]
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
 

@@ -5,10 +5,11 @@ arrays (``jax.tree.map(np.asarray, params)``; this module imports no JAX)
 and builds the port's :class:`~repro_torch.models.lm.LM` with the same
 values: layer-stacked leaves (leading L axis, for ``jax.lax.scan``) are
 split per layer, bf16 arrays keep their bits.  Dense trees carry
-``layers.{attn.{wq,wk,wv,wo}, mlp.{w_gate,w_up,w_down}, ln1, ln2}``, SSM
-trees ``layers.{ln, in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w,
-out_proj}``, hybrid trees the SSM layers and one unstacked dense layer
-``shared_attn``.
+``layers.{attn.{wq,wk,wv,wo}, mlp.{w_gate,w_up,w_down}, ln1, ln2}``, MoE
+trees the same with ``moe.{router,w_gate,w_up,w_down}`` (the router f32)
+in place of ``mlp``, SSM trees ``layers.{ln, in_proj, conv_w, conv_b,
+A_log, D, dt_bias, norm_w, out_proj}``, hybrid trees the SSM layers and
+one unstacked dense layer ``shared_attn``.
 
 :func:`to_jax_params` is its inverse (numpy leaves, bf16 as raw 2-byte
 values, :data:`repro_torch.tree.BF16_HOST`); :func:`jax_tree` lays any
@@ -28,8 +29,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.blocks import (MAMBA_PARAMS, AttnParams, DenseLayer, MambaLayer,
-                            MlpParams)
+from .models.blocks import (MAMBA_PARAMS, MOE_PARAMS, AttnParams, DenseLayer,
+                            MambaLayer, MlpParams, MoeLayer, MoeParams)
 from .models.config import ModelConfig
 from .models.lm import LM, _check_family
 from .optim.adamw import AdamWState
@@ -68,6 +69,16 @@ def _dense_layers(lay: Mapping[str, Any], L: int,
     return [_dense_layer(lay, dev, i) for i in range(L)]
 
 
+def _moe_layers(lay: Mapping[str, Any], L: int,
+                dev: torch.device) -> list[MoeLayer]:
+    a, m = lay["attn"], lay["moe"]
+    return [MoeLayer(
+        AttnParams(*(_tensor(a[n][i], dev) for n in ("wq", "wk", "wv", "wo"))),
+        MoeParams(*(_tensor(m[n][i], dev) for n in MOE_PARAMS)),
+        _tensor(lay["ln1"][i], dev), _tensor(lay["ln2"][i], dev))
+        for i in range(L)]
+
+
 def _mamba_layers(lay: Mapping[str, Any], L: int,
                   dev: torch.device) -> list[MambaLayer]:
     return [MambaLayer(*(_tensor(lay[n][i], dev) for n in MAMBA_PARAMS))
@@ -89,7 +100,9 @@ def from_jax_params(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
     if np.shape(first[1])[0] != L:
         raise ValueError(f"layers.{first[0]} stacks {np.shape(first[1])[0]} "
                          f"layers, config has {L}")
-    layers = (_mamba_layers if ssm else _dense_layers)(lay, L, dev)
+    build_layers = (_mamba_layers if ssm else
+                    _moe_layers if cfg.family == "moe" else _dense_layers)
+    layers = build_layers(lay, L, dev)
     head = None if cfg.tie_embeddings else _tensor(np_tree["lm_head"], dev)
     shared = (_dense_layer(np_tree["shared_attn"], dev)
               if cfg.family == "hybrid" else None)

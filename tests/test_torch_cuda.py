@@ -185,6 +185,89 @@ def test_decode_hd256_kernel_matches_plain_on_card(card, S, fill, ring,
                                **TOL[torch.bfloat16])
 
 
+#: hd-128 groupings: qwen3-moe (32 query heads over 4 KV heads) and
+#: llava-next (32 over 8)
+HD128_HEADS = [(32, 4), (32, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", HD128_HEADS)
+@pytest.mark.parametrize("S,window", [(512, 0), (1000, 0), (65, 0),
+                                      (1000, 256), (1, 0)])
+def test_flash_hd128_kernel_matches_plain_on_card(card, Hq, Hkv, S, window):
+    """The hd-128 instantiation (two 64-column boxes a row): causal, a
+    ragged tail, a window."""
+    g = torch.Generator(device=card).manual_seed(1280 + S + window + Hkv)
+    q = torch.randn(4, Hq, S, 128, generator=g, device=card).to(
+        torch.bfloat16)
+    k = torch.randn(4, Hkv, S, 128, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(4, Hkv, S, 128, generator=g, device=card).to(
+        torch.bfloat16)
+    n = build.KERNELS["flash_attention"].launches
+    out = flash_attention_bhsd(q, k, v, window=window)
+    assert build.KERNELS["flash_attention"].launches == n + 1
+    expect = ref.attention_ref(q, k, v, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", HD128_HEADS)
+@pytest.mark.parametrize("S,fill,ring,window", [
+    (545, 544, False, 0), (545, 528, False, 0), (545, 100, False, 0),
+    (545, 528, True, 0), (545, 528, False, 256), (100, 3, True, 0)])
+def test_decode_hd128_kernel_matches_plain_on_card(card, Hq, Hkv, S, fill,
+                                                   ring, window):
+    """The hd-128 bf16 instantiation (a slot row is 16 lanes) against full,
+    partly filled and permuted caches of qwen3's 545 slots."""
+    g = torch.Generator(device=card).manual_seed(S + fill + Hkv)
+    B, hd = 4, 128
+    q = torch.randn(B, Hq, hd, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=card).expand(B, S)
+    k_pos = torch.where(pos <= fill, pos, -1).contiguous()
+    if ring:
+        perm = torch.randperm(S, generator=g, device=card)
+        k, v, k_pos = k[:, :, perm], v[:, :, perm], k_pos[:, perm].contiguous()
+    q_pos = torch.full((B,), fill, dtype=torch.int32, device=card)
+    n = build.KERNELS["decode_attention"].launches
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos, window=window)
+    assert build.KERNELS["decode_attention"].launches == n + 1
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_matches_moe_ref_on_card(card):
+    """qwen3's MoE block (128 experts, top 8, D 2048, F 768): the sorted
+    dispatch against the dense oracle on the same input, with the same
+    routing; y within two bf16 ulps (rtol 1.6e-2) above a floor of 4e-3 of
+    its scale, since the two run each expert's matmuls as GEMMs of other
+    shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    from repro_torch.models.blocks import init_moe_params
+    cfg = get_config("qwen3-moe-30b-a3b")
+    g = torch.Generator(device=card).manual_seed(0)
+    moe = init_moe_params(cfg, generator=g, device=card)
+    x = torch.randn(2, 256, cfg.d_model, generator=g, device=card).to(
+        torch.bfloat16)
+    args = (x, moe.router, moe.w_gate, moe.w_up, moe.w_down)
+    klog, plog = ffn.RouteLog(), ffn.RouteLog()
+    y, lb, z = ffn.moe_dispatch(*args, cfg=cfg, log=klog)
+    y_ref, lb_ref, z_ref = ffn.moe_ref(*args, cfg=cfg, log=plog)
+    assert torch.equal(klog.calls[0][0], plog.calls[0][0])
+    _close_to_scale(y, y_ref, 4e-3, 1.6e-2)
+    torch.testing.assert_close(lb, lb_ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_takes_model_views(card, dtype):
@@ -314,7 +397,7 @@ def test_decode_kernel_on_an_empty_cache_is_zero(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 128, 256])
 def test_attention_kernels_refuse_an_unbuilt_head_dim(card, hd):
-    """f32 is built at hd 64 only (256 is bf16's)."""
+    """f32 is built at hd 64 only (128 and 256 are bf16's)."""
     q = torch.zeros(1, 3, 8, hd, device=card)
     k = torch.zeros(1, 1, 8, hd, device=card)
     with pytest.raises(ValueError, match="head dim"):

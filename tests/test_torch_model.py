@@ -33,7 +33,6 @@ from repro_torch.models.api import build
 from repro_torch.models.attention import (attention, cache_positions_full,
                                           cache_positions_ring)
 from repro_torch.models.blocks import ShardCtx
-from repro_torch.models.config import MoEConfig
 from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.weights import from_jax_params
 
@@ -152,11 +151,13 @@ def test_random_init_is_seeded():
 
 
 def test_unported_family_raises():
+    """The enc-dec family and a frontend (the VLM) are not ported yet."""
     cfg = get_smoke_config("repro-100m")
-    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
-        n_experts=4, top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError):
-        build(moe).init(0, device="cpu")
+    encdec = dataclasses.replace(cfg, family="encdec", enc_layers=2)
+    vlm = dataclasses.replace(cfg, family="vlm", frontend="patch")
+    for unported in (encdec, vlm):
+        with pytest.raises(NotImplementedError):
+            build(unported).init(0, device="cpu")
 
 
 def test_primitives_match_reference():
