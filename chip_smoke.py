@@ -84,6 +84,30 @@ Phases, one JSON line each:
    checked as in 8 (logits at the noise floor, codes bit-exact, both
    hexdigests, decoding from the restored state, shared K/V bytes).
 
+10a. ``llava`` (llava-next-mistral-7b): the kernels at the phase's
+   shapes (flash B4 Hq32 Hkv8 S1088 hd 128, causal, over the 576 stub
+   patch positions and the 512-token prompt; decode against the 1121-slot
+   cache; the digest of one KV item), then ``Server`` at full width (32
+   layers, d_model 4096, 7.27 B parameters, nothing cut) serves 4 requests
+   of 576 stub patch embeddings and 512 tokens for 32 tokens: flash once
+   per layer per prefill, decode once per layer per step; logits against
+   the plain path as in 5, and the prefill's 64 KV items staged under
+   the accel digest as in 4.
+10b. ``seamless`` (seamless-m4t-large-v2): the kernels at the phase's
+   shapes (flash B4 Hq16 Hkv16 S1024 hd 64 without the causal mask;
+   decode against the 1057-slot self cache filled to 17, and as cross
+   attention over 1024 encoder slots, every slot kept, held to the plain
+   non-causal attention; the digest of one cross K item), then ``Server``
+   at full width (24 + 24 layers, d_model 1024, 2.04 B parameters)
+   serves 4 requests of 1024 stub frames for 32 tokens: flash once per
+   encoder layer per prefill, decode twice per decoder layer per step
+   (self and cross; the prefill decodes the first decoder token, as the
+   reference does); the encoder states and the logits against the plain
+   path, and the 48 cross K/V items staged under the accel digest.  Then
+   one ``check`` of ``error_feedback_step`` on a gradient list shaped as
+   smollm-360m's parameters, through the quantize and dequantize kernels,
+   against its plain version on the card, bit for bit over two steps.
+
 11. ``train`` (smollm-360m): ``Trainer(get_config("smollm-360m"),
    device="cuda")`` (full width, 32 layers, ``remat="full"``, random weights
    from a seed) trains 8 steps of 8 x 512 tokens from ``InputPipeline`` on
@@ -147,13 +171,13 @@ Phases, one JSON line each:
    by layer); and the prefill's 96 KV items staged under the accel
    digest, as in 4.
 
-The launch counts are set to 0 just before each path (the five ``serve``
+The launch counts are set to 0 just before each path (the seven ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
 ``resume``, ``fleet``, ``codesign``) and read just after; every kernel a serving path or the
 fleet runs must have run there, and none may run in ``train``.  Then the
 kernels line (launches summed over the paths, each kernel's record at
-the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2 and
-qwen3_moe phases' shapes;
+the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2,
+llava, seamless and qwen3_moe phases' shapes;
 ``block_digest``, the TPU kernel's per-row function, is checked in phase 3
 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
@@ -202,6 +226,14 @@ ZAMBA_BATCH, ZAMBA_PROMPT = 2, 4608
 #: qwen3-moe-30b-a3b: batch and prompt (a whole number of flash's 128-row
 #: tiles), a 545-slot cache
 QWEN_BATCH, QWEN_PROMPT = 4, 512
+#: llava-next-mistral-7b: batch and text prompt; the prefill runs the 576
+#: stub patch positions and the prompt, 1088 in all, into a 1121-slot cache
+LLAVA_BATCH, LLAVA_PROMPT = 4, 512
+#: seamless-m4t-large-v2: batch and stub frames per request (the encoder's
+#: length); the decoder prompt has as many tokens, of which the prefill
+#: reads the first, and the self cache frames + gen + 1 slots, as the CLI
+#: draws and sizes them
+SEAMLESS_BATCH, SEAMLESS_FRAMES = 4, 1024
 
 # kernel against plain version on the card, both rounding an f32 result to
 # the output dtype once: f32 sums in another order, bf16 about one ulp of
@@ -365,7 +397,8 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True):
+def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True,
+                causal=True):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import torch.nn.functional as F
@@ -373,45 +406,54 @@ def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True):
     q = torch.randn(B, Hq, S, hd, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
-    out = flash_attention_bhsd(q, k, v, causal=True, window=window)
-    expect = ref.attention_ref(q, k, v, causal=True, window=window)
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    expect = ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = (out.float() - expect.float()).abs().max().item()
     tol = TOL[str(dtype).replace("torch.", "")]
     ok = bool(torch.allclose(out.float(), expect.float(), **tol))
-    kernel = lambda: flash_attention_bhsd(q, k, v, causal=True, window=window)
+    kernel = lambda: flash_attention_bhsd(q, k, v, causal=causal,
+                                          window=window)
     ms, per_call = device_ms(kernel), call_ms(kernel)
-    plain_ms = device_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+    plain_ms = device_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
                                                    window=window), iters=5)
     lib_ms = None
     if library:
         if window:
             i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            mask = i[None, :] > i[:, None] - window
+            if causal:
+                mask &= i[None, :] <= i[:, None]
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True)
         else:
             lib = lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
         lib_ms = device_ms(lib)
     esize = q.element_size()
     nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd) * esize
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    pairs = sum((i + 1 if causal else S) - (max(0, i - window + 1)
+                                            if window else 0)
+                for i in range(S))
     ops = 4.0 * hd * B * Hq * pairs
     bms, by = bound_ms(nbytes, ops, PEAK_BF16 if dtype == torch.bfloat16
                        else PEAK_F32)
     return emit("check", kernel="flash_attention",
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd), window=window,
+                causal=causal,
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ok=ok, ms=ms, call_ms=per_call, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
 def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
-                 wrapped=False):
+                 wrapped=False, cross=False):
     """``ring`` permutes the slots; ``wrapped`` fills every slot as a ring
     cache does after step ``fill`` (slot j holds the last position p <=
-    fill with p % S == j)."""
+    fill with p % S == j); ``cross`` is the enc-dec's cross attention: the
+    kernel at ``k_pos = 0..S-1`` and ``q_pos = fill = S - 1`` (every slot
+    kept), held to the plain non-causal attention of one query over the S
+    slots, which knows no positions."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_bhd,
                                                        split_plan)
@@ -430,7 +472,15 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
         k, v, k_pos = k[:, :, perm], v[:, :, perm], k_pos[:, perm].contiguous()
     q_pos = torch.full((B,), fill, dtype=torch.int32, device="cuda")
     out = decode_attention_bhd(q, k, v, k_pos, q_pos, window=window)
-    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
+    if cross:
+        if fill != S - 1 or window or ring or wrapped:
+            fail("a cross-attention check keeps every slot: fill = S - 1")
+        plain = lambda: ref.attention_ref(q[:, :, None], k, v,
+                                          causal=False)[:, :, 0]
+    else:
+        plain = lambda: ref.decode_attention_ref(q, k, v, k_pos, q_pos,
+                                                 window=window)
+    expect = plain()
     torch.cuda.synchronize()
     err = (out.float() - expect.float()).abs().max().item()
     tol = TOL[str(dtype).replace("torch.", "")]
@@ -438,8 +488,7 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
     kernel = lambda: decode_attention_bhd(q, k, v, k_pos, q_pos,
                                           window=window)
     ms, per_call = device_ms(kernel), call_ms(kernel)
-    plain_ms = device_ms(lambda: ref.decode_attention_ref(
-        q, k, v, k_pos, q_pos, window=window), iters=10)
+    plain_ms = device_ms(plain, iters=10)
     keep = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     if window:
         keep &= k_pos > q_pos[:, None] - window
@@ -456,7 +505,8 @@ def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
                        else PEAK_F32)
     return emit("check", kernel="decode_attention",
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd), fill=fill,
-                window=window, ring=ring, wrapped=wrapped, chunk=chunk,
+                window=window, ring=ring, wrapped=wrapped, cross=cross,
+                chunk=chunk,
                 n_split=n_split,
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ok=ok, ms=ms, call_ms=per_call, plain_ms=plain_ms,
@@ -773,9 +823,17 @@ def _stage_kv(torch, items, digest_bytes_per_s, copy_gbps=None):
     return received, report
 
 
-def _teacher_forced(torch, api, params, ctx, tok, forced, max_len):
+def _on_card(torch, batch) -> dict:
+    """A request's inputs on the card: its tokens and, where the model
+    takes them, its stub ``extra_embeds`` (a VLM) or ``frames`` (the
+    enc-dec)."""
+    return {n: torch.as_tensor(batch[n], device="cuda")
+            for n in ("tokens", "extra_embeds", "frames") if n in batch}
+
+
+def _teacher_forced(torch, api, params, ctx, inputs, forced, max_len):
     """Prefill logits and 4 decode steps teacher-forced with ``forced``."""
-    logits, cache = api.prefill(params, {"tokens": tok}, ctx, max_len)
+    logits, cache = api.prefill(params, inputs, ctx, max_len)
     out = [logits.float()]
     for t in range(4):
         logits, cache = api.decode_step(params, cache, forced[:, t:t + 1],
@@ -798,10 +856,10 @@ def check_logits(torch, server, batch, tokens, *, noise_floor=False) -> dict:
     import copy
     from repro_torch.models.blocks import ShardCtx
     api, params = server.api, server.params
-    tok = torch.as_tensor(batch["tokens"], device="cuda")
+    inputs = _on_card(torch, batch)
     forced = torch.as_tensor(tokens, device="cuda")
     ref_ctx = ShardCtx(impl="ref")
-    run = lambda p, ctx: _teacher_forced(torch, api, p, ctx, tok, forced,
+    run = lambda p, ctx: _teacher_forced(torch, api, p, ctx, inputs, forced,
                                          server.max_len)
     kern, plain = run(params, server.ctx), run(params, ref_ctx)
     errs = _max_err(kern, plain)
@@ -1694,12 +1752,19 @@ def main() -> int:
 
     # ---- gemma3-1b and zamba2-1.2b: serve at full width ------------------
     shapes = {}
-    for name, phase in (("gemma3", gemma3_phase), ("zamba2", zamba2_phase)):
+    for name, phase in (("gemma3", gemma3_phase), ("zamba2", zamba2_phase),
+                        ("llava", llava_phase),
+                        ("seamless", seamless_phase)):
         t_phase = time.monotonic()
         shapes[name] = phase(torch, paths, rng, records)
         records.append(emit("phase_time", of=name,
                             seconds=time.monotonic() - t_phase))
+        gc.collect()
         torch.cuda.empty_cache()
+    ef = check_error_feedback(torch, cfg)
+    records.append(ef)
+    checks_ok([ef])
+    torch.cuda.empty_cache()
 
     # ---- smollm-360m: train, checkpoint, fail, restore ------------------
     t_phase = time.monotonic()
@@ -1774,8 +1839,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
-            # the same kernel at the gemma3, zamba2 and qwen3 phases'
-            # shapes
+            # the same kernel at the later phases' shapes
             "shapes": [
                 {"of": f"{phase} {label}", **{key: r.get(key) for key in (
                     "shape", "window", "values", "bytes", "max_abs_err",
@@ -2034,6 +2098,260 @@ def zamba2_phase(torch, paths, rng, records) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the llava-next-mistral-7b and seamless-m4t-large-v2 serving phases
+# ---------------------------------------------------------------------------
+
+
+def _stage_kv_path(torch, paths, path, arch, items, kv_digest, records):
+    """Stage ``items`` (card tensors) to host memory under the accel
+    digest as :func:`_stage_kv` does, the path's launches counted from 0;
+    the record, then the hexdigest and bytes checked."""
+    from repro_torch.kernels import build
+    copy_gbps = pageable_gbps(torch, items[0])
+    build.reset_launches()
+    t0 = time.monotonic()
+    received, report = _stage_kv(torch, items, kv_digest, copy_gbps)
+    stage_s = time.monotonic() - t0
+    paths[path] = build.launch_counts()
+    total = sum(t.nbytes for t in items)
+    records.append(emit(
+        "stage_kv", arch=arch, items=len(items), item_bytes=items[0].nbytes,
+        kv_bytes=total, stage_s=stage_s, kv_gbps=total * 8 / stage_s / 1e9,
+        pageable_copy_gbps=copy_gbps, planned_digest_bytes_per_s=kv_digest,
+        digest_folds=report.checksum_folds, launches=paths[path]))
+    need(paths, path, ("digest_items",))
+    once_per_fold(paths, path, report)
+    ok = emit("correct", of=f"{path} staging", arch=arch,
+              **kv_staged_ok(items, received, report))
+    records.append(ok)
+    checked(ok, f"{path} staging", ("digest_ok", "bytes_ok"))
+
+
+def _serve_launches(torch, paths, path, server, batch):
+    """``generate`` for GEN tokens with the launch counts set to 0 just
+    before and read just after: (tokens, seconds)."""
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.monotonic()
+    tokens = server.generate(batch, GEN)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    paths[path] = build.launch_counts()
+    return tokens, gen_s
+
+
+def llava_phase(torch, paths, rng, records) -> dict:
+    """llava-next-mistral-7b at full width (32 layers, d_model 4096, 32
+    query heads over 8 KV heads, hd 128; 7.27 B parameters) serving 4
+    requests of 576 stub patch embeddings and 512 tokens for 32 tokens
+    against a full 1121-slot cache: the kernels at the phase's shapes
+    (flash over the 1088 prefill positions, decode against the cache, the
+    digest of one KV item), the path's launches, its logits against the
+    plain path (prefill and 4 teacher-forced steps), and the prefill's 64
+    KV items staged under the accel digest.  Appends every record to
+    ``records``; returns the check records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    cfg = get_config("llava-next-mistral-7b")
+    S = cfg.frontend_len + LLAVA_PROMPT
+    max_len = S + GEN + 1
+    G = dict(B=LLAVA_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(37)
+    kv = torch.randint(0, 256, (LLAVA_BATCH * max_len * cfg.kv_dim * 2,),
+                       generator=g, dtype=torch.uint8, device="cuda")
+    checks = {
+        "flash": check_flash(torch, S=S, dtype=bf16, window=0, **G),
+        "decode": check_decode(torch, S=max_len, dtype=bf16,
+                               fill=S + GEN // 2, window=0, ring=False, **G),
+        "kv_item": check_digest_items(torch, "one llava KV item", [[kv]],
+                                      [[kv]]),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv
+
+    t0 = time.monotonic()
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    batch = _prompts(torch, cfg, LLAVA_BATCH, LLAVA_PROMPT, rng)
+    batch["extra_embeds"] = torch.randn(
+        (LLAVA_BATCH, cfg.frontend_len, cfg.d_model), generator=rng).numpy()
+    timing = serve_timing(torch, server, batch, S)
+    tokens, gen_s = _serve_launches(torch, paths, "llava_serve", server,
+                                    batch)
+    records.append(_serve_record(
+        torch, server, batch, LLAVA_PROMPT, timing, gen_s,
+        paths["llava_serve"], load_s=load_s, patches=cfg.frontend_len,
+        prefill_positions=S))
+    _launches_per_layer(paths, "llava_serve", "flash_attention",
+                        cfg.n_layers)
+    _launches_per_layer(paths, "llava_serve", "decode_attention",
+                        cfg.n_layers * (GEN - 1))
+    correct = emit("correct", arch=cfg.name,
+                   **check_logits(torch, server, batch, tokens))
+    records.append(correct)
+    checked(correct, "llava serving path",
+            ("logits_ok", "tokens_ok", "greedy_ok"))
+
+    _, cache = server.prefill(batch)
+    items = [cache[name][i] for i in range(cache["k"].shape[0])
+             for name in ("k", "v")]
+    _stage_kv_path(torch, paths, "llava_stage_kv", cfg.name, items,
+                   digest_rate(checks["kv_item"]), records)
+    return checks
+
+
+def seamless_phase(torch, paths, rng, records) -> dict:
+    """seamless-m4t-large-v2 at full width (24 encoder and 24 decoder
+    layers, d_model 1024, 16 query heads over 16 KV heads, hd 64; 2.04 B
+    parameters) serving 4 requests of 1024 stub frames for 32 tokens: the
+    kernels at the phase's shapes (flash without the causal mask over the
+    1024 frames; decode against the self cache and, as cross attention,
+    over every encoder slot, held to the plain non-causal attention; the
+    digest of one cross K item), the path's launches (flash once per
+    encoder layer per prefill; decode twice per decoder layer per step,
+    the prefill's first-token step included), the encoder states and the
+    logits against the plain path, and the 48 cross K/V items staged under
+    the accel digest.  Appends every record to ``records``; returns the
+    check records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import encdec
+    from repro_torch.models.blocks import ShardCtx
+    cfg = get_config("seamless-m4t-large-v2")
+    S = SEAMLESS_FRAMES
+    max_len = S + GEN + 1
+    G = dict(B=SEAMLESS_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(41)
+    kv = torch.randint(0, 256, (SEAMLESS_BATCH * S * cfg.kv_dim * 2,),
+                       generator=g, dtype=torch.uint8, device="cuda")
+    checks = {
+        "flash_encoder": check_flash(torch, S=S, dtype=bf16, window=0,
+                                     causal=False, **G),
+        "decode_self": check_decode(torch, S=max_len, dtype=bf16,
+                                    fill=GEN // 2, window=0, ring=False, **G),
+        "decode_cross": check_decode(torch, S=S, dtype=bf16, fill=S - 1,
+                                     window=0, ring=False, cross=True, **G),
+        "kv_item": check_digest_items(torch, "one seamless cross K item",
+                                      [[kv]], [[kv]]),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv
+
+    t0 = time.monotonic()
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    batch = _prompts(torch, cfg, SEAMLESS_BATCH, S, rng)
+    batch["frames"] = torch.randn((SEAMLESS_BATCH, S, cfg.d_model),
+                                  generator=rng).numpy()
+    # the prefill leaves the self cache at position 1
+    timing = serve_timing(torch, server, batch, 1)
+    tokens, gen_s = _serve_launches(torch, paths, "seamless_serve", server,
+                                    batch)
+    records.append(_serve_record(
+        torch, server, batch, S, timing, gen_s, paths["seamless_serve"],
+        load_s=load_s, enc_layers=cfg.enc_layers, frames=S))
+    _launches_per_layer(paths, "seamless_serve", "flash_attention",
+                        cfg.enc_layers)
+    _launches_per_layer(paths, "seamless_serve", "decode_attention",
+                        2 * cfg.n_layers * GEN)
+
+    frames = torch.as_tensor(batch["frames"], device="cuda")
+    with torch.no_grad():
+        enc = encdec.encode(server.params, cfg, frames, server.ctx)
+        enc_ref = encdec.encode(server.params, cfg, frames,
+                                ShardCtx(impl="ref"))
+    enc_err = (enc.float() - enc_ref.float()).abs().max().item()
+    enc_scale = enc_ref.float().abs().max().item()
+    del enc, enc_ref
+    fields = check_logits(torch, server, batch, tokens)
+    correct = emit("correct", arch=cfg.name, encoder_max_abs_err=enc_err,
+                   encoder_scale=enc_scale,
+                   encoder_tol=LOGIT_SHARE * enc_scale,
+                   encoder_ok=enc_err <= LOGIT_SHARE * enc_scale, **fields)
+    records.append(correct)
+    checked(correct, "seamless serving path",
+            ("encoder_ok", "logits_ok", "tokens_ok", "greedy_ok"))
+
+    # the cross K/V, one item per decoder layer and tensor, computed once
+    # per request: staged as a KV cache is
+    _, cache = server.prefill(batch)
+    items = [cache[name][i] for i in range(cache["cross_k"].shape[0])
+             for name in ("cross_k", "cross_v")]
+    _stage_kv_path(torch, paths, "seamless_stage_kv", cfg.name, items,
+                   digest_rate(checks["kv_item"]), records)
+    return checks
+
+
+def check_error_feedback(torch, cfg, steps: int = 2) -> dict:
+    """``error_feedback_step`` on a gradient list shaped as ``cfg``'s
+    parameters (f32, on the card: its round trip through the quantize
+    and dequantize kernels, once per tensor each) against its plain
+    version on the card (the blockwise functions of
+    ``optim.compression``), ``steps`` steps with the residuals carried:
+    what is sent and every residual bit for bit.  Times per eager step;
+    bound: each gradient and residual read once, what is sent and the new
+    residual written once (bytes)."""
+    from repro_torch.kernels import build
+    from repro_torch.models.api import build as build_model
+    from repro_torch.optim import compression as comp
+    params = build_model(cfg).init(SEED, device="cuda")
+    shapes = [tuple(p.shape) for p in params.parameters()]
+    del params
+    g = torch.Generator(device="cuda").manual_seed(43)
+    grads = [torch.randn(s, generator=g, device="cuda") * 1e-3
+             for s in shapes]
+
+    def plain_step(gs, state):
+        sent, resid = [], []
+        for x, r in zip(gs, state.residual):
+            c = x.float() + r
+            q, sc = comp.quantize_int8_blockwise(c)
+            out = comp.dequantize_int8_blockwise(q, sc, tuple(c.shape))
+            sent.append(out)
+            resid.append(c - out)
+        return sent, comp.CompressionState(residual=resid)
+
+    kstate = comp.error_feedback_init(grads)
+    pstate = comp.error_feedback_init(grads)
+    mismatched, err = 0, 0.0
+    n0 = build.launch_counts()
+    for _ in range(steps):
+        ksent, kstate = comp.error_feedback_step(grads, kstate)
+        psent, pstate = plain_step(grads, pstate)
+        for a, b in zip(ksent + kstate.residual, psent + pstate.residual):
+            mismatched += _bits_differ(torch, a, b)
+            err = max(err, (a - b).abs().max().item())
+    n1 = build.launch_counts()
+    launches = {n: n1[n] - n0[n] for n in ("quantize_int8",
+                                           "dequantize_int8")}
+    ms = call_ms(lambda: comp.error_feedback_step(grads, kstate), iters=3,
+                 warmup=1)
+    plain_ms = call_ms(lambda: plain_step(grads, pstate), iters=3, warmup=1)
+    values = sum(math.prod(s) for s in shapes)
+    bms, by = bound_ms(4 * 4 * values, 0.0, PEAK_F32)
+    del grads, kstate, pstate, ksent, psent
+    return emit("check", of="error feedback", path="error_feedback_step",
+                plain="quantize_int8_blockwise / dequantize_int8_blockwise",
+                arch=cfg.name, tensors=len(shapes), values=values,
+                steps=steps, mismatched=mismatched, max_abs_err=err,
+                launches=launches,
+                ok=mismatched == 0 and all(
+                    c == steps * len(shapes) for c in launches.values()),
+                call_ms=ms, plain_call_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
+
+
+# ---------------------------------------------------------------------------
 # the qwen3-moe-30b-a3b serving phase
 # ---------------------------------------------------------------------------
 
@@ -2168,8 +2486,8 @@ def check_moe_logits(torch, server, batch, tokens) -> dict:
     api, params, cfg = server.api, server.params, server.cfg
     tok = torch.as_tensor(batch["tokens"], device="cuda")
     forced = torch.as_tensor(tokens, device="cuda")
-    run = lambda ctx: _teacher_forced(torch, api, params, ctx, tok, forced,
-                                      server.max_len)
+    run = lambda ctx: _teacher_forced(torch, api, params, ctx, {"tokens": tok},
+                                      forced, server.max_len)
     klog, plog = ffn.RouteLog(), ffn.RouteLog()
     kern = run(dataclasses.replace(server.ctx, routes=klog))
     plain = run(ShardCtx(impl="ref", routes=plog))

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
 The architectures this package serves (the dense decoders, gemma3's
-local:global one included, qwen3's MoE, the Mamba2 SSM stack and zamba2's
-hybrid), each a copy of the JAX package's module of the same name (exact
+local:global one included, qwen3's MoE, the Mamba2 SSM stack, zamba2's
+hybrid, llava-next's VLM and seamless-m4t's encoder-decoder), each a copy of the JAX package's module of the same name (exact
 published dims).
 ``get_smoke_config`` returns the reduced same-family variant used by CPU
 smoke tests.
@@ -22,6 +22,8 @@ _REGISTRY: dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
     "zamba2-1.2b": "zamba2_1_2b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

@@ -233,15 +233,17 @@ class _DrainerPool:
             raise RuntimeError(f"client sink {bid!r} failed:\n{tb}")
 
 
-def _aborting(sink: Callable[[Any], None],
-              pipeline: StagePipeline) -> Callable[[Any], None]:
+def _aborting(sink: Callable[..., Any],
+              pipeline: StagePipeline | ParallelBranchPipeline
+              ) -> Callable[..., Any]:
     """``sink`` that aborts ``pipeline`` when it raises: the stage workers
-    then end instead of blocking for good on buffers nobody drains, each
-    still holding the source's items.  (The JAX package's mover leaves
-    them blocked.)"""
-    def deliver(item: Any) -> None:
+    (and a parallel transfer's dispatcher and merge drains) then end
+    instead of blocking for good on buffers nobody drains, each still
+    holding the source's items.  (The JAX package's mover leaves them
+    blocked.)"""
+    def deliver(*args: Any) -> Any:
         try:
-            sink(item)
+            return sink(*args)
         except BaseException:
             pipeline.abort()
             raise
@@ -1316,6 +1318,7 @@ class UnifiedDataMover:
         # once per branch
         step = chunk * (len(order) if mode == "mirror" else 1)
         boundary = step
+        deliver = _aborting(deliver, pbp)
         for bid, item in _drain_batched(pbp.output):
             seen += 1
             _absorb_deaths()
@@ -1481,8 +1484,9 @@ class UnifiedDataMover:
             t_seg0 = self._clock()
             pbp.start()
             dispatch.start()
+            deliver_seg = _aborting(deliver, pbp)
             for bid, item in _drain_batched(pbp.output):
-                if deliver(bid, item):
+                if deliver_seg(bid, item):
                     items += 1
                     nbytes += _default_sizeof(item)
             dispatch.join()

@@ -1217,6 +1217,21 @@ class ParallelBranchPipeline:
         """The merge buffer; yields ``(branch_id, item)`` pairs."""
         return self.merge
 
+    def abort(self) -> None:
+        """Stop every thread of the transfer when its consumer stops
+        reading the merge (its sink raised): the merge closes, so a drain
+        blocked in ``merge.put`` ends; every branch feed closes, so the
+        dispatcher's next put reads end of stream; and each branch
+        pipeline aborts, so its stage workers unblock.  (The JAX
+        package's copy has no abort: there they stay blocked.)"""
+        self.merge.close()
+        for up in self._upstreams.values():
+            up.close()
+        if self._shared_upstream is not None:
+            self._shared_upstream.close()
+        for _, pipe in self.branches:
+            pipe.abort()
+
     def dead_branches(self) -> set[str]:
         """Branch ids that died (a stage exhausted its retry budget) —
         the dispatcher-side failover signal."""

@@ -18,6 +18,7 @@ import torch
 from .decode_attention import decode_attention_bhd
 from .digest import block_digest
 from .flash_attention import flash_attention_bhsd
+from .quantize import BLOCK as QUANT_BLOCK
 from .quantize import dequantize_int8, quantize_int8
 from .ssd_scan import ssd_scan_bhsd
 

@@ -20,18 +20,29 @@ no-drop sorted dispatch (``ffn.moe_dispatch``: one host sync per layer for
 the expert counts); an SSM model (mamba2-1.3b) prefills through the
 SSD-scan kernel and decodes with the plain recurrent step; the hybrid
 (zamba2-1.2b) does both, its shared attention block decoding against a
-ring cache (``ShardCtx(impl="cuda")``).  An SSM or hybrid prompt must be
-a whole number of SSD chunks long, as the reference asks: another length
-raises, it is not padded.  All CUDA work is issued on the device's
-current stream; the decode steps run on the mover's producer thread, and
-each step's ``.cpu()`` copy of the new tokens is its device sync (the
-MoE's adds one per layer) — the host copy that is the stream's item.
+ring cache (``ShardCtx(impl="cuda")``).  The VLM (llava-next) is the dense
+path with its stub patch embeddings (``extra_embeds``) projected and
+prepended to the prompt; the encoder-decoder (seamless-m4t) encodes its
+stub ``frames`` through the flash kernel without the causal mask, computes
+every decoder layer's cross K/V once, and decodes through the decode kernel
+against its self cache and, as cross attention, over every encoder slot.
+Its prefill decodes only the first decoder token, as the reference's does.
+An SSM or hybrid prompt must be a whole number of SSD chunks long, as the
+reference asks: another length raises, it is not padded.  All CUDA work is
+issued on the device's current stream; the decode steps run on the mover's
+producer thread, and each step's ``.cpu()`` copy of the new tokens is its
+device sync (the MoE's adds one per layer) — the host copy that is the
+stream's item.
 
 Usage:
   python -m repro_torch.launch.serve --arch smollm-360m          # on the card
   python -m repro_torch.launch.serve --arch mamba2-1.3b          # on the card
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --prompt-len 512                                            # on the card
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b \\
+      --prompt-len 512                                            # on the card
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --prompt-len 1024                                           # on the card
   python -m repro_torch.launch.serve --arch smollm-360m --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
@@ -42,6 +53,16 @@ Usage:
       --device cpu --prompt-len 48 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b --smoke \\
+      --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke \\
+      --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+
+The CLI draws the stub inputs as the reference's does: ``frames`` of
+``--prompt-len`` frames for the encoder-decoder, ``frontend_len`` patch
+embeddings for the VLM.  A VLM's cache holds ``frontend_len + prompt + gen
++ 1`` slots (the reference sizes it without the patch positions and
+raises in prefill).
 """
 
 from __future__ import annotations
@@ -80,14 +101,20 @@ CLIENT_LIMITED_STALL = 0.1
 #: 80GB HBM3 at its 700.00 W power limit (PERF.md section 5): smollm-360m
 #: and mamba2-1.3b at batch 4, gemma3-1b at batch 4 (1057-slot cache),
 #: zamba2-1.2b at batch 2 (4096-slot rings) and qwen3-moe-30b-a3b at batch
-#: 4 (545-slot cache), the serving cells' batches
+#: 4 (545-slot cache), llava-next-mistral-7b at batch 4 (1121-slot cache)
+#: and seamless-m4t-large-v2 at batch 4 (1024 encoder slots), the serving
+#: cells' batches
 H100_DECODE_STEP_MS = {"smollm-360m": 36.27, "mamba2-1.3b": 81.19,
                        "gemma3-1b": 27.27, "zamba2-1.2b": 61.09,
-                       "qwen3-moe-30b-a3b": 253.49}
+                       "qwen3-moe-30b-a3b": 253.49,
+                       "llava-next-mistral-7b": 37.72,
+                       "seamless-m4t-large-v2": 42.39}
 
 #: the served config whose step prices a config without an entry, by family
 FAMILY_STAND_IN = {"dense": "smollm-360m", "moe": "qwen3-moe-30b-a3b",
-                   "ssm": "mamba2-1.3b", "hybrid": "zamba2-1.2b"}
+                   "ssm": "mamba2-1.3b", "hybrid": "zamba2-1.2b",
+                   "vlm": "llava-next-mistral-7b",
+                   "encdec": "seamless-m4t-large-v2"}
 
 #: how many recent decode steps the step-time estimate averages over
 STEP_MS_WINDOW = 32
@@ -180,17 +207,25 @@ class Server:
             kw["client_gbps"] = drain
         return decode_fanout_basin(n_clients, **kw)
 
-    def _tokens(self, batch: dict) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch["tokens"]),
-                               dtype=torch.int32).to(self.device)
+    def _on_device(self, a, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        return t.to(self.device, dtype)
 
     def prefill(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """(last-token logits (B, 1, V), decode cache) for a prompt batch
-        of numpy or torch tokens (B, S)."""
+        of numpy or torch tokens (B, S) and, for a VLM, its stub patch
+        embeddings ``extra_embeds`` (B, frontend_len, D), for the
+        encoder-decoder its stub ``frames`` (B, S_enc, D)."""
         if self.params is None:
             raise RuntimeError("Server.load() first")
-        return self.api.prefill(self.params, {"tokens": self._tokens(batch)},
-                                self.ctx, max_len=self.max_len)
+        inputs = {"tokens": self._on_device(batch["tokens"], torch.int32)}
+        for key in ("extra_embeds", "frames"):
+            if batch.get(key) is not None:
+                inputs[key] = self._on_device(batch[key])
+        return self.api.prefill(self.params, inputs, self.ctx,
+                                max_len=self.max_len)
 
     def decode(self, cache: dict, tok: torch.Tensor
                ) -> tuple[torch.Tensor, dict]:
@@ -293,13 +328,21 @@ def main(argv: Optional[list[str]] = None) -> None:
     if prompt_len is None:
         chunk = cfg.ssm.chunk if cfg.family in ("ssm", "hybrid") else 1
         prompt_len = -(-128 // chunk) * chunk
+    # a VLM's prefill holds its patch positions before the prompt
+    patches = cfg.frontend_len if cfg.family == "vlm" else 0
     server = Server(cfg, device=args.device,
-                    max_len=prompt_len + args.gen + 1)
+                    max_len=patches + prompt_len + args.gen + 1)
     server.load(args.seed)
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab,
                                     (args.batch, prompt_len),
                                     dtype=np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (args.batch, prompt_len, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend:
+        batch["extra_embeds"] = rng.standard_normal(
+            (args.batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
 
     t0 = time.monotonic()
     tokens = server.generate(batch, args.gen)

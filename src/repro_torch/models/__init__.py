@@ -1,5 +1,6 @@
-"""Model zoo (PyTorch): the dense decoder of the JAX package's model zoo,
-layer loop over an ``nn.ModuleList``, attention through the hand-written
+"""Model zoo (PyTorch): the JAX package's decoders (dense, VLM, MoE, SSM,
+hybrid) and its encoder-decoder, each layer stack an ``nn.ModuleList``
+walked by a loop, attention and the SSD scan through the hand-written
 kernels."""
 
 from .api import ModelApi, build

@@ -1,0 +1,280 @@
+"""Encoder-decoder backbone (seamless-m4t style, speech frontend stubbed).
+
+The speech encoder takes precomputed frame embeddings (the modality
+frontend is a stub): they are cast to bf16 and pass through ``frame_proj``,
+then ``enc_layers`` pre-norm layers of non-causal self attention and a
+SwiGLU.  The text decoder attends causally to itself and to the whole
+encoder output (cross attention, no RoPE).  At serve time every decoder
+layer's cross K/V is computed once per request (:func:`cross_kv`, the
+"bulk" staging of the cross operands) and decode steps only write the self
+cache.
+
+The JAX package scans one layer body over layer-stacked parameters; here
+each stack is an ``nn.ModuleList`` walked by a Python loop, as in
+:mod:`repro_torch.models.lm`.  Under ``impl="cuda"`` the encoder's self
+attention runs the flash kernel without the causal mask and the decoder's
+self attention the causal one; a decode step runs the decode kernel twice
+a layer: against the self cache, and as cross attention over every
+encoder slot (the kernel keeps slot j when ``k_pos[j] <= q_pos``, so the
+cross call passes ``k_pos = 0..S_enc-1`` and ``q_pos = S_enc - 1``: every
+slot kept, the non-causal attention of the JAX package).  The training
+forward's cross attention (query and key lengths differ) runs the plain
+path, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from . import ffn as ffn_lib
+from .attention import attention, cache_positions_full
+from .blocks import (AttnParams, DenseLayer, MlpParams, ShardCtx, _param,
+                     init_attn_params, init_dense_layer, init_mlp_params)
+from .common import (apply_rope, cross_entropy_loss, dense_init, embed_init,
+                     rms_norm, rope_angles)
+from .config import ModelConfig
+from .lm import _decode_attn_block, _remat
+
+
+class DecLayer(nn.Module):
+    """A decoder layer: self attention ``attn``, cross attention ``cross``,
+    the SwiGLU ``mlp`` and their pre-norm scales ``ln1``, ``ln2``, ``ln3``."""
+
+    def __init__(self, attn: AttnParams, cross: AttnParams, mlp: MlpParams,
+                 ln1, ln2, ln3):
+        super().__init__()
+        self.attn = attn
+        self.cross = cross
+        self.mlp = mlp
+        self.ln1 = _param(ln1)
+        self.ln2 = _param(ln2)
+        self.ln3 = _param(ln3)
+
+
+class EncDec(nn.Module):
+    """Parameters of the encoder-decoder, named as the JAX package's tree:
+    ``embed``, ``enc_layers`` (``DenseLayer``: attn, mlp, ln1, ln2),
+    ``dec_layers`` (``DecLayer``), ``enc_norm``, ``final_norm``,
+    ``lm_head`` and the frontend stub's adapter ``frame_proj``."""
+
+    def __init__(self, embed: torch.Tensor, enc_layers: list[DenseLayer],
+                 dec_layers: list[DecLayer], enc_norm: torch.Tensor,
+                 final_norm: torch.Tensor, lm_head: torch.Tensor,
+                 frame_proj: torch.Tensor):
+        super().__init__()
+        self.embed = _param(embed)
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.dec_layers = nn.ModuleList(dec_layers)
+        self.enc_norm = _param(enc_norm)
+        self.final_norm = _param(final_norm)
+        self.lm_head = _param(lm_head)
+        self.frame_proj = _param(frame_proj)
+
+
+def init_encdec(cfg: ModelConfig, *, generator: torch.Generator,
+                device: torch.device | str,
+                trainable: bool = False) -> EncDec:
+    """Random parameters drawn on ``device`` from ``generator``; with
+    ``trainable`` they require gradients."""
+    cfg.validate()
+    D, V = cfg.d_model, cfg.vocab
+    kw = dict(generator=generator, device=device)
+    zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=device)
+    enc = [init_dense_layer(cfg, **kw) for _ in range(cfg.enc_layers)]
+    dec = [DecLayer(init_attn_params(cfg, **kw), init_attn_params(cfg, **kw),
+                    init_mlp_params(cfg, **kw), zeros(), zeros(), zeros())
+           for _ in range(cfg.n_layers)]
+    return EncDec(embed_init((V, D), **kw), enc, dec, zeros(), zeros(),
+                  dense_init((D, V), D, **kw),
+                  dense_init((D, D), D, **kw)).requires_grad_(trainable)
+
+
+def _proj_qkv(h: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+              positions: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Self attention's q, k, v, RoPE at ``positions`` on q and k."""
+    B, S, _ = h.shape
+    q = (h @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = (h @ p.wk).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (h @ p.wv).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _enc_layer(h, lp: DenseLayer, cfg, ctx, positions):
+    B, S, _ = h.shape
+    q, k, v = _proj_qkv(rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg,
+                        positions)
+    out = attention(q, k, v, q_pos=positions, k_pos=positions, causal=False,
+                    impl=ctx.impl)
+    h = h + out.reshape(B, S, cfg.q_dim) @ lp.attn.wo
+    h2 = rms_norm(h, lp.ln2, cfg.norm_eps)
+    return h + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+
+
+def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
+           ctx: ShardCtx) -> torch.Tensor:
+    """frames: (B, S_enc, D) stub embeddings -> encoder states (B, S_enc,
+    D) bf16."""
+    x = frames.to(torch.bfloat16) @ params.frame_proj
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    body = _remat(_enc_layer, cfg.remat)
+    for lp in params.enc_layers:
+        x = body(x, lp, cfg, ctx, positions)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _dec_layer(h, lp: DecLayer, cfg, ctx, positions, enc_out, enc_positions):
+    B, S, _ = h.shape
+    S_enc = enc_out.shape[1]
+    q, k, v = _proj_qkv(rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg,
+                        positions)
+    out = attention(q, k, v, q_pos=positions, k_pos=positions, causal=True,
+                    impl=ctx.impl)
+    h = h + out.reshape(B, S, cfg.q_dim) @ lp.attn.wo
+    # cross attention (no RoPE: the encoder memory is position-agnostic);
+    # query and key lengths differ, so it takes the plain path
+    hc = rms_norm(h, lp.ln2, cfg.norm_eps)
+    qc = (hc @ lp.cross.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    kc = (enc_out @ lp.cross.wk).reshape(B, S_enc, cfg.n_kv_heads, cfg.hd)
+    vc = (enc_out @ lp.cross.wv).reshape(B, S_enc, cfg.n_kv_heads, cfg.hd)
+    out = attention(qc, kc, vc, q_pos=positions, k_pos=enc_positions,
+                    causal=False, impl="ref")
+    h = h + out.reshape(B, S, cfg.q_dim) @ lp.cross.wo
+    h2 = rms_norm(h, lp.ln3, cfg.norm_eps)
+    return h + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+
+
+def _decoder_stack(params: EncDec, cfg: ModelConfig, x: torch.Tensor,
+                   enc_out: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    enc_positions = torch.arange(enc_out.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    body = _remat(_dec_layer, cfg.remat)
+    for lp in params.dec_layers:
+        x = body(x, lp, cfg, ctx, positions, enc_out, enc_positions)
+    return x
+
+
+def forward_encdec(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
+                   dec_tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """Teacher-forced forward: (B, S_dec, V) logits."""
+    enc_out = encode(params, cfg, frames, ctx)
+    x = params.embed[dec_tokens.long()]
+    x = _decoder_stack(params, cfg, x, enc_out, ctx)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x @ params.lm_head
+
+
+def encdec_loss(params: EncDec, cfg: ModelConfig, batch: dict,
+                ctx: ShardCtx) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross entropy of ``labels`` given ``frames`` and the
+    decoder's ``tokens``, and the aux dict ``{"ce": ce}``."""
+    logits = forward_encdec(params, cfg, batch["frames"], batch["tokens"],
+                            ctx)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return ce, {"ce": ce}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def cross_kv(params: EncDec, cfg: ModelConfig, enc_out: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K/V from the encoder states, computed
+    once per request: (L, B, S_enc, Hkv, hd) bf16 x 2."""
+    B, S_enc, _ = enc_out.shape
+    shape = (cfg.n_layers, B, S_enc, cfg.n_kv_heads, cfg.hd)
+    kc = torch.empty(shape, dtype=torch.bfloat16, device=enc_out.device)
+    vc = torch.empty_like(kc)
+    for i, lp in enumerate(params.dec_layers):
+        kc[i] = (enc_out @ lp.cross.wk).reshape(shape[1:])
+        vc[i] = (enc_out @ lp.cross.wv).reshape(shape[1:])
+    return kc, vc
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      enc_len: int, ctx: Optional[ShardCtx] = None, *,
+                      device: torch.device | str) -> dict:
+    """Decode cache: the self K/V (L, B, max_len, Hkv, hd) bf16, the cross
+    K/V (L, B, enc_len, Hkv, hd) bf16 and the host-side clock ``pos``."""
+    L = cfg.n_layers
+    kv = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    ckv = (L, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+    zeros = lambda shape: torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device)
+    return {"pos": 0, "k": zeros(kv), "v": zeros(kv),
+            "cross_k": zeros(ckv), "cross_v": zeros(ckv)}
+
+
+def _cross_decode(h: torch.Tensor, lp: DecLayer, cfg: ModelConfig,
+                  ctx: ShardCtx, ck: torch.Tensor, cv: torch.Tensor,
+                  q_pos: torch.Tensor, enc_positions: torch.Tensor
+                  ) -> torch.Tensor:
+    """One decoder token's cross attention over every encoder slot."""
+    B = h.shape[0]
+    hc = rms_norm(h, lp.ln2, cfg.norm_eps)
+    qc = (hc @ lp.cross.wq).reshape(B, 1, cfg.n_heads, cfg.hd)
+    if ctx.impl == "cuda":
+        from repro_torch.kernels import ops as kops
+        # the kernel keeps k_pos <= q_pos: a query at the last encoder
+        # position keeps every slot, the non-causal mask
+        out = kops.decode_attention(qc, ck, cv, enc_positions,
+                                    enc_positions[-1:], window=0)
+    else:
+        out = attention(qc, ck, cv, q_pos=q_pos, k_pos=enc_positions,
+                        causal=False, impl="ref")
+    return h + out.reshape(B, 1, cfg.q_dim) @ lp.cross.wo
+
+
+@torch.no_grad()
+def encdec_decode_step(params: EncDec, cfg: ModelConfig, cache: dict,
+                       tokens: torch.Tensor, ctx: ShardCtx
+                       ) -> tuple[torch.Tensor, dict]:
+    """One decoder token per sequence against the self cache (written in
+    place) and the precomputed cross K/V.  tokens: (B, 1).  Returns
+    (logits (B, 1, V), cache) with its clock advanced."""
+    pos = cache["pos"]
+    s_self = cache["k"].shape[2]
+    if pos >= s_self:
+        raise ValueError(f"decode position {pos} is past the cache "
+                         f"({s_self} slots)")
+    x = params.embed[tokens.long()]
+    dev = x.device
+    q_pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    k_pos = cache_positions_full(s_self, pos, dev)
+    enc_positions = torch.arange(cache["cross_k"].shape[2],
+                                 dtype=torch.int32, device=dev)
+    angles = rope_angles(q_pos, cfg.hd, cfg.rope_theta)
+    for i, lp in enumerate(params.dec_layers):
+        x, _, _ = _decode_attn_block(x, lp, cfg, ctx, cache["k"][i],
+                                     cache["v"][i], pos, 0, 0, q_pos, k_pos,
+                                     angles)
+        x = _cross_decode(x, lp, cfg, ctx, cache["cross_k"][i],
+                          cache["cross_v"][i], q_pos, enc_positions)
+        h2 = rms_norm(x, lp.ln3, cfg.norm_eps)
+        x = x + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+    cache["pos"] = pos + 1
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x @ params.lm_head, cache
+
+
+@torch.no_grad()
+def prefill_encdec(params: EncDec, cfg: ModelConfig, batch: dict,
+                   ctx: ShardCtx, max_len: int) -> tuple[torch.Tensor, dict]:
+    """The JAX package's enc-dec prefill: encode ``frames``, precompute the
+    cross K/V, and decode the first decoder token ``tokens[:, :1]`` (the
+    rest of the decoder prompt is not read, as there).  Returns (logits
+    (B, 1, V), cache at position 1)."""
+    enc_out = encode(params, cfg, batch["frames"], ctx)
+    cache = init_encdec_cache(cfg, enc_out.shape[0], max_len, 0, ctx,
+                              device=enc_out.device)
+    cache["cross_k"], cache["cross_v"] = cross_kv(params, cfg, enc_out)
+    return encdec_decode_step(params, cfg, cache, batch["tokens"][:, :1],
+                              ctx)

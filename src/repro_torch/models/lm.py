@@ -1,10 +1,16 @@
-"""Decoder-only language models, dense, MoE, SSM and hybrid families: the
-training forward and loss, prefill and cached decode.
+"""Decoder-only language models, dense, VLM, MoE, SSM and hybrid families:
+the training forward and loss, prefill and cached decode.
 
 The JAX package scans one layer body over layer-stacked parameters
 (``jax.lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
 Python loop, and each layer's attention window is a Python int
 (``ModelConfig.layer_windows``), so the kernels see it as a constant.
+
+The VLM (llava-next) is the dense decoder with a stubbed vision frontend:
+``cfg.frontend_len`` precomputed patch embeddings (``extra_embeds``) pass
+through a two-layer projector (``w1``, tanh-approximated GELU in f32,
+``w2``) and are prepended to the text embeddings; the loss scores only the
+text tail.
 
 The dense and MoE decode cache holds the K/V of every layer stacked as
 (L, B, S_cache, Hkv, hd) bf16, the SSM cache a ``MambaState`` of the conv
@@ -49,34 +55,47 @@ from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
                      rope_angles, rotate)
 from .config import ModelConfig
 
-#: families this package runs; the others are queued in ROADMAP.md
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: families this module runs (the enc-dec family is ``models/encdec.py``)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+
+
+class Projector(nn.Module):
+    """The VLM frontend's two-layer projector, ``w1`` and ``w2`` (D, D)."""
+
+    def __init__(self, w1: torch.Tensor, w2: torch.Tensor):
+        super().__init__()
+        self.w1 = _param(w1)
+        self.w2 = _param(w2)
 
 
 class LM(nn.Module):
     """Parameters of a decoder: embedding, layers (``DenseLayer``,
-    ``MoeLayer`` or ``MambaLayer``), final norm, (unless tied) the LM head
-    and, for the hybrid, the one shared attention block ``shared_attn``."""
+    ``MoeLayer`` or ``MambaLayer``), final norm, (unless tied) the LM head,
+    for the hybrid the one shared attention block ``shared_attn`` and, for
+    a config with a frontend (the VLM), its ``projector``."""
 
     def __init__(self, embed: torch.Tensor,
                  layers: list[DenseLayer] | list[MoeLayer]
                  | list[MambaLayer],
                  final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None,
-                 shared_attn: Optional[DenseLayer] = None):
+                 shared_attn: Optional[DenseLayer] = None,
+                 projector: Optional[Projector] = None):
         super().__init__()
         self.embed = _param(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _param(final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
         self.shared_attn = shared_attn
+        self.projector = projector
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.frontend:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ported: {PORTED_FAMILIES}, without a frontend)")
+            f"{cfg.name}: family {cfg.family!r} is not a decoder of this "
+            f"module (it runs {PORTED_FAMILIES}; the enc-dec family is "
+            f"models/encdec.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -93,15 +112,18 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
     embed = embed_init((V, D), **kw)
-    init_layer = {"dense": init_dense_layer, "moe": init_moe_layer,
-                  "ssm": init_mamba_layer,
+    init_layer = {"dense": init_dense_layer, "vlm": init_dense_layer,
+                  "moe": init_moe_layer, "ssm": init_mamba_layer,
                   "hybrid": init_mamba_layer}[cfg.family]
     layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
     shared = init_dense_layer(cfg, **kw) if cfg.family == "hybrid" else None
+    projector = (Projector(dense_init((D, D), D, **kw),
+                           dense_init((D, D), D, **kw))
+                 if cfg.frontend else None)
     final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
     lm_head = None if cfg.tie_embeddings else dense_init((D, V), D, **kw)
-    return LM(embed, layers, final_norm, lm_head,
-              shared).requires_grad_(trainable)
+    return LM(embed, layers, final_norm, lm_head, shared,
+              projector).requires_grad_(trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +131,22 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params: LM, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()]
+def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                  extra_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Token embeddings; for a config with a frontend, the projected
+    ``extra_embeds`` (B, frontend_len, D) before them."""
+    x = params.embed[tokens.long()]
+    if cfg.frontend:
+        if extra_embeds is None:
+            raise ValueError(f"{cfg.name} has a {cfg.frontend!r} frontend: "
+                             "pass its stub embeddings as extra_embeds")
+        fe = extra_embeds.to(x.dtype)
+        h = fe @ params.projector.w1
+        h = torch.nn.functional.gelu(h.float(), approximate="tanh")
+        h = h.to(x.dtype)
+        x = torch.cat([h @ params.projector.w2, x], dim=1)
+    return x
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -174,13 +209,14 @@ def _mamba_layer(x, lp, cfg, ctx, positions, window):
 
 
 def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-               ctx: ShardCtx) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
+               ctx: ShardCtx, *, extra_embeds: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), load-balance
     loss, router z-loss): for the MoE family each summed over the layers,
-    as the JAX package's scan carries them; 0 for the other families."""
+    as the JAX package's scan carries them; 0 for the other families.  A
+    VLM's S counts its ``frontend_len`` projected ``extra_embeds`` first."""
     _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -218,9 +254,14 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     """Token-mean cross entropy (z-loss included) of the batch's
     ``labels`` under the model, plus, for an MoE config,
     ``load_balance_coef * lb + router_z_coef * z``; and the aux dict of the
-    JAX package (``ce``, ``load_balance``, ``router_z``)."""
-    logits, lb, z = forward_lm(params, cfg, batch["tokens"], ctx)
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    JAX package (``ce``, ``load_balance``, ``router_z``).  A VLM's
+    frontend positions carry no labels: only the text tail is scored."""
+    logits, lb, z = forward_lm(params, cfg, batch["tokens"], ctx,
+                               extra_embeds=batch.get("extra_embeds"))
+    labels = batch["labels"]
+    if cfg.frontend:
+        logits = logits[:, -labels.shape[1]:]
+    ce = cross_entropy_loss(logits, labels, batch.get("loss_mask"))
     total = ce
     if cfg.moe:
         total = (total + cfg.moe.load_balance_coef * lb
@@ -235,13 +276,16 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
 
 @torch.no_grad()
 def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-               ctx: ShardCtx, max_len: int) -> tuple[torch.Tensor, dict]:
+               ctx: ShardCtx, max_len: int,
+               extra_embeds: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the stack, returning (last-token logits
     (B, 1, V), populated decode cache).  The serving 'bulk' phase: the
     cache is staged once, decode then streams against it.  An SSM or
     hybrid prompt must be a whole number of SSD chunks long, as the
-    reference asks."""
-    x = _embed_inputs(params, cfg, tokens)
+    reference asks.  A VLM's prompt is its ``frontend_len`` projected
+    ``extra_embeds`` and then the tokens: ``max_len`` must hold both."""
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
@@ -405,15 +449,14 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     (B, 1, V), cache) — the same cache, written in place, its clock
     advanced."""
     pos = cache["pos"]
+    x = params.embed[tokens.long()]     # a VLM's frontend is prefill's only
     if cfg.family == "ssm":
-        x = _embed_inputs(params, cfg, tokens)
         for i, lp in enumerate(params.layers):
             x = _mamba_decode(x, lp, cfg, cache["mamba"], i)
         cache["pos"] = pos + 1
         return _logits(params, cfg, x), cache
     if cfg.family == "hybrid":
-        x = _hybrid_decode(params, cfg, cache,
-                           _embed_inputs(params, cfg, tokens), ctx, pos)
+        x = _hybrid_decode(params, cfg, cache, x, ctx, pos)
         cache["pos"] = pos + 1
         return _logits(params, cfg, x), cache
     s_cache = cache["k"].shape[2]
@@ -421,7 +464,6 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     if not ring and pos >= s_cache:
         raise ValueError(f"decode position {pos} is past the cache "
                          f"({s_cache} slots)")
-    x = _embed_inputs(params, cfg, tokens)
     # the step's positions and rotary angles, built once for all layers
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     k_pos = (cache_positions_ring(ring, pos, x.device) if ring

@@ -9,7 +9,11 @@ split per layer, bf16 arrays keep their bits.  Dense trees carry
 trees the same with ``moe.{router,w_gate,w_up,w_down}`` (the router f32)
 in place of ``mlp``, SSM trees ``layers.{ln, in_proj, conv_w, conv_b,
 A_log, D, dt_bias, norm_w, out_proj}``, hybrid trees the SSM layers and
-one unstacked dense layer ``shared_attn``.
+one unstacked dense layer ``shared_attn``; a VLM's tree adds
+``projector.{w1,w2}``.  An enc-dec tree (:class:`~repro_torch.models.
+encdec.EncDec`) stacks two layer lists, ``enc_layers`` (dense layers) and
+``dec_layers`` (``attn``, ``cross``, ``mlp``, ``ln1``-``ln3``), beside
+``embed``, ``enc_norm``, ``final_norm``, ``lm_head`` and ``frame_proj``.
 
 :func:`to_jax_params` is its inverse (numpy leaves, bf16 as raw 2-byte
 values, :data:`repro_torch.tree.BF16_HOST`); :func:`jax_tree` lays any
@@ -17,8 +21,8 @@ per-parameter list (parameters, AdamW's master and moments) out as the
 JAX tree with :class:`~repro_torch.tree.Stacked` leaves, the layout of a
 checkpoint; :func:`from_jax_tree` reads such a tree back into a list in
 the parameters' order.  The port's parameter ``layers.3.attn.wq`` is
-layer 3 of the JAX leaf ``layers/attn/wq``; every other name is its own
-leaf.
+layer 3 of the JAX leaf ``layers/attn/wq`` (so are ``enc_layers.*`` and
+``dec_layers.*`` of theirs); every other name is its own leaf.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from .device import resolve_device
 from .models.blocks import (MAMBA_PARAMS, MOE_PARAMS, AttnParams, DenseLayer,
                             MambaLayer, MlpParams, MoeLayer, MoeParams)
 from .models.config import ModelConfig
-from .models.lm import LM, _check_family
+from .models.encdec import DecLayer, EncDec
+from .models.lm import LM, Projector, _check_family
 from .optim.adamw import AdamWState
 from .tree import Stacked, host_array, map_leaves
 
@@ -64,16 +69,38 @@ def _dense_layer(lay: Mapping[str, Any], dev: torch.device,
         _tensor(at(lay["ln1"]), dev), _tensor(at(lay["ln2"]), dev))
 
 
+def _attn(a: Mapping[str, Any], dev: torch.device, i: int) -> AttnParams:
+    return AttnParams(*(_tensor(a[n][i], dev)
+                        for n in ("wq", "wk", "wv", "wo")))
+
+
 def _dense_layers(lay: Mapping[str, Any], L: int,
                   dev: torch.device) -> list[DenseLayer]:
     return [_dense_layer(lay, dev, i) for i in range(L)]
 
 
+def _dec_layers(lay: Mapping[str, Any], L: int,
+                dev: torch.device) -> list[DecLayer]:
+    m = lay["mlp"]
+    return [DecLayer(
+        _attn(lay["attn"], dev, i), _attn(lay["cross"], dev, i),
+        MlpParams(*(_tensor(m[n][i], dev)
+                    for n in ("w_gate", "w_up", "w_down"))),
+        *(_tensor(lay[n][i], dev) for n in ("ln1", "ln2", "ln3")))
+        for i in range(L)]
+
+
+def _n_stacked(lay: Mapping[str, Any], key: str, name: str, L: int) -> None:
+    n = np.shape(lay[name])[0]
+    if n != L:
+        raise ValueError(f"{key}.{name} stacks {n} layers, config has {L}")
+
+
 def _moe_layers(lay: Mapping[str, Any], L: int,
                 dev: torch.device) -> list[MoeLayer]:
-    a, m = lay["attn"], lay["moe"]
+    m = lay["moe"]
     return [MoeLayer(
-        AttnParams(*(_tensor(a[n][i], dev) for n in ("wq", "wk", "wv", "wo"))),
+        _attn(lay["attn"], dev, i),
         MoeParams(*(_tensor(m[n][i], dev) for n in MOE_PARAMS)),
         _tensor(lay["ln1"][i], dev), _tensor(lay["ln2"][i], dev))
         for i in range(L)]
@@ -87,31 +114,44 @@ def _mamba_layers(lay: Mapping[str, Any], L: int,
 
 def from_jax_params(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
                     device: torch.device | str | None = None,
-                    trainable: bool = False) -> LM:
-    """The JAX LM's parameters (numpy leaves) as the port's module, on
+                    trainable: bool = False) -> LM | EncDec:
+    """The JAX model's parameters (numpy leaves) as the port's module, on
     ``device`` (the card unless ``"cpu"`` is asked for); ``trainable``
     parameters require gradients."""
-    _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        enc, dec = np_tree["enc_layers"], np_tree["dec_layers"]
+        _n_stacked(enc, "enc_layers", "ln1", cfg.enc_layers)
+        _n_stacked(dec, "dec_layers", "ln1", cfg.n_layers)
+        t = lambda name: _tensor(np_tree[name], dev)
+        return EncDec(t("embed"), _dense_layers(enc, cfg.enc_layers, dev),
+                      _dec_layers(dec, cfg.n_layers, dev), t("enc_norm"),
+                      t("final_norm"), t("lm_head"),
+                      t("frame_proj")).requires_grad_(trainable)
+    _check_family(cfg)
     lay = np_tree["layers"]
     L = cfg.n_layers
     ssm = cfg.family in ("ssm", "hybrid")
-    first = ("ln", lay["ln"]) if ssm else ("ln1", lay["ln1"])
-    if np.shape(first[1])[0] != L:
-        raise ValueError(f"layers.{first[0]} stacks {np.shape(first[1])[0]} "
-                         f"layers, config has {L}")
+    _n_stacked(lay, "layers", "ln" if ssm else "ln1", L)
     build_layers = (_mamba_layers if ssm else
                     _moe_layers if cfg.family == "moe" else _dense_layers)
     layers = build_layers(lay, L, dev)
     head = None if cfg.tie_embeddings else _tensor(np_tree["lm_head"], dev)
     shared = (_dense_layer(np_tree["shared_attn"], dev)
               if cfg.family == "hybrid" else None)
+    projector = (Projector(*(_tensor(np_tree["projector"][n], dev)
+                             for n in ("w1", "w2")))
+                 if cfg.frontend else None)
     return LM(_tensor(np_tree["embed"], dev), layers,
-              _tensor(np_tree["final_norm"], dev), head,
-              shared).requires_grad_(trainable)
+              _tensor(np_tree["final_norm"], dev), head, shared,
+              projector).requires_grad_(trainable)
 
 
-def param_names(lm: LM) -> list[str]:
+#: the names of layer-stacked parameter lists (a leading L axis in JAX)
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def param_names(lm: LM | EncDec) -> list[str]:
     """The module's parameter names, in ``lm.parameters()`` order."""
     return [n for n, _ in lm.named_parameters()]
 
@@ -124,8 +164,8 @@ def jax_tree(values: Sequence[Any], names: Sequence[str]) -> dict:
     stacks: dict[tuple[str, ...], dict[int, Any]] = {}
     for name, v in zip(names, values, strict=True):
         parts = name.split(".")
-        if parts[0] == "layers":
-            stacks.setdefault(("layers",) + tuple(parts[2:]), {})[
+        if parts[0] in STACKED:
+            stacks.setdefault((parts[0],) + tuple(parts[2:]), {})[
                 int(parts[1])] = v
             continue
         _put(tree, tuple(parts), v)
@@ -145,13 +185,14 @@ def _put(tree: dict, path: tuple[str, ...], v: Any) -> None:
 def from_jax_tree(tree: Mapping[str, Any], names: Sequence[str]) -> list:
     """The inverse of :func:`jax_tree`: one value per name, in order; a
     stacked leaf (a :class:`~repro_torch.tree.Stacked` or an array with a
-    leading layer axis) gives layer i to ``layers.i.*``."""
+    leading layer axis) gives layer i to ``layers.i.*`` (and to
+    ``enc_layers.i.*``, ``dec_layers.i.*``)."""
     out = []
     for name in names:
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] in STACKED:
             node = tree
-            for key in ("layers",) + tuple(parts[2:]):
+            for key in (parts[0],) + tuple(parts[2:]):
                 node = node[key]
             out.append(node[int(parts[1])])
         else:
@@ -162,7 +203,7 @@ def from_jax_tree(tree: Mapping[str, Any], names: Sequence[str]) -> list:
     return out
 
 
-def to_jax_params(lm: LM) -> dict:
+def to_jax_params(lm: LM | EncDec) -> dict:
     """The port's parameters as the JAX package's numpy tree (layers
     stacked on the host, bf16 as raw 2-byte values)."""
     return map_leaves(host_array,

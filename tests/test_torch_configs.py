@@ -17,7 +17,8 @@ from repro_torch.core import basin, planner
 torch.set_num_threads(1)
 
 ARCHS = ["smollm-360m", "repro-100m", "mamba2-1.3b", "gemma3-1b",
-         "zamba2-1.2b", "qwen3-moe-30b-a3b"]
+         "zamba2-1.2b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
+         "seamless-m4t-large-v2"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -244,6 +244,103 @@ def test_decode_hd128_kernel_matches_plain_on_card(card, Hq, Hkv, S, fill,
 
 
 @pytest.mark.cuda
+def test_flash_noncausal_at_seamless_encoder_shape(card):
+    """seamless-m4t's encoder self attention: no causal mask, 16 query
+    heads over 16 KV heads (a grouping of 1), 1024 frames, hd 64."""
+    g = torch.Generator(device=card).manual_seed(1024 + 16)
+    q, k, v = (torch.randn(4, 16, 1024, 64, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(3))
+    n = build.KERNELS["flash_attention"].launches
+    out = flash_attention_bhsd(q, k, v, causal=False)
+    assert build.KERNELS["flash_attention"].launches == n + 1
+    expect = ref.attention_ref(q, k, v, causal=False)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+    causal = ref.attention_ref(q, k, v, causal=True)
+    assert (out.float() - causal.float()).abs().max() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,fill", [(1057, 16), (1057, 1), (1121, 1100)])
+def test_decode_kernel_at_a_grouping_of_one(card, hd, S, fill):
+    """As many KV heads as query heads (seamless's self cache at hd 64,
+    a partly filled 1057-slot cache; and at hd 128)."""
+    g = torch.Generator(device=card).manual_seed(S + fill + hd)
+    B, H = 4, 16
+    q = torch.randn(B, H, hd, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(B, H, S, hd, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(B, H, S, hd, generator=g, device=card).to(torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=card).expand(B, S)
+    k_pos = torch.where(pos <= fill, pos, -1).contiguous()
+    q_pos = torch.full((B,), fill, dtype=torch.int32, device=card)
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos)
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_decode_kernel_as_cross_attention_keeps_every_slot(card):
+    """seamless-m4t's cross attention through the decode kernel, as
+    ``models/encdec.py`` calls it: ``k_pos = 0..1023`` and ``q_pos =
+    1023`` keep all 1024 encoder slots, which equals the plain non-causal
+    attention of one query over them (positions play no part); the
+    decoder's own position as ``q_pos`` would keep too few."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device=card).manual_seed(4096)
+    B, H, S, hd = 4, 16, 1024, 64
+    q = torch.randn(B, 1, H, hd, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(B, S, H, hd, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(B, S, H, hd, generator=g, device=card).to(torch.bfloat16)
+    enc_pos = torch.arange(S, dtype=torch.int32, device=card)
+    n = build.KERNELS["decode_attention"].launches
+    out = ops.decode_attention(q, k, v, enc_pos, enc_pos[-1:])
+    assert build.KERNELS["decode_attention"].launches == n + 1
+    for dec_pos in (0, 7, 31):
+        expect = attention(q, k, v, q_pos=torch.full(
+            (1,), dec_pos, dtype=torch.int32, device=card), k_pos=enc_pos,
+            causal=False)
+        torch.testing.assert_close(out.float(), expect.float(),
+                                   **TOL[torch.bfloat16])
+    trap = ops.decode_attention(q, k, v, enc_pos, enc_pos[7:8])
+    assert (trap.float() - out.float()).abs().max() > 0.05
+
+
+@pytest.mark.cuda
+def test_error_feedback_round_trip_through_the_kernels(card):
+    """``error_feedback_step`` on card tensors runs the quantize and
+    dequantize kernels once per tensor each, and sends and keeps the same
+    bits as the step on CPU copies (the plain functions), step after
+    step."""
+    from repro_torch.optim import compression
+    g = torch.Generator(device=card).manual_seed(5)
+    shapes = [(960, 2560), (2560,), (3, 7, 13), (1,)]
+    kstate = compression.error_feedback_init(
+        [torch.empty(s, device=card) for s in shapes])
+    pstate = compression.error_feedback_init(
+        [torch.empty(s) for s in shapes])
+    for _ in range(3):
+        grads = [torch.randn(s, generator=g, device=card) * 1e-2
+                 for s in shapes]
+        n0 = build.launch_counts()
+        sent, kstate = compression.error_feedback_step(grads, kstate)
+        n1 = build.launch_counts()
+        assert n1["quantize_int8"] - n0["quantize_int8"] == len(shapes)
+        assert n1["dequantize_int8"] - n0["dequantize_int8"] == len(shapes)
+        psent, pstate = compression.error_feedback_step(
+            [t.cpu() for t in grads], pstate)
+        for a, b in zip(sent + kstate.residual, psent + pstate.residual):
+            assert a.is_cuda
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+    with pytest.raises(ValueError, match="256"):
+        compression.compress_decompress(grads[0], block=64)
+
+
+@pytest.mark.cuda
 def test_moe_dispatch_matches_moe_ref_on_card(card):
     """qwen3's MoE block (128 experts, top 8, D 2048, F 768): the sorted
     dispatch against the dense oracle on the same input, with the same

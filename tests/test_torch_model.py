@@ -151,13 +151,20 @@ def test_random_init_is_seeded():
 
 
 def test_unported_family_raises():
-    """The enc-dec family and a frontend (the VLM) are not ported yet."""
+    """Every family is ported now, the enc-dec one in ``models/encdec.py``:
+    the decoder module refuses it rather than build a decoder of it, and
+    what is still not ported raises (remat ``"dots"``)."""
+    from repro_torch.models import lm as tlm
     cfg = get_smoke_config("repro-100m")
     encdec = dataclasses.replace(cfg, family="encdec", enc_layers=2)
-    vlm = dataclasses.replace(cfg, family="vlm", frontend="patch")
-    for unported in (encdec, vlm):
-        with pytest.raises(NotImplementedError):
-            build(unported).init(0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError):
+        tlm.init_lm(encdec, generator=gen, device="cpu")
+    dots = dataclasses.replace(cfg, remat="dots")
+    params = build(dots).init(0, device="cpu", trainable=True)
+    with pytest.raises(NotImplementedError):
+        build(dots).forward(params, torch.zeros((1, 4), dtype=torch.int32),
+                            ShardCtx(impl="ref"))
 
 
 def test_primitives_match_reference():

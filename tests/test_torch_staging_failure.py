@@ -20,14 +20,22 @@ as ``RuntimeError: stage boom failed``.
 
 Each case runs the transfer in a daemon thread joined with a bound of a
 few seconds: a hang fails the test instead of stalling the run.
+
+A sink that raises must also stop every thread the transfer started: the
+stage workers of a bulk transfer, and under ``parallel_transfer`` the
+dispatcher, each branch's stage workers and the per-branch drains into
+the merge buffer (whose ``merge.put`` nobody reads once the caller's loop
+has left).  The port aborts the pipeline before the sink's error leaves
+the transfer; the JAX package's mover leaves those threads blocked.
 """
 
 import threading
+import time
 
 import pytest
 import torch
 
-from repro_torch.core.basin import checkpoint_basin
+from repro_torch.core.basin import checkpoint_basin, decode_fanout_basin
 from repro_torch.core.integrity import compress_transform
 from repro_torch.core.mover import MoverConfig, UnifiedDataMover
 from repro_torch.core.planner import plan_transfer
@@ -123,4 +131,58 @@ def test_a_raising_sink_stops_the_stage_workers(drain_per_segment):
     left = [t for t in threading.enumerate() if t not in before]
     for t in left:
         t.join(JOIN_BOUND_S)
+    assert not [t.name for t in left if t.is_alive()]
+
+
+#: (mode, route) of the parallel path's dispatch: a mirror deals every item
+#: down every branch; a split deals each to one branch, or lets the
+#: branches steal from one shared intake
+PARALLEL_ROUTES = [("mirror", "deal"), ("split", "deal"), ("split", "steal")]
+
+
+@pytest.mark.parametrize("per_branch_sinks", [False, True],
+                         ids=["shared-sink", "per-branch-sinks"])
+@pytest.mark.parametrize("drain_per_segment", [False, True],
+                         ids=["live", "segmented"])
+@pytest.mark.parametrize("mode,route", PARALLEL_ROUTES,
+                         ids=[f"{m}-{r}" for m, r in PARALLEL_ROUTES])
+def test_a_raising_sink_stops_every_parallel_thread(mode, route,
+                                                    drain_per_segment,
+                                                    per_branch_sinks):
+    """``parallel_transfer`` without the drainer pool, its sink raising on
+    the third delivery: the sink's error leaves the transfer, and every
+    thread the transfer started (the dispatcher, the branches' stage
+    workers, the per-branch drains into the merge) ends.  The JAX
+    package's mover leaves the drains blocked in ``merge.put`` and the
+    stage workers and the dispatcher blocked behind them, since nothing
+    reads the merge once the caller's drain loop has left."""
+    mover = UnifiedDataMover(MoverConfig(staging_capacity=2,
+                                         staging_workers=1, checksum=False,
+                                         device="cpu"))
+    items = [torch.full((1024,), float(i)) for i in range(64)]
+    plan = plan_transfer(decode_fanout_basin(2), item_bytes=items[0].nbytes,
+                         stages=("token-stream",), ordered=True, path="auto")
+    calls = [0]
+
+    def raising(item):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise OSError("client went away")
+
+    if per_branch_sinks:
+        # the first client fails; the second would take everything
+        sink = {plan.branches[0].branch_id: raising,
+                plan.branches[1].branch_id: lambda item: None}
+    else:
+        sink = raising
+    before = set(threading.enumerate())
+    with pytest.raises(OSError, match="client went away"):
+        mover.parallel_transfer(iter(items), sink, plan=plan, mode=mode,
+                                route=route, capacity=2, workers=1,
+                                replan_every_items=32,
+                                drain_per_segment=drain_per_segment)
+    deadline = time.monotonic() + JOIN_BOUND_S
+    left = [t for t in threading.enumerate() if t not in before]
+    for t in left:
+        t.join(max(0.0, deadline - time.monotonic()))
     assert not [t.name for t in left if t.is_alive()]

@@ -64,7 +64,9 @@ def _server(arch: str) -> Server:
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b", "gemma3-1b",
-                                  "zamba2-1.2b", "qwen3-moe-30b-a3b"])
+                                  "zamba2-1.2b", "qwen3-moe-30b-a3b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
 def test_server_prices_its_first_stream_at_the_measured_h100_step(arch):
     server = _server(arch)
     step = H100_DECODE_STEP_MS[arch]
