@@ -156,6 +156,24 @@ Phases, one JSON line each:
    counted with ``count_step`` on the card, beside the measured median
    step and their ratios.  It fails unless the plan fits (the measured
    peak too) and the counted FLOPs reach 6 N T.
+14a. ``phi3``, ``mistral_large`` and ``mixtral`` (``LARGE_CELLS``), at
+   published widths, once the trainer is freed: each checks that the
+   card holds under ``RESIDENT_LIMIT_MIB`` at its start, then its kernels at the phase's shapes (flash
+   over the prompt with the config's window; decode against the phase's
+   cache filled to prompt + 16; the digest of one KV item), serves
+   ``batch`` x ``prompt`` tokens for 32 tokens (flash once per layer per
+   prefill, decode once per layer per step), holds the logits to the
+   plain path and stages the prefill's KV items under the accel digest,
+   as in 10a.  phi3-mini-3.8b whole (32 layers, hd 96: the kernels'
+   first head dim that is not a multiple of 64), 4 x 1024 tokens, 1057
+   slots; mistral-large-123b at 20 of its 88 layers (96 query heads over
+   8 KV heads, a grouping of 12; 57.0 GB of weights), 4 x 1024 tokens;
+   mixtral-8x22b at 10 of its 56 layers (8 experts of d_ff 16384, top 2,
+   window 4096; 50.9 GB), 2 x 4608 tokens past the window into a
+   4096-slot ring that wraps, with one MoE layer's ``moe_dispatch``
+   against ``moe_ref`` on its 9216 prompt tokens and the logits held
+   under the kernel path's expert choices (``check_moe_logits``).  The
+   serve record names the cut (``reduced``).
 15. ``qwen3_moe`` (qwen3-moe-30b-a3b), last, once every earlier phase's
    tensors are freed: the kernels at the phase's shapes (flash B4 Hq32
    Hkv4 S512 hd 128, causal; decode against the 545-slot cache filled to
@@ -171,13 +189,14 @@ Phases, one JSON line each:
    by layer); and the prefill's 96 KV items staged under the accel
    digest, as in 4.
 
-The launch counts are set to 0 just before each path (the seven ``serve``
+The launch counts are set to 0 just before each path (the ten ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
 ``resume``, ``fleet``, ``codesign``) and read just after; every kernel a serving path or the
 fleet runs must have run there, and none may run in ``train``.  Then the
 kernels line (launches summed over the paths, each kernel's record at
 the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2,
-llava, seamless and qwen3_moe phases' shapes;
+llava, seamless, phi3, mistral_large, mixtral and qwen3_moe phases'
+shapes;
 ``block_digest``, the TPU kernel's per-row function, is checked in phase 3
 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
@@ -234,6 +253,23 @@ LLAVA_BATCH, LLAVA_PROMPT = 4, 512
 #: reads the first, and the self cache frames + gen + 1 slots, as the CLI
 #: draws and sizes them
 SEAMLESS_BATCH, SEAMLESS_FRAMES = 4, 1024
+#: the slice-11 cells, each at published widths: arch, batch, prompt, and
+#: the depth run where the whole model does not fit one 80 GB card (None:
+#: every layer).  phi3-mini (7.64 GB) whole, 4 x 1024 tokens into a
+#: 1057-slot cache; mistral-large at 20 of 88 layers (57.0 GB with the
+#: embeddings and head), 4 x 1024; mixtral at 10 of 56 layers (50.9 GB),
+#: 2 x 4608 tokens, past its 4096 window, so the prefill ring-packs its
+#: last 4096 steps and decode runs on a wrapped ring.  The depths leave
+#: room for the plain path's check beside the weights.
+LARGE_CELLS = {
+    "phi3": dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, layers=None),
+    "mistral_large": dict(arch="mistral-large-123b", batch=4, prompt=1024,
+                          layers=20),
+    "mixtral": dict(arch="mixtral-8x22b", batch=2, prompt=4608, layers=10),
+}
+#: a phase's allocation at its start above this means an earlier phase
+#: left tensors on the card
+RESIDENT_LIMIT_MIB = 1024
 
 # kernel against plain version on the card, both rounding an f32 result to
 # the output dtype once: f32 sums in another order, bf16 about one ulp of
@@ -280,13 +316,27 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+_SIDE_STREAM = []
+
+
+def _side_stream():
+    """The one side stream every :func:`device_ms` captures on.  cuBLAS
+    keeps a workspace (32 MiB on the H100) for each stream it has run on,
+    for the life of the process, and the allocator counts it: a new
+    stream per timing left about 1 GiB allocated by the later phases."""
+    import torch
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    return _SIDE_STREAM[0]
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of ``fn``, in ms: ``iters`` calls captured in
-    one CUDA graph (on the stream that ran the warm-up calls) and replayed
-    between two CUDA events, so the host's launch cost is left out (inputs
-    stay warm in L2 across the calls)."""
+    one CUDA graph (on the side stream that ran the warm-up calls) and
+    replayed between two CUDA events, so the host's launch cost is left
+    out (inputs stay warm in L2 across the calls)."""
     import torch
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -1818,6 +1868,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phi3-mini, mistral-large and mixtral at published widths --------
+    for name in LARGE_CELLS:
+        t_phase = time.monotonic()
+        shapes[name] = large_phase(torch, paths, rng, records, name)
+        records.append(emit("phase_time", of=name,
+                            seconds=time.monotonic() - t_phase))
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # ---- qwen3-moe-30b-a3b: serve at full width, last and alone ---------
     t_phase = time.monotonic()
     shapes["qwen3_moe"] = qwen3_phase(torch, paths, rng, records)
@@ -2288,6 +2347,102 @@ def seamless_phase(torch, paths, rng, records) -> dict:
     items = [cache[name][i] for i in range(cache["cross_k"].shape[0])
              for name in ("cross_k", "cross_v")]
     _stage_kv_path(torch, paths, "seamless_stage_kv", cfg.name, items,
+                   digest_rate(checks["kv_item"]), records)
+    return checks
+
+
+def large_phase(torch, paths, rng, records, name) -> dict:
+    """One of :data:`LARGE_CELLS` at published widths (its depth cut where
+    the cell says so), random weights from ``SEED``, serving ``batch`` x
+    ``prompt`` tokens for 32 tokens: the allocation at the phase's start
+    (under ``RESIDENT_LIMIT_MIB``); the kernels at the phase's shapes
+    (flash over the prompt with the config's window, decode against the
+    phase's cache filled to prompt + 16, for mixtral its 4096-slot ring
+    wrapped; the digest of one KV item) and, for mixtral, one MoE layer's
+    ``moe_dispatch`` against ``moe_ref`` on the prefill's 9216 tokens;
+    the serving path's launches (flash once per layer per prefill, decode
+    once per layer per step); its logits against the plain path
+    (``check_logits``, or ``check_moe_logits`` under the kernel path's
+    expert choices); and the prefill's KV items staged under the accel
+    digest.  Appends every record to ``records``; returns the check
+    records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm as lm_lib
+    cell = LARGE_CELLS[name]
+    resident_mib = torch.cuda.memory_allocated() / 2**20
+    resident = emit("memory", of=f"{name} phase start",
+                    allocated_before_phase_mib=resident_mib,
+                    resident_ok=resident_mib < RESIDENT_LIMIT_MIB)
+    records.append(resident)
+    checked(resident, f"{name} phase start", ("resident_ok",))
+    published = get_config(cell["arch"])
+    cfg = (dataclasses.replace(published, n_layers=cell["layers"])
+           if cell["layers"] else published)
+    B, prompt = cell["batch"], cell["prompt"]
+    max_len = prompt + GEN + 1
+    slots = lm_lib._attn_cache_len(cfg, max_len)
+    ring = lm_lib.cache_kind(cfg) == "ring"
+    G = dict(B=B, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.hd)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(43)
+    kv = torch.randint(0, 256, (B * slots * cfg.kv_dim * 2,), generator=g,
+                       dtype=torch.uint8, device="cuda")
+    checks = {
+        "flash": check_flash(torch, S=prompt, dtype=bf16, window=cfg.window,
+                             **G),
+        "decode": check_decode(torch, S=slots, dtype=bf16,
+                               fill=prompt + GEN // 2, window=cfg.window,
+                               ring=False, wrapped=ring, **G),
+        "kv_item": check_digest_items(torch, f"one {name} KV item", [[kv]],
+                                      [[kv]]),
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv
+
+    t0 = time.monotonic()
+    server = Server(cfg, device="cuda", max_len=max_len)
+    server.load(SEED)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    if cfg.moe:
+        moe = check_moe_layer(torch, cfg, server.params.layers[0].moe,
+                              B * prompt)
+        records.append(moe)
+        checked(moe, f"{name} MoE layer", ("ok", "routing_ok", "aux_ok"))
+    batch = _prompts(torch, cfg, B, prompt, rng)
+    # the MoE's decode step syncs with the host once a layer: no CUDA graph
+    timing = serve_timing(torch, server, batch, prompt, graph=not cfg.moe)
+    tokens, gen_s = _serve_launches(torch, paths, f"{name}_serve", server,
+                                    batch)
+    reduced = ({"n_layers": [cfg.n_layers, published.n_layers]}
+               if cell["layers"] else {})
+    records.append(_serve_record(
+        torch, server, batch, prompt, timing, gen_s, paths[f"{name}_serve"],
+        load_s=load_s, cache_slots=slots, cache_kind=lm_lib.cache_kind(cfg),
+        weight_gb=sum(p.nbytes for p in server.params.parameters()) / 1e9,
+        published_layers=published.n_layers, reduced=reduced))
+    _launches_per_layer(paths, f"{name}_serve", "flash_attention",
+                        cfg.n_layers)
+    _launches_per_layer(paths, f"{name}_serve", "decode_attention",
+                        cfg.n_layers * (GEN - 1))
+    if cfg.moe:
+        correct = emit("correct", arch=cfg.name, n_layers=cfg.n_layers,
+                       **check_moe_logits(torch, server, batch, tokens))
+        keys = ("logits_ok", "near_tie_ok", "tokens_ok", "greedy_ok")
+    else:
+        correct = emit("correct", arch=cfg.name, n_layers=cfg.n_layers,
+                       **check_logits(torch, server, batch, tokens))
+        keys = ("logits_ok", "tokens_ok", "greedy_ok")
+    records.append(correct)
+    checked(correct, f"{name} serving path", keys)
+
+    # the prefill's KV cache, one item per layer and tensor, to host memory
+    _, cache = server.prefill(batch)
+    items = [cache[n][i] for i in range(cache["k"].shape[0])
+             for n in ("k", "v")]
+    _stage_kv_path(torch, paths, f"{name}_stage_kv", cfg.name, items,
                    digest_rate(checks["kv_item"]), records)
     return checks
 

@@ -27,7 +27,12 @@
 // 256 in bf16 a row is all 32 lanes, and a warp takes 4 slots at a time:
 // eight slots' K and V in f32 registers would be 128 of them a lane.  At hd
 // 128 a row is 16 lanes, two slots a warp-wide load, and a warp takes 4
-// slots at a time as well (two loads each of K and V in flight).  The
+// slots at a time as well (two loads each of K and V in flight).  At hd 96
+// (phi3-mini) a row is 12 lanes of 16 bytes; it is given 16 lanes, the
+// next power of two, as at hd 128, so the shuffle butterfly that sums a
+// slot's score stays inside its 16 lanes: lanes 12-15 of each 16 load
+// nothing, hold zeros and add 0 (a butterfly over 12 lanes would run
+// offsets 6, 3, 1 and mix neighbouring slots' lanes).  The
 // query rows (scaled by hd^-1/2 log2 e) stay in registers; a slot's score is
 // reduced over its lanes by shuffles, and each lane keeps an online softmax
 // (m, l, acc) in f32 for its slots.  The lanes, then the warps (through
@@ -47,6 +52,11 @@ constexpr int DTHREADS = 32 * DWARPS;
 constexpr int GB = 4;               // query heads per CTA at most
 constexpr int WARP_SLOTS = 8;       // slots a warp takes at a time (hd 64)
 constexpr int CHUNK_ALIGN = DWARPS * WARP_SLOTS;  // chunk is a multiple of it
+
+// the least power of two >= n (n >= 1)
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
 
 // 16 bytes of T: loaded raw, widened to f32
 __device__ __forceinline__ uint4 load16(const void* p) {
@@ -103,12 +113,14 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
     int64_t vss, int64_t kpsb, int64_t osb, int64_t osh, float scale_log2,
     int window) {
   constexpr int EPL = Vec16<T>::N;       // elements per lane per load
-  constexpr int LPS = HD / EPL;          // lanes per slot row
+  constexpr int ROW = HD / EPL;          // lanes that hold a slot row
+  constexpr int LPS = pow2_at_least(ROW);  // lanes per slot row, padded
   constexpr int SPL = 32 / LPS;          // slots per warp-wide load
   constexpr int WS = HD > 64 ? WARP_SLOTS / 2 : WARP_SLOTS;  // per step
   constexpr int U = WS / SPL;            // loads per group of WS slots
-  static_assert(LPS <= 32 && U >= 1 && CHUNK_ALIGN % (DWARPS * WS) == 0,
-                "a slot row spans at most one warp-wide load");
+  static_assert(HD % EPL == 0 && LPS <= 32 && U >= 1 &&
+                    CHUNK_ALIGN % (DWARPS * WS) == 0,
+                "a slot row is whole 16-byte lanes of one warp-wide load");
   __shared__ float sh_m[DWARPS][GB], sh_l[DWARPS][GB];
   __shared__ float sh_acc[DWARPS][GB][HD];
 
@@ -123,6 +135,7 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
   const int lane = tid & 31;
   const int sub = lane / LPS;          // which slot of a warp-wide load
   const int d0 = (lane % LPS) * EPL;   // which 16 bytes of the row
+  const bool on_row = d0 < HD;         // false on a padding lane
   const int qp = q_pos[b];
   // the combine kernel may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -135,7 +148,7 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[g][e] = acc[g][e] = 0.f;
-    if (g < ng) {
+    if (g < ng && on_row) {
       Vec16<T>::widen(
           load16(q + b * qsb + (int64_t)(hk * G + g0 + g) * qsh + d0), qr[g]);
 #pragma unroll
@@ -172,7 +185,7 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
     for (int u = 0; u < U; ++u) {
       const int64_t sj = s0 + u * SPL + sub;
       uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-      if (keep[u]) {
+      if (keep[u] && on_row) {
         kr = load16(kb + sj * kss);
         vr = load16(vb + sj * vss);
       }
@@ -226,8 +239,10 @@ __global__ void __launch_bounds__(DTHREADS) decode_split_kernel(
       merge<EPL>(m[g], l[g], acc[g], mo, lo, ao);
     }
     if (lane < LPS) {
+      if (on_row) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sh_acc[warp][g][d0 + e] = acc[g][e];
+        for (int e = 0; e < EPL; ++e) sh_acc[warp][g][d0 + e] = acc[g][e];
+      }
       if (lane == 0) {
         sh_m[warp][g] = m[g];
         sh_l[warp][g] = l[g];
@@ -355,14 +370,18 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const int* kp = static_cast<const int*>(k_pos);
   const int* qp = static_cast<const int*>(q_pos);
   float* w = static_cast<float*>(ws);
-  // the ported configs' head dims: 64 in f32 and bf16, 128 and 256 in bf16
-  // (an f32 row of 256 is 64 lanes of 16 bytes, more than a warp); another
-  // one is added with the config that needs it
+  // the ported configs' head dims: 64 in f32 and bf16, 96, 128 and 256 in
+  // bf16 (an f32 row of 256 is 64 lanes of 16 bytes, more than a warp);
+  // another one is added with the config that needs it
   if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv, S, G,
                                   chunk, strides, scale, window, s);
   if (dtype == DTYPE_BF16 && hd == 64)
     return (int)launch<__nv_bfloat16, 64>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
+                                          S, G, chunk, strides, scale, window,
+                                          s);
+  if (dtype == DTYPE_BF16 && hd == 96)
+    return (int)launch<__nv_bfloat16, 96>(q, k, v, kp, qp, o, w, B, Hq, Hkv,
                                           S, G, chunk, strides, scale, window,
                                           s);
   if (dtype == DTYPE_BF16 && hd == 128)

@@ -15,8 +15,10 @@
 // Bound on the H100: at the serving shapes (S = 128..1000, hd = 64) the
 // work is a few GFLOP against a few MB, so the bf16 tensor cores bound it
 // at S = 1000 and the bytes (a few us of latency) at S = 128; at gemma3's
-// (S 1024, hd 256), qwen3-moe's (S 512, hd 128) and zamba2's (S 4608, hd
-// 64) the tensor cores.
+// (S 1024, hd 256), qwen3-moe's (S 512, hd 128), zamba2's (S 4608, hd 64),
+// mixtral's (S 4608, hd 128, window 4096) and mistral-large's (S 1024, hd
+// 128, 96 query heads) the tensor cores; at phi3-mini's (S 1024, hd 96,
+// 32 KV heads: no grouping) the two bounds lie within 15% of each other.
 //
 // bf16 (the model's type), FlashAttention-3's shape kept simple: one CTA of
 // one warpgroup (128 threads) owns a 64-row query tile of one (b, h).  TMA
@@ -46,6 +48,14 @@
 // Head dim 128 (qwen3-moe, and the other hd-128 configs) takes two boxes:
 // 8 k-steps for S, two O accumulators (64 f32 registers a thread), and
 // 81 KiB of shared memory (opted in), so two CTAs can share an SM.
+// Head dim 96 (phi3-mini) is the hd-128 layout with its second box half
+// filled: the tensor maps' rows are 96 columns wide, so TMA reads columns
+// 96-127 of the second box as zeros.  S = Q K^T runs the 6 k-steps that
+// hold data (HD / 16), exact; O's second accumulator spans columns
+// 64-127 (the n64 wgmma is the narrowest the helpers issue), of which
+// only d < 96 are stored, so P V does a third more tensor work than the
+// head dim needs (about 22% more for the kernel's whole MMA work, with P V
+// run twice, hi and lo).  The softmax scale is the caller's, 96^-1/2.
 //
 // f32 keeps the first version: one thread per query row on the f32 CUDA
 // cores (K/V tiles of 32 keys staged as f32 in shared memory, read as
@@ -169,18 +179,25 @@ constexpr int WQ = 64;                    // query rows per CTA
 constexpr int WK = 64;                    // keys per tile
 constexpr int WSTAGES = 2;                // K/V ring depth
 constexpr int WTILE = 64 * 64 * 2;        // bytes of one 64 x 64 bf16 box
+// 64-column boxes that make a row of head dim HD (the last one part
+// filled where HD is not a multiple of 64)
+template <int HD>
+__host__ __device__ constexpr int nboxes() {
+  return (HD + 63) / 64;
+}
 // dynamic shared memory for head dim HD: the Q tile and WSTAGES K and V
-// tiles of HD / 64 boxes each, + 1 KiB to align
+// tiles of nboxes<HD>() boxes each, + 1 KiB to align
 template <int HD>
 constexpr int wsmem() {
-  return WTILE * (HD / 64) * (1 + 2 * WSTAGES) + 1024;
+  return WTILE * nboxes<HD>() * (1 + 2 * WSTAGES) + 1024;
 }
 constexpr float LOG2E = 1.4426950408889634f;
 
-// HD / 64 boxes make a row: box j holds columns 64j..64j+63 of every row of
-// a tile.  S = Q K^T contracts over all of them (k-step kk reads box kk / 4
-// at 32 bytes times kk % 4); O is HD / 64 accumulators of m64n64, one per
-// box of V, fed by the same P fragments.
+// nboxes<HD>() boxes make a row: box j holds columns 64j..64j+63 of every
+// row of a tile (zeros past HD).  S = Q K^T contracts over the HD / 16
+// k-steps that hold data (k-step kk reads box kk / 4 at 32 bytes times
+// kk % 4); O is nboxes<HD>() accumulators of m64n64, one per box of V,
+// fed by the same P fragments, and stores its columns d < HD.
 template <int HD>
 __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
@@ -188,8 +205,11 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
     int Sq, int Sk, int G, int64_t osb, int64_t osh, int64_t oss,
     float scale_log2, int causal, int window) {
-  constexpr int NB = HD / 64;             // boxes per row
+  constexpr int NB = nboxes<HD>();        // boxes per row
+  constexpr int KSTEPS = HD / 16;         // k-steps of S = Q K^T
   constexpr int TILE = NB * WTILE;        // bytes of one Q, K or V tile
+  static_assert(HD % 16 == 0 && HD <= 256,
+                "a row is whole k-steps of at most four boxes");
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q;
   __shared__ uint64_t bar_kv[WSTAGES];
@@ -260,13 +280,13 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     const int k0 = k_begin + t * WK;
     mbar_wait(&bar_kv[s], (t / WSTAGES) & 1);
 
-    // S = Q K^T over hd: 4 NB k-steps of 16 (32 bytes each)
+    // S = Q K^T over hd: HD / 16 k-steps of 16 (32 bytes each)
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NB; ++kk)
+    for (int kk = 0; kk < KSTEPS; ++kk)
       wgmma_ss_m64n64k16(
           sc, wgmma_desc_sw128(qs + (kk >> 2) * WTILE) + 2 * (kk & 3),
           wgmma_desc_sw128(ks + s * TILE + (kk >> 2) * WTILE) + 2 * (kk & 3),
@@ -367,14 +387,17 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(op + 64 * j + 8 * n + cq) =
-            __floats2bfloat162_rn(oacc[j][4 * n + 2 * i] * inv,
-                                  oacc[j][4 * n + 2 * i + 1] * inv);
+        if (64 * j + 8 * n < HD)  // columns 8n + cq, + 1 of box j
+          *reinterpret_cast<__nv_bfloat162*>(op + 64 * j + 8 * n + cq) =
+              __floats2bfloat162_rn(oacc[j][4 * n + 2 * i] * inv,
+                                    oacc[j][4 * n + 2 * i + 1] * inv);
   }
 }
 
-// one TMA descriptor per operand, encoded on the host for this call; above
-// 48 KiB of dynamic shared memory (hd 256: 161 KiB) only after opting in,
+// one TMA descriptor per operand, encoded on the host for this call, its
+// rows HD columns wide (hd 96: the second box reads zeros past column 95);
+// above 48 KiB of dynamic shared memory (hd 256: 161 KiB) only after
+// opting in,
 // per device, so on every launch (a host-side attribute, allowed while a
 // CUDA graph captures)
 template <int HD>
@@ -414,13 +437,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // f32 (the SIMT kernel) at hd 64; bf16 (wgmma) at the ported configs'
-  // head dims, 64, 128 and 256.  Another one is added with the config that
-  // needs it.
+  // head dims, 64, 96, 128 and 256.  Another one is added with the config
+  // that needs it.
   if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, o, B, Hq, Sq, Sk, G, strides,
                                   scale, causal, window, s);
   if (dtype == DTYPE_BF16 && hd == 64)
     return (int)launch_bf16_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
+                                      strides, scale, causal, window, s);
+  if (dtype == DTYPE_BF16 && hd == 96)
+    return (int)launch_bf16_wgmma<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
                                       strides, scale, causal, window, s);
   if (dtype == DTYPE_BF16 && hd == 128)
     return (int)launch_bf16_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,

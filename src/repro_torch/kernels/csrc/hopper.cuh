@@ -42,9 +42,12 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
 // A 4-D bf16 tensor map over (cols, rows, heads, batch) with element
 // strides (1, srow, shead, sbatch), cut into boxes of 64 x 64 elements with
 // the 128-byte swizzle (one 64-element bf16 row is exactly one swizzle atom
-// row); `cols` is a multiple of 64, and a row of 128 values is two boxes,
-// at column 0 and 64.  Rows past `rows` read as zero.  A dimension of size
-// 1 never moves its coordinate, so its stride is replaced by a valid one.
+// row); a row of 128 values is two boxes, at column 0 and 64.  `cols` is a
+// multiple of 8 (16 bytes, as TMA asks of every stride): where it is not a
+// multiple of 64 the last box is part filled, and its columns past `cols`
+// read as zero, as rows past `rows` do (a row of 96 values is two boxes,
+// the second holding columns 64-95 and 32 zeros).  A dimension of size 1
+// never moves its coordinate, so its stride is replaced by a valid one.
 inline bool encode_rows(CUtensorMap* map, const void* base, int cols,
                         int rows, int heads, int batch, int64_t srow,
                         int64_t shead, int64_t sbatch) {

@@ -27,8 +27,9 @@ from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is built for: those of the ported configs (smollm,
-#: zamba2: 64; qwen3-moe: 128; gemma3: 256)
-_HEAD_DIMS = (64, 128, 256)
+#: zamba2, seamless: 64; phi3-mini: 96; qwen3-moe, llava, mixtral,
+#: mistral-large: 128; gemma3: 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 #: head dims in f32: an f32 row of 256 is 64 lanes of 16 bytes, more than
 #: the one warp a slot row may span
 _F32_HEAD_DIMS = (64,)

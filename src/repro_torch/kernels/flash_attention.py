@@ -19,8 +19,9 @@ from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is built for: those of the ported configs (smollm,
-#: zamba2: 64; qwen3-moe: 128; gemma3: 256)
-_HEAD_DIMS = (64, 128, 256)
+#: zamba2, seamless: 64; phi3-mini: 96; qwen3-moe, llava, mixtral,
+#: mistral-large: 128; gemma3: 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 #: head dims of the f32 kernel (one thread per query row holds 2 hd f32
 #: registers): no config serves f32, so 64 only
 _F32_HEAD_DIMS = (64,)

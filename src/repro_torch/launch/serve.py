@@ -13,11 +13,13 @@ The serving path is the paper's two workload classes composed:
   (:func:`~repro_torch.core.basin.decode_fanout_basin` + the mover's
   parallel mirror mode), each client drained by its own drainer.
 
-A dense model (smollm-360m, gemma3-1b) prefills through the
-flash-attention kernel and decodes through the decode-attention kernel; the
-MoE (qwen3-moe-30b-a3b) does the same, its expert layers through the
-no-drop sorted dispatch (``ffn.moe_dispatch``: one host sync per layer for
-the expert counts); an SSM model (mamba2-1.3b) prefills through the
+A dense model (smollm-360m, gemma3-1b, phi3-mini-3.8b at head dim 96,
+mistral-large-123b) prefills through the flash-attention kernel and
+decodes through the decode-attention kernel; the MoE (qwen3-moe-30b-a3b,
+and mixtral-8x22b, whose every layer is windowed, against a ring cache of
+``min(window, max_len)`` slots) does the same, its expert layers through
+the no-drop sorted dispatch (``ffn.moe_dispatch``: one host sync per layer
+for the expert counts); an SSM model (mamba2-1.3b) prefills through the
 SSD-scan kernel and decodes with the plain recurrent step; the hybrid
 (zamba2-1.2b) does both, its shared attention block decoding against a
 ring cache (``ShardCtx(impl="cuda")``).  The VLM (llava-next) is the dense
@@ -43,6 +45,8 @@ Usage:
       --prompt-len 512                                            # on the card
   python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
       --prompt-len 1024                                           # on the card
+  python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
+      --prompt-len 1024                                           # on the card
   python -m repro_torch.launch.serve --arch smollm-360m --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
@@ -57,6 +61,17 @@ Usage:
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch phi3-mini-3.8b --smoke \\
+      --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch mistral-large-123b --smoke \\
+      --device cpu --prompt-len 16 --gen 4                        # CPU smoke
+  python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \\
+      --device cpu --prompt-len 40 --gen 4                        # CPU smoke
+
+mistral-large-123b (246 GB in bf16) and mixtral-8x22b (282 GB) do not fit
+one 80 GB card at full depth, as they fit no one TPU chip in the
+reference: on the card their full depth waits for multi-device
+(``chip_smoke.py`` serves each at published widths with the depth cut).
 
 The CLI draws the stub inputs as the reference's does: ``frames`` of
 ``--prompt-len`` frames for the encoder-decoder, ``frontend_len`` patch
@@ -102,13 +117,19 @@ CLIENT_LIMITED_STALL = 0.1
 #: and mamba2-1.3b at batch 4, gemma3-1b at batch 4 (1057-slot cache),
 #: zamba2-1.2b at batch 2 (4096-slot rings) and qwen3-moe-30b-a3b at batch
 #: 4 (545-slot cache), llava-next-mistral-7b at batch 4 (1121-slot cache)
-#: and seamless-m4t-large-v2 at batch 4 (1024 encoder slots), the serving
-#: cells' batches
+#: and seamless-m4t-large-v2 at batch 4 (1024 encoder slots), phi3-mini-3.8b
+#: at batch 4 (all 32 layers, 1057-slot cache), mistral-large-123b at batch
+#: 4 with 20 of its 88 layers (1057-slot cache) and mixtral-8x22b at batch 2
+#: with 10 of its 56 layers (a 4096-slot ring), the serving cells' batches
+#: and depths (a deeper model's step is longer)
 H100_DECODE_STEP_MS = {"smollm-360m": 36.27, "mamba2-1.3b": 81.19,
                        "gemma3-1b": 27.27, "zamba2-1.2b": 61.09,
                        "qwen3-moe-30b-a3b": 253.49,
                        "llava-next-mistral-7b": 37.72,
-                       "seamless-m4t-large-v2": 42.39}
+                       "seamless-m4t-large-v2": 42.39,
+                       "phi3-mini-3.8b": 43.89,
+                       "mistral-large-123b": 23.02,
+                       "mixtral-8x22b": 26.88}
 
 #: the served config whose step prices a config without an entry, by family
 FAMILY_STAND_IN = {"dense": "smollm-360m", "moe": "qwen3-moe-30b-a3b",

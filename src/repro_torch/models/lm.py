@@ -23,10 +23,12 @@ site); its cache is the SSM cache plus the shared block's K/V per site,
 slots when the config has a window.  Decode writes each step's entries
 into the cache in place.
 
-One deliberate divergence: the hybrid's decode rings over the shared
-cache's slot count, where the JAX package rings over ``cfg.window`` (equal
-wherever the JAX package runs, ``max_len >= window``; below that the JAX
-package raises and the port attends to the whole, unwrapped cache).
+One deliberate divergence: a ring cache (the hybrid's shared K/V, and the
+dense and MoE cache of a config whose every layer is windowed, mixtral's)
+rings its decode over the cache's own slot count, ``min(window,
+max_len)``, where the JAX package rings over ``cfg.window``.  The two are
+equal wherever the JAX package runs, ``max_len >= window``; below that the
+JAX package raises and the port attends to the whole, unwrapped cache.
 
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
@@ -459,9 +461,12 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
         x = _hybrid_decode(params, cfg, cache, x, ctx, pos)
         cache["pos"] = pos + 1
         return _logits(params, cfg, x), cache
+    # a ring cache rings over its own slot count, min(window, max_len)
+    # (module docstring); one shorter than the window cannot wrap without
+    # dropping a key the window keeps, so a step past it raises
     s_cache = cache["k"].shape[2]
-    ring = cfg.window if cache_kind(cfg) == "ring" else 0
-    if not ring and pos >= s_cache:
+    ring = s_cache if cache_kind(cfg) == "ring" else 0
+    if pos >= s_cache and (not ring or s_cache < cfg.window):
         raise ValueError(f"decode position {pos} is past the cache "
                          f"({s_cache} slots)")
     # the step's positions and rotary angles, built once for all layers

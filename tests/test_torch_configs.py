@@ -8,6 +8,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
+from repro.configs import list_archs as jlist_archs
 from repro.core import basin as jbasin
 from repro.core import planner as jplanner
 
@@ -18,7 +19,8 @@ torch.set_num_threads(1)
 
 ARCHS = ["smollm-360m", "repro-100m", "mamba2-1.3b", "gemma3-1b",
          "zamba2-1.2b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
-         "seamless-m4t-large-v2"]
+         "seamless-m4t-large-v2", "phi3-mini-3.8b", "mixtral-8x22b",
+         "mistral-large-123b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -44,9 +46,12 @@ def test_smollm_full_width():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ARCHS
+    """Every config of the JAX package's registry is ported, in its order,
+    and a name outside it raises."""
+    assert list_archs() == jlist_archs()
+    assert sorted(list_archs()) == sorted(ARCHS)
     with pytest.raises(KeyError):
-        get_config("mixtral-8x22b")
+        get_config("no-such-arch")
 
 
 BASINS = ["checkpoint_basin", "decode_stream_basin", "paper_basin",

@@ -185,9 +185,10 @@ def test_decode_hd256_kernel_matches_plain_on_card(card, S, fill, ring,
                                **TOL[torch.bfloat16])
 
 
-#: hd-128 groupings: qwen3-moe (32 query heads over 4 KV heads) and
-#: llava-next (32 over 8)
-HD128_HEADS = [(32, 4), (32, 8)]
+#: hd-128 groupings: qwen3-moe (32 query heads over 4 KV heads),
+#: llava-next (32 over 8), mixtral (48 over 8: 6) and mistral-large (96
+#: over 8: 12)
+HD128_HEADS = [(32, 4), (32, 8), (48, 8), (96, 8)]
 
 
 @pytest.mark.cuda
@@ -240,6 +241,105 @@ def test_decode_hd128_kernel_matches_plain_on_card(card, Hq, Hkv, S, fill,
     assert build.KERNELS["decode_attention"].launches == n + 1
     expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
     torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,window", [
+    (128, True, 0), (1024, True, 0), (1024, True, 256), (1024, False, 0),
+    (65, True, 0), (1, True, 0)])
+def test_flash_hd96_kernel_matches_plain_on_card(card, S, causal, window):
+    """The hd-96 instantiation (phi3-mini: 32 query heads over 32 KV
+    heads): two 64-column boxes a row, the second part filled, whose
+    columns past 95 TMA reads as zeros and the store leaves alone."""
+    g = torch.Generator(device=card).manual_seed(960 + S + window)
+    q, k, v = (torch.randn(2, 32, S, 96, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(3))
+    n = build.KERNELS["flash_attention"].launches
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    assert build.KERNELS["flash_attention"].launches == n + 1
+    expect = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 1024])
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_hd96_kernel_takes_model_views(card, S, window):
+    """phi3-mini's (B, S, H, 96) projections through ops.flash_attention
+    as transposed views (rows of 192 bytes, 6144 bytes apart), and an
+    output view whose columns past 95 belong to the next head: the store
+    must leave them alone."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=card).manual_seed(96 + S + window)
+    q, k, v = (torch.randn(2, S, 32, 96, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(3))
+    out = ops.flash_attention(q, k, v, window=window)
+    expect = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               window=window).transpose(1, 2)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+    sentinel = torch.full((2, S, 64, 96), 7.0, dtype=torch.bfloat16,
+                          device=card)
+    flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), window=window,
+                         out=sentinel[:, :, ::2].transpose(1, 2))
+    torch.testing.assert_close(sentinel[:, :, ::2].float(), expect.float(),
+                               **TOL[torch.bfloat16])
+    assert bool((sentinel[:, :, 1::2] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,fill,ring,window", [
+    (1057, 1056, False, 0), (1057, 1040, False, 0), (1057, 20, False, 0),
+    (1057, 1040, True, 0), (1057, 1040, False, 256), (100, 3, True, 0)])
+def test_decode_hd96_kernel_matches_plain_on_card(card, S, fill, ring,
+                                                  window):
+    """The hd-96 bf16 instantiation (a slot row is 12 lanes, padded to 16
+    so the score butterfly stays inside a slot) against phi3-mini's full,
+    partly filled and permuted 1057-slot caches."""
+    g = torch.Generator(device=card).manual_seed(S + fill + 96)
+    B, Hq, Hkv, hd = 4, 32, 32, 96
+    q = torch.randn(B, Hq, hd, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=card).expand(B, S)
+    k_pos = torch.where(pos <= fill, pos, -1).contiguous()
+    if ring:
+        perm = torch.randperm(S, generator=g, device=card)
+        k, v, k_pos = k[:, :, perm], v[:, :, perm], k_pos[:, perm].contiguous()
+    q_pos = torch.full((B,), fill, dtype=torch.int32, device=card)
+    n = build.KERNELS["decode_attention"].launches
+    out = decode_attention_bhd(q, k, v, k_pos, q_pos, window=window)
+    assert build.KERNELS["decode_attention"].launches == n + 1
+    expect = ref.decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_decode_hd96_kernel_over_a_wrapped_ring_of_model_views(card):
+    """ops.decode_attention on (B, S, H, 96) cache views, every slot
+    filled as a ring is after step 1500 of a 1024-slot ring."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import cache_positions_ring
+    g = torch.Generator(device=card).manual_seed(1500)
+    q = torch.randn(2, 1, 32, 96, generator=g, device=card).to(
+        torch.bfloat16)
+    k, v = (torch.randn(2, 1024, 32, 96, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(2))
+    k_pos = cache_positions_ring(1024, 1500, card)
+    q_pos = torch.full((1,), 1500, dtype=torch.int32, device=card)
+    out = ops.decode_attention(q, k, v, k_pos, q_pos, window=1024)
+    expect = ref.decode_attention_ref(
+        q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+        k_pos.expand(2, 1024), q_pos.expand(2), window=1024)
+    torch.testing.assert_close(out[:, 0].float(), expect.float(),
                                **TOL[torch.bfloat16])
 
 
@@ -497,6 +597,20 @@ def test_attention_kernels_refuse_an_unbuilt_head_dim(card, hd):
     """f32 is built at hd 64 only (128 and 256 are bf16's)."""
     q = torch.zeros(1, 3, 8, hd, device=card)
     k = torch.zeros(1, 1, 8, hd, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bhsd(q, k, k)
+    k_pos = torch.zeros(1, 8, dtype=torch.int32, device=card)
+    q_pos = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_bhd(q[:, :, 0], k, k, k_pos, q_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 80, 112])
+def test_attention_kernels_refuse_an_unbuilt_bf16_head_dim(card, hd):
+    """bf16 is built at hd 64, 96, 128 and 256 only."""
+    q = torch.zeros(1, 3, 8, hd, dtype=torch.bfloat16, device=card)
+    k = torch.zeros(1, 1, 8, hd, dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_bhsd(q, k, k)
     k_pos = torch.zeros(1, 8, dtype=torch.int32, device=card)

@@ -66,7 +66,8 @@ def _server(arch: str) -> Server:
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b", "gemma3-1b",
                                   "zamba2-1.2b", "qwen3-moe-30b-a3b",
                                   "llava-next-mistral-7b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "phi3-mini-3.8b",
+                                  "mistral-large-123b", "mixtral-8x22b"])
 def test_server_prices_its_first_stream_at_the_measured_h100_step(arch):
     server = _server(arch)
     step = H100_DECODE_STEP_MS[arch]
