@@ -188,17 +188,45 @@ Phases, one JSON line each:
    logits held under the kernel path's routing, near-ties checked layer
    by layer); and the prefill's 96 KV items staged under the accel
    digest, as in 4.
+16. ``mesh``, last: NCCL at a world of one (an ``all_reduce`` and an
+   ``all_to_all_single`` on the card); the kernels at the per-rank shapes
+   (flash phi3 B4 Hq8 Hkv8 S1024 hd 96, mixtral B2 Hq12 Hkv2 S4608 at
+   window 4096, a mistral-large stage B1 Hq96 Hkv8 S1024; decode phi3
+   8/8 over 1057 slots, mixtral 12/2 over the wrapped 4096-slot ring; the
+   digest of one rank's KV item; quantize and dequantize at 64 MiB); then
+   four ranks spawned once (``MeshWorld``), sharing the card over gloo,
+   each single-threaded with a 60 s collective timeout (a rank that
+   raises, hangs or exits non-zero fails the run with its traceback).
+   This process loads each model once from ``SEED``; the ranks view its
+   tensors by CUDA IPC (``weights.shard_params``).  Parts:
+   ``compressed_psum`` over the 4 ranks on 64 MiB of f32 each (the
+   quantize and dequantize kernels twice a rank; within 5% of the exact
+   sum; bit-equal to the same exchange on the CPU) and
+   ``hierarchical_psum`` on (2, 2), plain and compressed; phi3-mini at TP
+   4 (mesh (1, 4)): ``Server(cfg, mesh).generate`` (rank 0 streams
+   through the mover), then the logits over 4 x 1024 tokens and 32
+   teacher-forced steps held to this process's kernel path within
+   ``LOGIT_SHARE``, and that path to the plain path; rank 0 stages its
+   prefill's KV items under the accel digest; mixtral at EP 4 (10 of 56
+   layers, 2 x 4608 tokens, ``moe_ep`` at capacity 1.25): the logits held
+   to this process's run under the ranks' expert choices and kept pairs,
+   the share of dropped pairs, and one MoE layer through ``moe_ep`` and
+   ``moe_tp`` against ``moe_dispatch`` on the same 9216 tokens;
+   mistral-large through ``pipeline_forward`` (4 stages of 2 layers, 8 of
+   88, 4 microbatches of 1 x 1024) held to the same 8 layers run straight
+   through.  Every mesh time is labelled "4 ranks on one card over gloo:
+   not a multi-card time".
 
 The launch counts are set to 0 just before each path (the ten ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
-``resume``, ``fleet``, ``codesign``) and read just after; every kernel a serving path or the
-fleet runs must have run there, and none may run in ``train``.  Then the
-kernels line (launches summed over the paths, each kernel's record at
+``resume``, ``fleet``, ``codesign``, and in each rank each mesh part, the
+ranks' counts summed) and read just after; every kernel a serving path or
+the fleet runs must have run there, and none may run in ``train``.  Then
+the kernels line (launches summed over the paths, each kernel's record at
 the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2,
-llava, seamless, phi3, mistral_large, mixtral and qwen3_moe phases'
-shapes;
-``block_digest``, the TPU kernel's per-row function, is checked in phase 3
-and runs on no path, so its count is 0), the card line
+llava, seamless, phi3, mistral_large, mixtral, qwen3_moe and mesh
+phases' shapes; ``block_digest``, the TPU kernel's per-row function, is
+checked in phase 3 and runs on no path, so its count is 0), the card line
 as ``nvidia-smi`` prints it, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the result lines; without a card, or
 without the repository's ``src/`` beside this file, it exits 2 and prints
@@ -1877,10 +1905,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- qwen3-moe-30b-a3b: serve at full width, last and alone ---------
+    # ---- qwen3-moe-30b-a3b: serve at full width, alone ------------------
     t_phase = time.monotonic()
     shapes["qwen3_moe"] = qwen3_phase(torch, paths, rng, records)
     records.append(emit("phase_time", of="qwen3_moe",
+                        seconds=time.monotonic() - t_phase))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the mesh: four gloo ranks sharing the card, last ---------------
+    t_phase = time.monotonic()
+    shapes["mesh"] = mesh_phase(torch, paths, rng, records)
+    records.append(emit("phase_time", of="mesh",
                         seconds=time.monotonic() - t_phase))
 
     kernels = []
@@ -2814,6 +2850,761 @@ def qwen3_phase(torch, paths, rng, records) -> dict:
     records.append(emit("memory", of="qwen3 phase", peak_gib=peak / 2**30,
                         peak_ok=peak < 80e9))
     checked(records[-1], "qwen3 phase memory", ("peak_ok",))
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the mesh (four gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+#: every timing of the mesh phase is of this setup
+MESH_LABEL = "4 ranks on one card over gloo: not a multi-card time"
+MESH_RANKS = 4
+#: each rank's collective timeout (s), and the parent's wait for one part
+MESH_COLLECTIVE_S, MESH_PART_S = 60, 300
+#: phi3-mini at TP 4 (mesh (1, 4)): the phi3 phase's batch and prompt, 32
+#: teacher-forced decode steps; mixtral at EP 4 (mesh (1, 4)) at the
+#: mixtral phase's batch, prompt and depth; mistral-large through the
+#: pipeline: 4 stages of 2 layers, 4 microbatches of 1 x 1024 tokens
+MESH_PHI3 = dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, steps=32)
+MESH_MIXTRAL = dict(arch="mixtral-8x22b", batch=2, prompt=4608, layers=10)
+MESH_PIPE = dict(arch="mistral-large-123b", stages=4, per_stage=2, micro=4,
+                 seq=1024)
+#: compressed_psum: 64 MiB of f32 a rank; hierarchical_psum: 16 MiB
+CPSUM_VALUES, HPSUM_VALUES = 16 * 2**20, 4 * 2**20
+#: the reference test's bound on a compressed sum (its largest error as a
+#: share of the exact sum's largest magnitude)
+CPSUM_SHARE = 0.05
+#: the pipeline's output against the same 8 layers run straight through in
+#: one process, as a share of its largest magnitude: the same kernels at
+#: the same shapes, but another process may take other GEMM algorithms
+#: (a few bf16 ulps through 8 layers)
+PIPE_SHARE = 0.01
+
+
+def _mesh_ms(torch, fn) -> dict:
+    """Host wall ms and device ms (CUDA events on the rank's stream) of one
+    call of ``fn``, labelled as :data:`MESH_LABEL`."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                 "device_ms": s.elapsed_time(e), "label": MESH_LABEL}
+
+
+def _digest(torch, t) -> str:
+    return _sha(t.float().cpu().contiguous()) if t.is_cuda else _sha(t)
+
+
+def _rank_collectives(torch, rank, meshes):
+    """``compressed_psum`` over the 4 ranks on 64 MiB of f32 a rank (the
+    quantize and dequantize kernels), against the exact sum and against the
+    same exchange of the same values on the CPU (the plain quantizer:
+    the same codes, so the same bits); ``hierarchical_psum`` on (2, 2),
+    plain and with ``compress_inter``."""
+    from repro_torch.kernels import build
+    from repro_torch.parallel.collectives import (compressed_psum,
+                                                  hierarchical_psum, psum)
+    mesh, hmesh = meshes["tp"], meshes["hier"]
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    x = torch.randn(CPSUM_VALUES, generator=g, device="cuda")
+    exact = psum(x, mesh, "model")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got, t = _mesh_ms(torch, lambda: compressed_psum(x, mesh, "model"))
+    launches = build.launch_counts()
+    plain = compressed_psum(x.cpu(), mesh, "model")
+    err = (got - exact).abs().max().item()
+    out = {"values": CPSUM_VALUES, "launches": launches, **t,
+           "max_abs_err": err, "exact_scale": exact.abs().max().item(),
+           "plain_equal": bool(torch.equal(got.cpu(), plain)),
+           "digest": _digest(torch, got)}
+    hx = torch.randn(HPSUM_VALUES, generator=g, device="cuda")
+    hexact = psum(hx, hmesh, ("data", "model"))
+    for name, c in (("hier", False), ("hier_compressed", True)):
+        build.reset_launches()
+        h, t = _mesh_ms(torch, lambda: hierarchical_psum(
+            hx, hmesh, intra_axis="model", inter_axis="data",
+            compress_inter=c))
+        out[name] = {"values": HPSUM_VALUES, "launches": build.launch_counts(),
+                     **t, "max_abs_err": (h - hexact).abs().max().item(),
+                     "exact_scale": hexact.abs().max().item()}
+    return out
+
+
+def _forced_run(torch, server, tokens, forced, steps, ctx=None):
+    """Prefill ``tokens`` and ``steps`` decode steps teacher-forced with
+    ``forced``, under ``ctx`` (the server's unless given): the logits of
+    each, (steps + 1, B, V) f32 on the card, and the cache."""
+    ctx = ctx or server.ctx
+    inputs = {"tokens": server._on_device(tokens, torch.int32)}
+    logits, cache = server.api.prefill(server.params, inputs, ctx,
+                                       server.max_len)
+    out = [logits[:, -1].float()]
+    f = server._on_device(forced, torch.int32)
+    for t in range(steps):
+        logits, cache = server.api.decode_step(server.params, cache,
+                                               f[:, t:t + 1], ctx)
+        out.append(logits[:, -1].float())
+    return torch.stack(out), cache
+
+
+def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
+                ref_path=None, kv_digest=None):
+    """One rank of ``Server(cfg, mesh)`` on its views of the parent's
+    weights (``shard_params``: no copy): ``generate`` for GEN tokens (the
+    launch counts set to 0 just before and read just after; rank 0 streams
+    through the mover), one prefill and one decode step timed, the
+    teacher-forced logits over ``steps`` steps (phi3: with the parent's
+    tokens, held to its one-process logits in ``ref_path``; mixtral: with
+    the ranks' own tokens, the routing recorded for the parent), and, on
+    rank 0 with ``kv_digest``, its prefill's KV items staged under the
+    accel digest."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import ffn
+    from repro_torch.weights import shard_params
+    published = get_config(arch)
+    cfg = (dataclasses.replace(published, n_layers=layers) if layers
+           else published)
+    mesh = meshes["tp"]
+    server = Server(cfg, mesh, device="cuda",
+                    max_len=batch["tokens"].shape[1] + GEN + 1)
+    server.params = shard_params(lm, cfg, mesh)
+    out = {"params": sum(p.numel() for p in server.params.parameters())}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    tokens = server.generate(batch, GEN)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.monotonic() - t0
+    out["launches"] = build.launch_counts()
+    out["tokens"] = tokens
+    _, out["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
+    _, cache = server.prefill(batch)
+    tok = server._on_device(tokens[:, :1], torch.int32)
+    prompt = batch["tokens"].shape[1]
+
+    def step():
+        cache["pos"] = prompt
+        server.decode(cache, tok)
+    step()
+    _, out["decode_step"] = _mesh_ms(torch, step)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log = ffn.RouteLog() if cfg.moe else None
+    forced = tokens if ref_path is None else torch.load(ref_path)["tokens"]
+    logits, cache = _forced_run(
+        torch, server, batch["tokens"], forced, steps,
+        ctx=dataclasses.replace(server.ctx, routes=log))
+    out["logits_digest"] = _digest(torch, logits)
+    if ref_path is not None:
+        ref = torch.load(ref_path)["logits"].to("cuda")
+        out["logits_max_abs_err"] = (logits - ref).abs().amax(
+            dim=(1, 2)).tolist()
+        out["logits_scale"] = ref.abs().max().item()
+    else:
+        out["logits"] = logits.cpu()
+    if log is not None:
+        out["routes"] = [(e.cpu(), k.cpu(), first, total) for (e, _), (
+            k, first, total) in zip(log.calls, log.kept)]
+    if rank == 0 and kv_digest:
+        items = [cache[n][i] for i in range(cache["k"].shape[0])
+                 for n in ("k", "v")]
+        build.reset_launches()
+        t0 = time.monotonic()
+        received, report = _stage_kv(torch, items, kv_digest,
+                                     pageable_gbps(torch, items[0]))
+        out["stage"] = dict(
+            items=len(items), item_bytes=items[0].nbytes,
+            stage_s=time.monotonic() - t0, folds=report.checksum_folds,
+            launches=build.launch_counts(),
+            **kv_staged_ok(items, received, report))
+    del server, cache, logits
+    return out
+
+
+def _rank_moe_layer(torch, rank, meshes, lm, arch, layers, tokens):
+    """Layer 0's MoE on the same ``tokens`` x d_model unit-rms values on
+    every rank, through ``moe_ep`` (the rank's experts) and ``moe_tp``
+    (every expert's quarter of d_ff), each at the config's capacity
+    factor, with their routing and kept pairs; rank 0 writes both
+    outputs for the parent."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    from repro_torch.parallel.sharding import shard_tensor
+    cfg = get_config(arch)
+    mesh = meshes["tp"]
+    moe = lm.layers[0].moe
+    g = torch.Generator(device="cuda").manual_seed(tokens)
+    x = torch.randn(1, tokens, cfg.d_model, generator=g, device="cuda").to(
+        torch.bfloat16)
+    out = {}
+    for impl, fn, up, down in (
+            ("ep", ffn.moe_ep, ("model", None, None), ("model", None, None)),
+            ("tp", ffn.moe_tp, (None, None, "model"),
+             (None, "model", None))):
+        log = ffn.RouteLog()
+        (y, _, _), t = _mesh_ms(torch, lambda: fn(
+            x, moe.router, shard_tensor(moe.w_gate, up, mesh),
+            shard_tensor(moe.w_up, up, mesh),
+            shard_tensor(moe.w_down, down, mesh), cfg=cfg, mesh=mesh,
+            batch_axes=("data",), log=log))
+        keep, first, total = log.kept[0]
+        out[impl] = {"timing": t, "digest": _digest(torch, y),
+                     "experts": log.calls[0][0].cpu(), "keep": keep.cpu(),
+                     "first": first, "total": total}
+        if rank == 0:
+            out[impl]["y"] = y.cpu()
+    return out
+
+
+def _check_mesh_moe_layer(torch, cfg, moe, outs, T) -> dict:
+    """The ranks' ``moe_ep`` and ``moe_tp`` outputs (rank 0's; every rank's
+    digest) against the one-process ``moe_dispatch`` on the same T tokens
+    under each path's expert choices and kept pairs (a dropped pair gates
+    0): within ``MOE_TOL`` over every token, and over the tokens that lost
+    no pair; the share of dropped pairs."""
+    from repro_torch.models import ffn
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(1, T, cfg.d_model, generator=g, device="cuda").to(
+        torch.bfloat16)
+    out = {"tokens": T, "label": MESH_LABEL}
+    for impl in ("ep", "tp"):
+        parts = [o[impl] for o in outs]
+        k = cfg.moe.top_k
+        e = torch.zeros((T, k), dtype=torch.int64)
+        keep = torch.zeros((T, k), dtype=torch.bool)
+        for p in parts:
+            n = len(p["experts"])
+            e[p["first"]:p["first"] + n] = p["experts"]
+            keep[p["first"]:p["first"] + n] = p["keep"]
+        log = ffn.RouteLog(forced=[(e.cuda(), keep.cuda())])
+        want, _, _ = ffn.moe_dispatch(x, moe.router, moe.w_gate, moe.w_up,
+                                      moe.w_down, cfg=cfg, log=log)
+        got = parts[0]["y"].to("cuda")
+        err, ok = _within(torch, got, want, **MOE_TOL)
+        whole = keep.all(dim=1).cuda()
+        err_kept, ok_kept = _within(torch, got[0][whole], want[0][whole],
+                                    **MOE_TOL)
+        out[impl] = dict(max_abs_err=err, kept_tokens_max_abs_err=err_kept,
+                         dropped_pairs=int((~keep).sum()),
+                         dropped_share=float((~keep).float().mean()),
+                         tokens_with_a_drop=int((~whole).sum()),
+                         timing=[p["timing"] for p in parts])
+        out[f"{impl}_ok"] = ok and ok_kept
+        out[f"{impl}_experts"] = e
+    out["ep_tp_same_routing"] = float(
+        (out.pop("ep_experts").sort(-1).values
+         == out.pop("tp_experts").sort(-1).values).all(-1).float().mean())
+    out["same_ok"] = all(len({o[i]["digest"] for o in outs}) == 1
+                         for i in ("ep", "tp"))
+    return out
+
+
+def _rank_pipeline(torch, rank, meshes, lm, arch, ref_path):
+    """The rank's stage of ``pipeline_forward``: its 2 layers (views of the
+    parent's), the microbatches (the embeddings of the parent's tokens),
+    the output held to the parent's one-process forward in ``ref_path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.blocks import ShardCtx, dense_layer_apply
+    from repro_torch.parallel.pipeline import pipeline_forward
+    mesh = meshes["pipe"]
+    cfg = get_config(arch)
+    per = MESH_PIPE["per_stage"]
+    stage = mesh.axis_index("pod")
+    slab = list(lm.layers[stage * per:(stage + 1) * per])
+    ref = torch.load(ref_path)
+    x = lm.embed[ref["tokens"].to("cuda").long()]
+    pos = torch.arange(x.shape[2], dtype=torch.int32, device="cuda")
+    ctx = ShardCtx(impl="cuda")
+
+    def layer_fn(ps, h):
+        for lp in ps:
+            h = dense_layer_apply(h, lp, cfg, ctx, positions=pos)
+        return h
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with torch.no_grad():
+        y, t = _mesh_ms(torch, lambda: pipeline_forward(
+            layer_fn, slab, x, mesh=mesh, stage_axis="pod",
+            layers_per_stage=per))
+    launches = build.launch_counts()
+    want = ref["y"].to("cuda")
+    return {"launches": launches, "timing": t,
+            "max_abs_err": (y.float() - want.float()).abs().max().item(),
+            "scale": want.float().abs().max().item(),
+            "exact": bool(torch.equal(y, want)), "digest": _digest(torch, y)}
+
+
+MESH_PARTS = {"collectives": _rank_collectives, "serve": _rank_serve,
+              "moe_layer": _rank_moe_layer, "pipeline": _rank_pipeline}
+
+
+def mesh_rank(rank, world, port, cmds, results):
+    """A rank of the mesh phase (a spawned process): joins the gloo world,
+    builds the meshes, then runs each part the parent sends until told to
+    stop.  A part's error goes back to the parent with its traceback, and
+    the rank exits non-zero."""
+    import traceback
+    try:
+        sys.path.insert(0, SRC)
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch.mesh import init_world, make_mesh
+        init_world("gloo", rank=rank, world_size=world,
+                   init_method=f"tcp://127.0.0.1:{port}",
+                   timeout_s=MESH_COLLECTIVE_S)
+        meshes = {"tp": make_mesh((1, world), ("data", "model")),
+                  "hier": make_mesh((2, world // 2), ("data", "model")),
+                  "pipe": make_mesh((world,), ("pod",))}
+        while True:
+            part, kw = cmds.get()
+            if part is None:
+                break
+            with torch.no_grad():
+                out = MESH_PARTS[part](torch, rank, meshes, **kw)
+            del kw
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()
+            results.put((rank, part, out, None))
+        dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, None, None, traceback.format_exc()))
+        raise SystemExit(1)
+
+
+class MeshWorld:
+    """The mesh phase's four spawned ranks: :meth:`run` sends every rank a
+    part and waits for all four results; a rank's error, exit or silence
+    past :data:`MESH_PART_S` fails the run with every traceback that came
+    back.  :meth:`close` stops and joins every rank, killing what is left."""
+
+    def __init__(self, world: int):
+        import torch.multiprocessing as tmp
+        from repro_torch.launch.mesh import free_port
+        # torch's pickler: card tensors reach the ranks by CUDA IPC
+        ctx = tmp.get_context("spawn")
+        self.cmds = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        port = free_port()
+        # one thread a rank: four ranks share the host's cores
+        old = os.environ.get("OMP_NUM_THREADS")
+        os.environ["OMP_NUM_THREADS"] = "1"
+        try:
+            self.procs = [ctx.Process(target=mesh_rank, daemon=True,
+                                      args=(r, world, port, self.cmds[r],
+                                            self.results))
+                          for r in range(world)]
+            for p in self.procs:
+                p.start()
+        finally:
+            if old is None:
+                os.environ.pop("OMP_NUM_THREADS")
+            else:
+                os.environ["OMP_NUM_THREADS"] = old
+
+    def run(self, part: str, per_rank=None, **kw) -> list:
+        """Each rank's result of ``part`` (``per_rank(r)`` adds rank r's own
+        arguments), in rank order."""
+        for r, q in enumerate(self.cmds):
+            q.put((part, dict(kw, **(per_rank(r) if per_rank else {}))))
+        got, errors = {}, []
+        deadline = time.monotonic() + MESH_PART_S
+        import queue
+        while len(got) < len(self.procs) and not errors:
+            try:
+                rank, _, out, err = self.results.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self.procs)
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    errors.append(f"ranks {dead} exited" if dead else
+                                  f"no result of {part} in {MESH_PART_S} s")
+                continue
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+            else:
+                got[rank] = out
+        if errors:
+            # give the other ranks a moment to report theirs
+            t_end = time.monotonic() + 5
+            while time.monotonic() < t_end:
+                try:
+                    rank, _, _, err = self.results.get(timeout=1)
+                except queue.Empty:
+                    break
+                if err is not None:
+                    errors.append(f"rank {rank}:\n{err}")
+            self.close()
+            fail(f"the mesh phase's {part} part failed:\n"
+                 + "\n".join(errors))
+        return [got[r] for r in range(len(self.procs))]
+
+    def close(self) -> list:
+        for p, q in zip(self.procs, self.cmds):
+            if p.is_alive():
+                q.put((None, None))
+        for p in self.procs:
+            p.join(timeout=30)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        return [p.exitcode for p in self.procs]
+
+
+def _summed(outs, key="launches") -> dict:
+    total = {}
+    for o in outs:
+        for k, v in o[key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _assemble_routes(torch, outs) -> list:
+    """The ranks' routing of each MoE call as one run's: (experts (T, k),
+    kept (T, k)) over the call's whole token range, each rank's share
+    placed at its span (ranks that route the same tokens agree)."""
+    calls = []
+    for parts in zip(*(o["routes"] for o in outs)):
+        total = parts[0][3]
+        e = torch.zeros((total, parts[0][0].shape[1]), dtype=torch.int64)
+        k = torch.zeros((total, parts[0][0].shape[1]), dtype=torch.bool)
+        for experts, keep, first, _ in parts:
+            e[first:first + len(experts)] = experts
+            k[first:first + len(keep)] = keep
+        calls.append((e, k))
+    return calls
+
+
+def _rank_heads(cfg, m: int):
+    """The heads model rank 0 of a (1, m) mesh computes
+    (``ShardCtx.heads``): the kernels' per-rank shapes."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.blocks import ShardCtx
+    mesh = Mesh({"data": 1, "model": m}, ("data", "model"), rank=0,
+                coords={"data": 0, "model": 0})
+    return ShardCtx(mesh=mesh).heads(cfg)
+
+
+def nccl_check(torch) -> dict:
+    """The production backend on the card at a world of one: one
+    ``all_reduce`` and one ``all_to_all_single`` of card tensors."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port, init_world
+    init_world("nccl", rank=0, world_size=1,
+               init_method=f"tcp://127.0.0.1:{free_port()}", timeout_s=60)
+    try:
+        x = torch.arange(1024, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y)
+        z = torch.empty_like(x)
+        dist.all_to_all_single(z, x)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(y, x) and torch.equal(z, x))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    return emit("nccl", world=1, backend=backend, ok=ok)
+
+
+def mesh_phase(torch, paths, rng, records) -> dict:
+    """The mesh phase (module docstring, 16): NCCL at a world of one; the
+    kernels at the per-rank shapes; then four gloo ranks sharing the card,
+    spawned once: the collectives, phi3-mini at TP 4, mixtral at EP 4 (and
+    one MoE layer through ``moe_tp``), mistral-large through the
+    pipeline.  The weights are loaded once by this process and shared with
+    the ranks by CUDA IPC (``shard_params`` views them, no copy).  Returns
+    the kernel check records by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import ffn
+    from repro_torch.models.blocks import ShardCtx, dense_layer_apply
+    resident_mib = torch.cuda.memory_allocated() / 2**20
+    resident = emit("memory", of="mesh phase start",
+                    allocated_before_phase_mib=resident_mib,
+                    resident_ok=resident_mib < RESIDENT_LIMIT_MIB)
+    records.append(resident)
+    checked(resident, "mesh phase start", ("resident_ok",))
+    nccl = nccl_check(torch)
+    records.append(nccl)
+    checked(nccl, "NCCL at a world of one", ("ok",))
+
+    phi3 = get_config(MESH_PHI3["arch"])
+    mix = dataclasses.replace(get_config(MESH_MIXTRAL["arch"]),
+                              n_layers=MESH_MIXTRAL["layers"])
+    big = get_config(MESH_PIPE["arch"])
+    m = MESH_RANKS
+    bf16 = torch.bfloat16
+    pB, pS = MESH_PHI3["batch"], MESH_PHI3["prompt"]
+    xB, xS = MESH_MIXTRAL["batch"], MESH_MIXTRAL["prompt"]
+    ph, xh = _rank_heads(phi3, m), _rank_heads(mix, m)
+    g = torch.Generator(device="cuda").manual_seed(44)
+    kv_len = pS + GEN + 1
+    kv = torch.randint(0, 256, (pB * kv_len * ph.hkv * phi3.hd * 2,),
+                       generator=g, dtype=torch.uint8, device="cuda")
+    quant, dequant = check_quantize(torch, CPSUM_VALUES)
+    checks = {
+        "phi3 flash": check_flash(torch, B=pB, Hq=ph.hq, Hkv=ph.hkv, S=pS,
+                                  hd=phi3.hd, dtype=bf16, window=0),
+        "phi3 decode": check_decode(torch, B=pB, Hq=ph.hq, Hkv=ph.hkv,
+                                    S=kv_len, hd=phi3.hd, dtype=bf16,
+                                    fill=pS + GEN // 2, window=0,
+                                    ring=False),
+        "phi3 kv_item": check_digest_items(
+            torch, "one phi3 KV item of a rank", [[kv]], [[kv]]),
+        "mixtral flash": check_flash(torch, B=xB, Hq=xh.hq, Hkv=xh.hkv,
+                                     S=xS, hd=mix.hd, dtype=bf16,
+                                     window=mix.window),
+        "mixtral decode": check_decode(torch, B=xB, Hq=xh.hq, Hkv=xh.hkv,
+                                       S=min(mix.window, xS + GEN + 1),
+                                       hd=mix.hd, dtype=bf16,
+                                       fill=xS + GEN // 2,
+                                       window=mix.window, ring=False,
+                                       wrapped=True),
+        "mistral_large flash": check_flash(
+            torch, B=1, Hq=big.n_heads, Hkv=big.n_kv_heads,
+            S=MESH_PIPE["seq"], hd=big.hd, dtype=bf16, window=0),
+        "compressed_psum quantize": quant,
+        "compressed_psum dequantize": dequant,
+    }
+    records += checks.values()
+    checks_ok(checks.values())
+    del kv
+    kv_digest = digest_rate(checks["phi3 kv_item"])
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.monotonic()
+    world = MeshWorld(m)
+    try:
+        # ---- the collectives on card tensors -------------------------------
+        outs = world.run("collectives")
+        records.append(emit("phase_time", of="mesh spawn + collectives",
+                            seconds=time.monotonic() - t0))
+        paths["mesh_collectives"] = _summed(outs)
+        o = outs[0]
+        rec = emit(
+            "mesh", part="compressed_psum", ranks=m, values=o["values"],
+            block=256, timing=[x_["device_ms"] for x_ in outs],
+            wall_ms=[x_["wall_ms"] for x_ in outs], label=MESH_LABEL,
+            launches=paths["mesh_collectives"],
+            max_abs_err=max(x_["max_abs_err"] for x_ in outs),
+            exact_scale=o["exact_scale"],
+            within_ok=all(x_["max_abs_err"] <= CPSUM_SHARE * x_["exact_scale"]
+                          for x_ in outs),
+            plain_ok=all(x_["plain_equal"] for x_ in outs),
+            same_ok=len({x_["digest"] for x_ in outs}) == 1,
+            hier={n: {"max_abs_err": max(x_[n]["max_abs_err"] for x_ in outs),
+                      "exact_scale": o[n]["exact_scale"],
+                      "wall_ms": [x_[n]["wall_ms"] for x_ in outs],
+                      "device_ms": [x_[n]["device_ms"] for x_ in outs]}
+                  for n in ("hier", "hier_compressed")},
+            hier_ok=all(x_["hier"]["max_abs_err"]
+                        <= 1e-4 * x_["hier"]["exact_scale"] for x_ in outs),
+            hier_compressed_ok=all(
+                x_["hier_compressed"]["max_abs_err"]
+                <= CPSUM_SHARE * x_["hier_compressed"]["exact_scale"]
+                for x_ in outs))
+        records.append(rec)
+        checked(rec, "mesh collectives", ("within_ok", "plain_ok", "same_ok",
+                                           "hier_ok", "hier_compressed_ok"))
+        # each rank quantizes twice (its values, its reduced chunk) and
+        # dequantizes twice (the received chunks, the gathered result)
+        for name in ("quantize_int8", "dequantize_int8"):
+            _launches_per_layer(paths, "mesh_collectives", name, 2 * m)
+
+        # ---- phi3-mini at TP 4 -------------------------------------------
+        t_part = time.monotonic()
+        server = Server(phi3, device="cuda", max_len=kv_len)
+        server.load(SEED)
+        batch = _prompts(torch, phi3, pB, pS, rng)
+        tokens = server.generate(batch, GEN)
+        steps = MESH_PHI3["steps"]
+        one, _ = _forced_run(torch, server, batch["tokens"], tokens, steps)
+        plain, _ = _forced_run(torch, server, batch["tokens"], tokens, steps,
+                               ctx=ShardCtx(impl="ref"))
+        scale = plain.abs().max().item()
+        one_err = (one - plain).abs().amax(dim=(1, 2)).tolist()
+        ref_path = os.path.join(tmp, "phi3.pt")
+        torch.save({"tokens": torch.as_tensor(tokens),
+                    "logits": one.cpu()}, ref_path)
+        del plain
+        outs = world.run("serve", lm=server.params, arch=phi3.name,
+                         layers=None, batch=batch, steps=steps,
+                         ref_path=ref_path, kv_digest=kv_digest)
+        paths["mesh_phi3"] = _summed(outs)
+        stage = outs[0]["stage"]
+        paths["mesh_phi3_stage_kv"] = stage["launches"]
+        rank_err = max(max(o["logits_max_abs_err"]) for o in outs)
+        rec = emit(
+            "mesh", part="phi3 TP 4", arch=phi3.name, mesh=[1, m],
+            batch=pB, prompt=pS, gen=GEN, teacher_forced_steps=steps,
+            label=MESH_LABEL, params_per_rank=[o["params"] for o in outs],
+            generate_s=[o["generate_s"] for o in outs],
+            prefill=[o["prefill"] for o in outs],
+            decode_step=[o["decode_step"] for o in outs],
+            peak_gib=[o["peak_gib"] for o in outs],
+            launches=paths["mesh_phi3"],
+            one_process_vs_plain_max_abs_err=one_err, logits_scale=scale,
+            ranks_vs_one_process_max_abs_err=rank_err,
+            logits_tol=LOGIT_SHARE * scale,
+            one_process_ok=max(one_err) <= LOGIT_SHARE * scale,
+            logits_ok=rank_err <= LOGIT_SHARE * scale,
+            same_ok=len({o["logits_digest"] for o in outs}) == 1
+            and all((o["tokens"] == outs[0]["tokens"]).all() for o in outs),
+            tokens_ok=outs[0]["tokens"].shape == (pB, GEN),
+            stage={k: v for k, v in stage.items() if k != "launches"},
+            stage_launches=stage["launches"],
+            kv_staged_ok=stage["digest_ok"] and stage["bytes_ok"])
+        records.append(rec)
+        checked(rec, "phi3 on the mesh", ("one_process_ok", "logits_ok",
+                                          "same_ok", "tokens_ok",
+                                          "kv_staged_ok"))
+        need(paths, "mesh_phi3", ("flash_attention", "decode_attention"))
+        need(paths, "mesh_phi3_stage_kv", ("digest_items",))
+        _launches_per_layer(paths, "mesh_phi3_stage_kv", "digest_items",
+                            stage["folds"])
+        _launches_per_layer(paths, "mesh_phi3", "flash_attention",
+                            m * phi3.n_layers)
+        _launches_per_layer(paths, "mesh_phi3", "decode_attention",
+                            m * phi3.n_layers * (GEN - 1))
+        del server, one
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        records.append(emit("phase_time", of="mesh phi3",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- mixtral at EP 4 ---------------------------------------------
+        t_part = time.monotonic()
+        server = Server(mix, device="cuda", max_len=xS + GEN + 1)
+        server.load(SEED)
+        batch = _prompts(torch, mix, xB, xS, rng)
+        outs = world.run("serve", lm=server.params, arch=mix.name,
+                         layers=mix.n_layers, batch=batch, steps=4)
+        paths["mesh_mixtral"] = _summed(outs)
+        tokens = outs[0]["tokens"]
+        routes = _assemble_routes(torch, outs)
+        forced = ffn.RouteLog(forced=[(e.cuda(), k.cuda())
+                                      for e, k in routes])
+        one, _ = _forced_run(torch, server, batch["tokens"], tokens, 4,
+                             ctx=dataclasses.replace(server.ctx,
+                                                     routes=forced))
+        ranks_logits = outs[0]["logits"].to("cuda")
+        scale = one.abs().max().item()
+        err = (ranks_logits - one).abs().amax(dim=(1, 2)).tolist()
+        pairs = sum(k.numel() for _, k in routes)
+        dropped = sum(int((~k).sum()) for _, k in routes)
+        layer_outs = world.run("moe_layer", lm=server.params, arch=mix.name,
+                               layers=mix.n_layers, tokens=xB * xS)
+        layer = _check_mesh_moe_layer(torch, mix, server.params.layers[0].moe,
+                                      layer_outs, xB * xS)
+        rec = emit(
+            "mesh", part="mixtral EP 4", arch=mix.name, mesh=[1, m],
+            batch=xB, prompt=xS, gen=GEN, label=MESH_LABEL,
+            reduced={"n_layers": [mix.n_layers,
+                                  get_config(MESH_MIXTRAL["arch"]).n_layers]},
+            capacity_factor=mix.moe.capacity_factor,
+            params_per_rank=[o["params"] for o in outs],
+            generate_s=[o["generate_s"] for o in outs],
+            prefill=[o["prefill"] for o in outs],
+            decode_step=[o["decode_step"] for o in outs],
+            peak_gib=[o["peak_gib"] for o in outs],
+            launches=paths["mesh_mixtral"], route_calls=len(routes),
+            pairs=pairs, dropped_pairs=dropped,
+            dropped_share=dropped / pairs,
+            logits_max_abs_err=err, logits_scale=scale,
+            logits_tol=LOGIT_SHARE * scale,
+            logits_ok=max(err) <= LOGIT_SHARE * scale
+            and bool(torch.isfinite(ranks_logits).all()),
+            same_ok=len({o["logits_digest"] for o in outs}) == 1
+            and all((o["tokens"] == tokens).all() for o in outs),
+            greedy_ok=bool((ranks_logits.argmax(-1).T.cpu().numpy()
+                            == tokens[:, :5]).all()),
+            moe_layer=layer)
+        records.append(rec)
+        checked(rec, "mixtral on the mesh", ("logits_ok", "same_ok",
+                                             "greedy_ok"))
+        checked(layer, "mixtral's MoE layer on the mesh",
+                ("ep_ok", "tp_ok", "same_ok"))
+        need(paths, "mesh_mixtral", ("flash_attention", "decode_attention"))
+        _launches_per_layer(paths, "mesh_mixtral", "flash_attention",
+                            m * mix.n_layers)
+        del server, one, ranks_logits, forced, routes, layer_outs
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        records.append(emit("phase_time", of="mesh mixtral",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- mistral-large through the pipeline ----------------------------
+        t_part = time.monotonic()
+        n_layers = MESH_PIPE["stages"] * MESH_PIPE["per_stage"]
+        cut = dataclasses.replace(big, n_layers=n_layers)
+        from repro_torch.models.api import build as build_api
+        lm = build_api(cut).init(SEED, device="cuda")
+        toks = torch.randint(0, big.vocab, (MESH_PIPE["micro"], 1,
+                                            MESH_PIPE["seq"]),
+                             generator=rng, dtype=torch.int32)
+        x = lm.embed[toks.to("cuda").long()]
+        pos = torch.arange(MESH_PIPE["seq"], dtype=torch.int32,
+                           device="cuda")
+        ctx = ShardCtx(impl="cuda")
+        with torch.no_grad():
+            ys = []
+            for mb in x:
+                h = mb
+                for lp in lm.layers:
+                    h = dense_layer_apply(h, lp, cut, ctx, positions=pos)
+                ys.append(h)
+            y = torch.stack(ys)
+        ref_path = os.path.join(tmp, "pipe.pt")
+        torch.save({"tokens": toks, "y": y.cpu()}, ref_path)
+        outs = world.run("pipeline", lm=lm, arch=big.name,
+                         ref_path=ref_path)
+        paths["mesh_pipeline"] = _summed(outs)
+        rec = emit(
+            "mesh", part="mistral-large pipeline", arch=big.name,
+            stages=MESH_PIPE["stages"], layers_per_stage=MESH_PIPE["per_stage"],
+            microbatches=MESH_PIPE["micro"], microbatch=[1, MESH_PIPE["seq"]],
+            ticks=MESH_PIPE["micro"] + MESH_PIPE["stages"] - 1,
+            reduced={"n_layers": [n_layers, big.n_layers]},
+            label=MESH_LABEL, timing=[o["timing"] for o in outs],
+            launches=paths["mesh_pipeline"],
+            max_abs_err=max(o["max_abs_err"] for o in outs),
+            scale=outs[0]["scale"],
+            exact=[o["exact"] for o in outs],
+            pipeline_ok=all(o["max_abs_err"] <= PIPE_SHARE * o["scale"]
+                            for o in outs),
+            same_ok=len({o["digest"] for o in outs}) == 1)
+        records.append(rec)
+        checked(rec, "mistral-large's pipeline", ("pipeline_ok", "same_ok"))
+        _launches_per_layer(paths, "mesh_pipeline", "flash_attention",
+                            n_layers * MESH_PIPE["micro"])
+        del lm, x, y, ys
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        records.append(emit("phase_time", of="mesh pipeline",
+                            seconds=time.monotonic() - t_part))
+    finally:
+        codes = world.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(c != 0 for c in codes):
+        fail(f"the mesh ranks exited with {codes}")
     return checks
 
 

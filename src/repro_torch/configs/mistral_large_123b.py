@@ -2,8 +2,8 @@
 
 [hf:mistralai/Mistral-Large-Instruct-2407; unverified] 88L d_model=12288
 96H (GQA kv=8) d_ff=28672 vocab=32768.  About 123 B parameters, 246 GB in
-bf16: more than one 80 GB card holds, so the full depth waits for
-multi-device; one card serves it at published widths with the depth cut.
+bf16: more than one 80 GB card holds, so the full depth needs a mesh of
+several cards; one card serves it at published widths with the depth cut.
 Pure full attention.
 """
 

@@ -4,8 +4,8 @@
 (per expert) vocab=32768, window 4096 (per assignment).  Every layer is
 windowed, so the decode cache is a ring of min(4096, max_len) slots.
 About 141 B parameters, 282 GB in bf16: more than one 80 GB card holds,
-so the full depth waits for multi-device; one card serves it at published
-widths with the depth cut.
+so the full depth needs a mesh of several cards (``Server(cfg, mesh)``);
+one card serves it at published widths with the depth cut.
 """
 
 from repro_torch.models.config import ModelConfig, MoEConfig

@@ -70,8 +70,25 @@ Usage:
 
 mistral-large-123b (246 GB in bf16) and mixtral-8x22b (282 GB) do not fit
 one 80 GB card at full depth, as they fit no one TPU chip in the
-reference: on the card their full depth waits for multi-device
-(``chip_smoke.py`` serves each at published widths with the depth cut).
+reference: their full depth needs a mesh of several cards (below;
+``chip_smoke.py`` serves each at published widths with the depth cut).
+
+On a mesh (``Server(cfg, mesh)``, a :class:`~repro_torch.launch.mesh.Mesh`
+over a ``torch.distributed`` world, one process per rank), each rank holds
+its shards of the weights (``weights.init_sharded`` / ``shard_params``) and
+serves its rows of the batch, split over the data axes (the batch must
+divide over them); the dense and MoE families run there (tensor-parallel
+attention and MLP, expert- or tensor-parallel experts).  Every model rank
+ends a step with the same logits and tokens; the step's tokens of the
+whole batch are gathered over the data axes, and global rank 0 alone
+streams them through the mover.  On N cards, one rank per card over NCCL:
+
+  torchrun --nproc-per-node N prog.py     # prog.py: init_world("nccl",
+      # rank=RANK, world_size=WORLD_SIZE, init_method="env://"...),
+      # torch.cuda.set_device(LOCAL_RANK), mesh = make_host_mesh(),
+      # Server(cfg, mesh, device="cuda").load(), .generate(batch, n)
+
+The CLI takes no mesh, as the reference's takes none.
 
 The CLI draws the stub inputs as the reference's does: ``frames`` of
 ``--prompt-len`` frames for the encoder-decoder, ``frontend_len`` patch
@@ -97,8 +114,8 @@ from repro_torch.core.mover import MoverConfig, UnifiedDataMover
 from repro_torch.core.planner import plan_transfer
 from repro_torch.core.telemetry import TelemetryRegistry, get_registry
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_lib
 from repro_torch.models.api import build
-from repro_torch.models.blocks import ShardCtx
 
 #: floor for the fed-back client drain-rate estimate — one stalled client
 #: must not collapse the next request's plan to a zero-rate basin
@@ -178,18 +195,20 @@ def observed_client_gbps(registry: TelemetryRegistry) -> Optional[float]:
 
 
 class Server:
-    """Holds params on one device; streams tokens out through a burst
-    buffer."""
+    """Holds params on one device, or this rank's shards of them on a mesh;
+    streams tokens out through a burst buffer."""
 
-    def __init__(self, cfg, *, device: Optional[torch.device | str] = None,
+    def __init__(self, cfg, mesh=None, *,
+                 device: Optional[torch.device | str] = None,
                  max_len: int = 512,
                  telemetry: Optional[TelemetryRegistry] = None,
                  replan_every_tokens: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = build(cfg)
+        self.mesh = mesh
         self.max_len = max_len
-        self.ctx = ShardCtx(impl="cuda")
+        self.ctx = steps_lib.make_ctx(self.api, mesh, impl="cuda")
         self.telemetry = telemetry if telemetry is not None else get_registry()
         self.replan_every_tokens = replan_every_tokens
         self.params = None
@@ -199,8 +218,14 @@ class Server:
             maxlen=STEP_MS_WINDOW)
 
     def load(self, seed: int = 0) -> None:
-        """Random weights drawn on the device from ``seed``."""
-        self.params = self.api.init(seed, device=self.device)
+        """Random weights drawn on the device from ``seed``; on a mesh this
+        rank's shards of them (``weights.init_sharded``)."""
+        if self.mesh is None:
+            self.params = self.api.init(seed, device=self.device)
+        else:
+            from repro_torch.weights import init_sharded
+            self.params = init_sharded(self.cfg, seed, self.mesh,
+                                       device=self.device)
 
     def decode_step_ms(self) -> float:
         """The decode step's time as this server has seen it: the mean of
@@ -230,15 +255,26 @@ class Server:
 
     def _on_device(self, a, dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
+        """A batch entry on the device; on a mesh this rank's rows of it."""
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
             np.asarray(a))
+        if self.mesh is not None:
+            axes = self.ctx.batch_axes
+            dp = self.mesh.axis_size(axes)
+            if t.shape[0] % dp:
+                raise ValueError(f"a batch of {t.shape[0]} does not split "
+                                 f"over the data axes ({dp})")
+            n = t.shape[0] // dp
+            i = self.mesh.axis_index(axes)
+            t = t[i * n:(i + 1) * n]
         return t.to(self.device, dtype)
 
     def prefill(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """(last-token logits (B, 1, V), decode cache) for a prompt batch
         of numpy or torch tokens (B, S) and, for a VLM, its stub patch
         embeddings ``extra_embeds`` (B, frontend_len, D), for the
-        encoder-decoder its stub ``frames`` (B, S_enc, D)."""
+        encoder-decoder its stub ``frames`` (B, S_enc, D).  On a mesh B is
+        this rank's rows."""
         if self.params is None:
             raise RuntimeError("Server.load() first")
         inputs = {"tokens": self._on_device(batch["tokens"], torch.int32)}
@@ -253,6 +289,14 @@ class Server:
         """One decode step: (logits (B, 1, V), cache advanced in place)."""
         return self.api.decode_step(self.params, cache, tok, self.ctx)
 
+    def _whole_batch(self, tok: torch.Tensor) -> np.ndarray:
+        """A step's tokens of the whole batch on the host: on a mesh the
+        ranks' rows gathered over the data axes."""
+        if self.mesh is not None:
+            from repro_torch.parallel.collectives import all_gather
+            tok = all_gather(tok, self.mesh, self.ctx.batch_axes)
+        return tok.cpu().numpy()
+
     def generate(self, batch: dict, n_tokens: int, sink=None) -> np.ndarray:
         """Greedy-decode ``n_tokens``; each step's tokens stream to ``sink``
         through the unified mover (streaming transfer).  Staging depth
@@ -262,11 +306,13 @@ class Server:
         ``sink`` may be a *list* of callables — concurrent client streams:
         the token stream then replicates down one planned branch per
         client (decode fan-out, mover parallel mirror mode).  Returns the
-        (B, n_tokens) int32 tokens in decode order."""
+        (B, n_tokens) int32 tokens in decode order.  On a mesh every rank
+        returns them; global rank 0 alone streams them through the mover
+        to ``sink``."""
         logits, cache = self.prefill(batch)
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
-        out = [tok.cpu().numpy()]
-        n_batch = int(tok.shape[0])
+        out = [self._whole_batch(tok)]
+        n_batch = int(out[0].shape[0])
 
         def produce() -> Iterator[np.ndarray]:
             nonlocal tok, cache
@@ -279,10 +325,13 @@ class Server:
                     logits_i, cache = self.decode(cache, tok)
                     tok = torch.argmax(logits_i[:, -1], dim=-1,
                                        keepdim=True).to(torch.int32)
-                    step = tok.cpu().numpy()    # waits for the device
+                    step = self._whole_batch(tok)   # waits for the device
                     self.step_ms.append((time.perf_counter() - t0) * 1e3)
                     yield step
 
+        if self.mesh is not None and self.mesh.rank != 0:
+            out.extend(produce())
+            return np.concatenate(out, axis=1)
         sinks = list(sink) if isinstance(sink, (list, tuple)) else None
         collected: list[np.ndarray] = []
         if sinks and len(sinks) > 1:

@@ -1,21 +1,34 @@
-"""The train step on one card: forward, backward, AdamW.
+"""Step factories: the train step on one card, and the serving steps over
+a mesh.
 
 The JAX package's ``make_train_step`` (``launch/steps.py``) jits the same
-step over a mesh with shardings and donation; here there is one card, so
-the step is a plain function.  It runs the model's plain path
-(``impl="ref"``), as the JAX package's step does: none of the hand-written
-kernels has a backward pass, and their wrappers refuse inputs that
-require gradients.
+step over a mesh with shardings and donation; here it runs on one card
+(the sharded step, with FSDP's gathers and the compressed gradient
+exchange, waits: ROADMAP queue 1), as a plain function.  It runs the
+model's plain path (``impl="ref"``), as the JAX package's step does: none
+of the hand-written kernels has a backward pass, and their wrappers
+refuse inputs that require gradients.
+
+The serving steps (``make_serve_step``, ``make_prefill_step``) are plain
+functions over a :class:`~repro_torch.launch.mesh.Mesh`, nothing jitted:
+each rank runs them on its shards (``weights.shard_params``) and its rows
+of the batch, with the context ``make_ctx`` builds.
+:func:`cache_shardings` gives the JAX package's spec of each decode-cache
+leaf; the rank's own cache (``lm.init_lm_cache`` with the context) is its
+block of it where the heads divide the model axis (a head is never split:
+see ``models/blocks.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from repro_torch.core.codesign import CodesignPlan
 from repro_torch.models.api import ModelApi
 from repro_torch.models.blocks import ShardCtx
+from repro_torch.parallel.sharding import batch_axes_of
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWState, adamw_update, warmup_cosine
 
@@ -82,3 +95,98 @@ def _accumulated_grads(loss_fn, params: LM, weights: list[torch.Tensor],
             a.add_(g.float())
         loss_sum = loss_sum + loss.detach()
     return [a / n_micro for a in acc], (loss_sum / n_micro, aux)
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+def make_ctx(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
+             impl: str = "cuda") -> ShardCtx:
+    """The model context of ``mesh`` (None: one device).  A plan's
+    sequence parallelism is a memory layout that is not ported."""
+    if plan is not None and plan.seq_parallel:
+        raise NotImplementedError("seq_parallel is a memory layout that is "
+                                  "not ported (ROADMAP queue 3)")
+    axes = batch_axes_of(mesh) if mesh is not None else ("data",)
+    return ShardCtx(impl=impl, mesh=mesh, batch_axes=axes,
+                    model_axis="model")
+
+
+def make_serve_step(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
+                    *, impl: str = "cuda") -> tuple[Callable, ShardCtx]:
+    """Returns (serve_step, ctx): ``serve_step(params, cache, tokens) ->
+    (logits, cache)``, one decode token against the rank's cache (written
+    in place); every model rank gets the whole logits."""
+    ctx = make_ctx(api, mesh, plan, impl)
+
+    def step(params, cache: dict, tokens: torch.Tensor):
+        return api.decode_step(params, cache, tokens, ctx)
+    return step, ctx
+
+
+def make_prefill_step(api: ModelApi, mesh,
+                      plan: Optional[CodesignPlan] = None, *, max_len: int,
+                      impl: str = "cuda") -> tuple[Callable, ShardCtx]:
+    """Returns (prefill_step, ctx): ``prefill_step(params, batch) -> (last
+    logits, populated cache)`` on the rank's rows."""
+    ctx = make_ctx(api, mesh, plan, impl)
+
+    def step(params, batch: dict):
+        return api.prefill(params, batch, ctx, max_len)
+    return step, ctx
+
+
+def _dp(mesh) -> int:
+    out = 1
+    for a in batch_axes_of(mesh):
+        out *= mesh.shape[a]
+    return out
+
+
+def cache_shardings(cache_shapes: Mapping[str, Any], mesh) -> dict:
+    """The JAX package's decode-cache specs, by leaf kind.  ``cache_shapes``
+    maps each leaf's name (``k``, ``v``, ``shared_k``, ``conv``, ``ssm``,
+    ``pos``) to its whole, layer-stacked shape.
+
+    KV-like leaves (L, B, S, H, hd): batch over the data axes when it
+    divides, else the *sequence* over data (long-context batch 1); heads
+    over model when divisible, else the sequence takes the model axis.
+    Mamba states (L, B, ...): batch over data, feature dims over model when
+    divisible.  Scalars replicated."""
+    axes = batch_axes_of(mesh)
+    dp = _dp(mesh)
+    m = mesh.shape["model"]
+
+    def leaf(name: str, shape: tuple[int, ...]) -> tuple:
+        nd = len(shape)
+        if nd == 0:
+            return ()
+        if nd == 5:          # (L, B, S, H, hd) attention caches
+            L, B, S, H, _ = shape
+            b_ax = axes if (B % dp == 0 and B >= dp) else None
+            h_ax = "model" if H % m == 0 else None
+            if h_ax is None and S % m == 0:
+                s_ax = "model"
+            elif b_ax is None and S % dp == 0:
+                s_ax = axes
+            else:
+                s_ax = None
+            return (None, b_ax, s_ax, h_ax, None)
+        if nd == 4 and name in ("conv", ""):   # (L, B, W, C) conv state
+            L, B, W, C = shape
+            b_ax = axes if (B % dp == 0 and B >= dp) else None
+            c_ax = "model" if C % m == 0 else None
+            return (None, b_ax, None, c_ax)
+        if nd >= 3:          # (L, B, H, P, N) ssm state and friends
+            B = shape[1]
+            b_ax = axes if (B % dp == 0 and B >= dp) else None
+            spec = [None, b_ax] + [None] * (nd - 2)
+            if shape[2] % m == 0:
+                spec[2] = "model"
+            return tuple(spec)
+        return (None,) * nd
+
+    return {name: leaf(name, tuple(shape))
+            for name, shape in cache_shapes.items()}

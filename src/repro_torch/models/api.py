@@ -38,15 +38,22 @@ class ModelApi:
         return self.cfg.family == "encdec"
 
     def init(self, seed: int = 0, *, device: torch.device | str,
-             trainable: bool = False) -> lm_lib.LM | encdec_lib.EncDec:
+             trainable: bool = False, keep=None
+             ) -> lm_lib.LM | encdec_lib.EncDec:
         """Random parameters drawn on ``device`` from a generator seeded
         with ``seed`` (the same seed gives other numbers on another device
-        type); ``trainable`` ones require gradients."""
+        type); ``trainable`` ones require gradients.  A decoder's ``keep``
+        maps each parameter as it is drawn (``lm.init_lm``)."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        init = encdec_lib.init_encdec if self.encdec else lm_lib.init_lm
-        return init(self.cfg, generator=gen, device=device,
-                    trainable=trainable)
+        if self.encdec:
+            if keep is not None:
+                raise NotImplementedError(
+                    "the enc-dec family on a mesh waits (ROADMAP queue 1)")
+            return encdec_lib.init_encdec(self.cfg, generator=gen,
+                                          device=device, trainable=trainable)
+        return lm_lib.init_lm(self.cfg, generator=gen, device=device,
+                              trainable=trainable, keep=keep)
 
     def forward(self, params, tokens: torch.Tensor, ctx: ShardCtx, *,
                 extra_embeds: Optional[torch.Tensor] = None,

@@ -1,12 +1,31 @@
-"""Transformer building blocks and the (single-device) context threaded
-through the models.
+"""Transformer building blocks and the context threaded through the models.
 
 ``ShardCtx`` keeps the JAX package's name so a reader finds the
-counterpart; here it holds no mesh, only the kernel implementation:
-``"cuda"`` runs the hand-written kernels (their plain versions when the
-tensors lie on the CPU) and the MoE's sorted dispatch
-(``ffn.moe_dispatch``), ``"ref"`` the plain paths of ``attention``,
-``ssm.ssd_chunked`` and ``ffn.moe_ref``.
+counterpart.  It holds the kernel implementation: ``"cuda"`` runs the
+hand-written kernels (their plain versions when the tensors lie on the
+CPU) and the MoE's sorted dispatch (``ffn.moe_dispatch``), ``"ref"`` the
+plain paths of ``attention``, ``ssm.ssd_chunked`` and ``ffn.moe_ref``.
+
+On a mesh it also holds the mesh and its axes.  The JAX package marks its
+activations with GSPMD layout constraints (``shard_act``, ``shard_heads``,
+``shard_kv_cache``), which change no value; here each rank holds and
+computes its own part, Megatron-style, by the rule table of
+:mod:`repro_torch.parallel.sharding` (``serve_spec``):
+
+* attention over the rank's own query heads (and their KV heads), the
+  partial sums of ``wo`` summed over the model axis;
+* the MLP over the rank's slice of ``d_ff``, the partial sums of
+  ``w_down`` summed over the model axis;
+* the embedding vocab-parallel (a masked lookup, summed), the LM head
+  column-parallel (the logits gathered over the model axis);
+* the MoE through ``ffn.moe_ep`` or ``ffn.moe_tp`` (``choose_moe``).
+
+A head is never split: where the heads do not divide the model axis, the
+rank computes them whole (:class:`HeadPlan`).  Activations hold the
+rank's rows of the batch (split over the data axes) and are whole over
+the model axis.  The JAX package's sequence-parallel layouts
+(``seq_parallel``, ``seq_parallel_attn``) are memory layouts and are not
+ported.
 
 Parameters are ``nn.Module``s whose attribute names follow the JAX
 package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
@@ -19,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -31,23 +50,90 @@ from .config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """The attention heads one rank computes: ``hq`` query heads (the
+    ``wq`` columns and ``wo`` rows it holds) and ``hkv`` KV heads (its
+    cache's).  ``q_split``: the query heads are this rank's share of the
+    model axis, so the ``wo`` product is a partial sum.  ``kv``: where the
+    rank holds ``wk`` / ``wv`` whole (the KV heads do not divide the model
+    axis), the KV heads its query heads read, in order (one per query head
+    where they share no group); None where ``k`` already holds just the
+    rank's KV heads."""
+
+    hq: int
+    hkv: int
+    q_split: bool = False
+    kv: Optional[tuple[int, ...]] = None
+
+    def take_kv(self, k: torch.Tensor) -> torch.Tensor:
+        """(B, S, Hkv_held, hd) -> (B, S, hkv, hd)."""
+        return k if self.kv is None else k[:, :, list(self.kv)]
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Single-device model context."""
+    """Model context: the kernel implementation, a routing log and, on a
+    mesh, the mesh, its batch axes and model axis, and the MoE path."""
 
     impl: str = "cuda"             # attention / SSD kernels: cuda | ref
     #: records (or imposes) the MoE layers' routing decisions
     routes: Optional[ffn_lib.RouteLog] = None
+    mesh: Optional[Any] = None     # repro_torch.launch.mesh.Mesh
+    batch_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    moe_impl: str = "auto"         # auto | ep | tp | ref
 
     def __post_init__(self):
         if self.impl not in ("cuda", "ref"):
             raise ValueError(f"impl must be 'cuda' or 'ref', got {self.impl!r}")
+        if self.moe_impl not in ("auto", "ep", "tp", "ref"):
+            raise ValueError(f"moe_impl {self.moe_impl!r} is not one of "
+                             "auto, ep, tp, ref")
+
+    def _model_size(self) -> int:
+        return self.mesh.shape[self.model_axis] if self.mesh is not None else 1
+
+    def heads_shardable(self, h: int) -> bool:
+        m = self._model_size()
+        return m > 1 and h % m == 0
 
     def choose_moe(self, cfg: ModelConfig) -> str:
-        """The MoE path: ``"ref"`` (``ffn.moe_ref``, every expert on every
-        token: the JAX package's path on one device) under ``impl="ref"``,
-        else ``"dispatch"`` (``ffn.moe_dispatch``, the same function over
-        each expert's own tokens)."""
+        """The MoE path.  ``moe_impl`` unless it is ``"auto"``; on a mesh,
+        ``ffn.choose_moe_impl`` (``"ep"`` where the experts divide the
+        model axis, else ``"tp"``); without one ``"ref"`` (``ffn.moe_ref``,
+        every expert on every token: the JAX package's path on one device)
+        under ``impl="ref"``, else ``"dispatch"`` (``ffn.moe_dispatch``, the
+        same function over each expert's own tokens)."""
+        if self.moe_impl != "auto":
+            return self.moe_impl
+        if self.mesh is not None:
+            return ffn_lib.choose_moe_impl(cfg, self.mesh, self.model_axis)
         return "ref" if self.impl == "ref" else "dispatch"
+
+    def heads(self, cfg: ModelConfig) -> HeadPlan:
+        """This rank's :class:`HeadPlan` (every head without a mesh)."""
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        if not self.heads_shardable(Hq):
+            return HeadPlan(Hq, Hkv)
+        m = self._model_size()
+        if self.heads_shardable(Hkv):
+            return HeadPlan(Hq // m, Hkv // m, q_split=True)
+        hq, G = Hq // m, Hq // Hkv
+        lo = self.mesh.axis_index(self.model_axis) * hq
+        if lo % G == 0 and hq % G == 0:
+            kv = tuple(range(lo // G, (lo + hq) // G))
+        elif lo // G == (lo + hq - 1) // G:
+            kv = (lo // G,)                # all in one group
+        else:
+            kv = tuple(q // G for q in range(lo, lo + hq))
+        return HeadPlan(hq, len(kv), q_split=True, kv=kv)
+
+    def model_sum(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
+        """``x`` summed over the model axis when it is a ``partial`` sum."""
+        if not partial:
+            return x
+        from repro_torch.parallel.collectives import psum
+        return psum(x, self.mesh, self.model_axis)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -211,19 +297,28 @@ def self_attention_block(
     x: torch.Tensor, p: AttnParams, cfg: ModelConfig, ctx: ShardCtx, *,
     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """QKV projections + RoPE + causal attention over this step's keys.
-    Returns (out, k_new, v_new), k_new/v_new post-RoPE (the cache's
-    entries)."""
+    """QKV projections + RoPE + causal attention over this step's keys,
+    over the rank's heads (``ctx.heads``).  Returns (out, k_new, v_new),
+    k_new/v_new post-RoPE (the cache's entries)."""
     B, S, D = x.shape
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    hp = ctx.heads(cfg)
+    q = (x @ p.wq).reshape(B, S, hp.hq, cfg.hd)
+    k = hp.take_kv((x @ p.wk).reshape(B, S, -1, cfg.hd))
+    v = hp.take_kv((x @ p.wv).reshape(B, S, -1, cfg.hd))
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)   # new keys carry current positions
     out = attention(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window,
                     impl=ctx.impl)
-    out = out.reshape(B, S, cfg.q_dim)
-    return out @ p.wo, k, v
+    out = out.reshape(B, S, hp.hq * cfg.hd)
+    return ctx.model_sum(out @ p.wo, hp.q_split), k, v
+
+
+def mlp_apply(h: torch.Tensor, p: MlpParams, cfg: ModelConfig,
+              ctx: ShardCtx) -> torch.Tensor:
+    """SwiGLU over the ``d_ff`` columns the rank holds, summed over the
+    model axis where they are a share of ``cfg.d_ff``."""
+    y = ffn_lib.swiglu(h, p.w_gate, p.w_up, p.w_down)
+    return ctx.model_sum(y, p.w_gate.shape[-1] < cfg.d_ff)
 
 
 def dense_layer_apply(
@@ -235,8 +330,7 @@ def dense_layer_apply(
     attn_out, _, _ = self_attention_block(
         h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)
     x = x + attn_out
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + ffn_lib.swiglu(h2, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
+    return x + mlp_apply(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg, ctx)
 
 
 def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
@@ -246,12 +340,16 @@ def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
     router z-loss), the losses None for a dense layer's SwiGLU."""
     if isinstance(p, MoeLayer):
         m = p.moe
-        fn = (ffn_lib.moe_ref if ctx.choose_moe(cfg) == "ref"
-              else ffn_lib.moe_dispatch)
+        impl = ctx.choose_moe(cfg)
+        if impl in ("ep", "tp"):
+            fn = ffn_lib.moe_ep if impl == "ep" else ffn_lib.moe_tp
+            return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
+                      mesh=ctx.mesh, batch_axes=ctx.batch_axes,
+                      model_axis=ctx.model_axis, log=ctx.routes)
+        fn = ffn_lib.moe_ref if impl == "ref" else ffn_lib.moe_dispatch
         return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
                   log=ctx.routes)
-    return ffn_lib.swiglu(h, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down), \
-        None, None
+    return mlp_apply(h, p.mlp, cfg, ctx), None, None
 
 
 def moe_layer_apply(

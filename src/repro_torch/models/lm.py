@@ -30,6 +30,15 @@ max_len)``, where the JAX package rings over ``cfg.window``.  The two are
 equal wherever the JAX package runs, ``max_len >= window``; below that the
 JAX package raises and the port attends to the whole, unwrapped cache.
 
+On a mesh (``ShardCtx.mesh``) each rank holds its rows of the batch and
+its part of the weights (``models/blocks.py``): the embedding's vocab rows
+(a masked lookup, summed over the model axis), the LM head's vocab
+columns (the logits gathered over the model axis, so every model rank
+ends with the same whole logits), the attention heads of
+``ctx.heads(cfg)`` and a cache of just those heads.  The dense and MoE
+families run there; the SSM, hybrid and VLM families raise on a mesh whose
+model axis is larger than 1 (ROADMAP queue 1).
+
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
 backward pass keeps, as the JAX package's ``_remat`` does: ``"full"``
@@ -39,7 +48,7 @@ keeps every activation.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -59,6 +68,8 @@ from .config import ModelConfig
 
 #: families this module runs (the enc-dec family is ``models/encdec.py``)
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: families that run on a mesh whose model axis is larger than 1
+MESH_FAMILIES = ("dense", "moe")
 
 
 class Projector(nn.Module):
@@ -92,12 +103,19 @@ class LM(nn.Module):
         self.projector = projector
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig, ctx: Optional[ShardCtx] = None) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not a decoder of this "
             f"module (it runs {PORTED_FAMILIES}; the enc-dec family is "
             f"models/encdec.py)")
+    if (ctx is not None and ctx.mesh is not None
+            and ctx.mesh.shape[ctx.model_axis] > 1
+            and cfg.family not in MESH_FAMILIES):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh whose model "
+            f"axis is larger than 1 waits (ROADMAP queue 1); a mesh runs "
+            f"{MESH_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -106,26 +124,47 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
-            device: torch.device | str, trainable: bool = False) -> LM:
+            device: torch.device | str, trainable: bool = False,
+            keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+            ) -> LM:
     """Random parameters drawn on ``device`` from ``generator``; with
-    ``trainable`` they require gradients (serving leaves them frozen)."""
+    ``trainable`` they require gradients (serving leaves them frozen).
+    ``keep(name, tensor)``, given, maps each parameter as it is drawn
+    (named as in ``named_parameters()``) to what the model holds, e.g. a
+    rank's shard: the draws are the same, so the same seed gives the same
+    values, and no more than one layer is ever held whole."""
     cfg.validate()
     _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
-    embed = embed_init((V, D), **kw)
+    keep = keep or (lambda name, t: t)
+    embed = keep("embed", embed_init((V, D), **kw))
     init_layer = {"dense": init_dense_layer, "vlm": init_dense_layer,
                   "moe": init_moe_layer, "ssm": init_mamba_layer,
                   "hybrid": init_mamba_layer}[cfg.family]
-    layers = [init_layer(cfg, **kw) for _ in range(cfg.n_layers)]
-    shared = init_dense_layer(cfg, **kw) if cfg.family == "hybrid" else None
-    projector = (Projector(dense_init((D, D), D, **kw),
-                           dense_init((D, D), D, **kw))
+    layers = [_kept(init_layer(cfg, **kw), f"layers.{i}", keep)
+              for i in range(cfg.n_layers)]
+    shared = (_kept(init_dense_layer(cfg, **kw), "shared_attn", keep)
+              if cfg.family == "hybrid" else None)
+    projector = (_kept(Projector(dense_init((D, D), D, **kw),
+                                 dense_init((D, D), D, **kw)),
+                       "projector", keep)
                  if cfg.frontend else None)
-    final_norm = torch.zeros((D,), dtype=torch.float32, device=device)
-    lm_head = None if cfg.tie_embeddings else dense_init((D, V), D, **kw)
+    final_norm = keep("final_norm",
+                      torch.zeros((D,), dtype=torch.float32, device=device))
+    lm_head = (None if cfg.tie_embeddings
+               else keep("lm_head", dense_init((D, V), D, **kw)))
     return LM(embed, layers, final_norm, lm_head, shared,
               projector).requires_grad_(trainable)
+
+
+def _kept(module: nn.Module, prefix: str, keep) -> nn.Module:
+    """``module`` with each parameter replaced by ``keep(name, value)``."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        setattr(sub, leaf, _param(keep(f"{prefix}.{name}", p.data)))
+    return module
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +172,29 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """Token embeddings.  Where the rank holds a share of the vocab rows
+    (``[i * V/m, (i + 1) * V/m)`` for model index i), a masked lookup
+    summed over the model axis: one rank adds each token's row, the others
+    zeros, so the sum is exact."""
+    t = tokens.long()
+    rows = params.embed.shape[0]
+    if rows == cfg.vocab:
+        return params.embed[t]
+    t = t - ctx.mesh.axis_index(ctx.model_axis) * rows
+    mine = (t >= 0) & (t < rows)
+    x = torch.where(mine[..., None], params.embed[t.clamp(0, rows - 1)], 0)
+    return ctx.model_sum(x, True)
+
+
 def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-                  extra_embeds: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  extra_embeds: Optional[torch.Tensor] = None,
+                  ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Token embeddings; for a config with a frontend, the projected
-    ``extra_embeds`` (B, frontend_len, D) before them."""
-    x = params.embed[tokens.long()]
+    ``extra_embeds`` (B, frontend_len, D) before them.  ``ctx``: the mesh
+    the embedding's vocab rows split over (None: one device)."""
+    x = _embed(params, cfg, tokens, ctx)
     if cfg.frontend:
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} has a {cfg.frontend!r} frontend: "
@@ -151,10 +207,18 @@ def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor,
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The logits over the whole vocab: where the rank holds a share of the
+    head's vocab columns, its logits gathered over the model axis."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    logits = x @ head
+    if logits.shape[-1] < cfg.vocab:
+        from repro_torch.parallel.collectives import all_gather
+        logits = all_gather(logits, ctx.mesh, ctx.model_axis,
+                            dim=logits.ndim - 1)
+    return logits
 
 
 def _ring_pack(k_full: torch.Tensor, window: int) -> torch.Tensor:
@@ -217,8 +281,8 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     loss, router z-loss): for the MoE family each summed over the layers,
     as the JAX package's scan carries them; 0 for the other families.  A
     VLM's S counts its ``frontend_len`` projected ``extra_embeds`` first."""
-    _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens, extra_embeds)
+    _check_family(cfg, ctx)
+    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -235,7 +299,7 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                       cfg.remat)
         for lp, w in zip(params.layers, cfg.layer_windows()):
             x = body(x, lp, cfg, ctx, positions, w)
-    return _logits(params, cfg, x), lb, z
+    return _logits(params, cfg, x, ctx), lb, z
 
 
 def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -287,11 +351,12 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     hybrid prompt must be a whole number of SSD chunks long, as the
     reference asks.  A VLM's prompt is its ``frontend_len`` projected
     ``extra_embeds`` and then the tokens: ``max_len`` must hold both."""
-    x = _embed_inputs(params, cfg, tokens, extra_embeds)
+    _check_family(cfg, ctx)
+    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    cache = init_lm_cache(cfg, B, max_len, device=x.device)
+    cache = init_lm_cache(cfg, B, max_len, ctx, device=x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
         if S % cfg.ssm.chunk:
@@ -308,7 +373,7 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                 x = _shared_prefill(x, params.shared_attn, cfg, ctx,
                                     positions, cache, site)
         cache["pos"] = S
-        return _logits(params, cfg, x[:, -1:, :]), cache
+        return _logits(params, cfg, x[:, -1:, :], ctx), cache
 
     ring = cache_kind(cfg) == "ring"
     s_cache = _attn_cache_len(cfg, max_len)
@@ -328,7 +393,7 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             cache["v"][i, :, :S] = v_new
 
     cache["pos"] = S
-    return _logits(params, cfg, x[:, -1:, :]), cache
+    return _logits(params, cfg, x[:, -1:, :], ctx), cache
 
 
 def _mamba_prefill(x, lp: MambaLayer, cfg, ctx, mamba, i: int):
@@ -388,8 +453,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache: stacked bf16 K/V (L, B, S_cache, Hkv, hd), or for the
     SSM and hybrid families a ``MambaState`` stacked over layers (and the
     hybrid's shared K/V, (n_sites, B, S_cache, Hkv, hd) bf16), and the
-    host-side clock ``pos``."""
-    _check_family(cfg)
+    host-side clock ``pos``.  On a mesh ``batch`` is the rank's rows and
+    Hkv the KV heads of ``ctx.heads(cfg)``: the rank allocates its share."""
+    _check_family(cfg, ctx)
     cache: dict[str, Any] = {"pos": 0}
     if cfg.family in ("ssm", "hybrid"):
         st = ssm_lib.init_mamba_state(cfg, batch, device=device)
@@ -408,7 +474,8 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                                             device=device)
         return cache
     s = _attn_cache_len(cfg, max_len)
-    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
+    hkv = ctx.heads(cfg).hkv if ctx is not None else cfg.n_kv_heads
+    shape = (cfg.n_layers, batch, s, hkv, cfg.hd)
     cache["k"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     cache["v"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return cache
@@ -423,9 +490,10 @@ def _decode_attn_block(x, lp: DenseLayer | MoeLayer, cfg, ctx, k_cache,
     (x_out, k_cache, v_cache)."""
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
     B = x.shape[0]
-    q = (h @ lp.attn.wq).reshape(B, 1, cfg.n_heads, cfg.hd)
-    k = (h @ lp.attn.wk).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-    v = (h @ lp.attn.wv).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    hp = ctx.heads(cfg)
+    q = (h @ lp.attn.wq).reshape(B, 1, hp.hq, cfg.hd)
+    k = hp.take_kv((h @ lp.attn.wk).reshape(B, 1, -1, cfg.hd))
+    v = hp.take_kv((h @ lp.attn.wv).reshape(B, 1, -1, cfg.hd))
     q = rotate(q, angles)
     k = rotate(k, angles)
     if ring_len > 0:
@@ -439,8 +507,8 @@ def _decode_attn_block(x, lp: DenseLayer | MoeLayer, cfg, ctx, k_cache,
     else:
         out = attention(q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos,
                         causal=True, window=window, impl="ref")
-    out = out.reshape(B, 1, cfg.q_dim)
-    return x + out @ lp.attn.wo, k_cache, v_cache
+    out = out.reshape(B, 1, hp.hq * cfg.hd) @ lp.attn.wo
+    return x + ctx.model_sum(out, hp.q_split), k_cache, v_cache
 
 
 @torch.no_grad()
@@ -451,16 +519,17 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     (B, 1, V), cache) — the same cache, written in place, its clock
     advanced."""
     pos = cache["pos"]
-    x = params.embed[tokens.long()]     # a VLM's frontend is prefill's only
+    _check_family(cfg, ctx)
+    x = _embed(params, cfg, tokens, ctx)   # a VLM's frontend is prefill's only
     if cfg.family == "ssm":
         for i, lp in enumerate(params.layers):
             x = _mamba_decode(x, lp, cfg, cache["mamba"], i)
         cache["pos"] = pos + 1
-        return _logits(params, cfg, x), cache
+        return _logits(params, cfg, x, ctx), cache
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, cache, x, ctx, pos)
         cache["pos"] = pos + 1
-        return _logits(params, cfg, x), cache
+        return _logits(params, cfg, x, ctx), cache
     # a ring cache rings over its own slot count, min(window, max_len)
     # (module docstring); one shorter than the window cannot wrap without
     # dropping a key the window keeps, so a step past it raises
@@ -480,7 +549,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
                                      k_pos, angles)
         x = x + ffn_apply(rms_norm(x, lp.ln2, cfg.norm_eps), lp, cfg, ctx)[0]
     cache["pos"] = pos + 1
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, ctx), cache
 
 
 def _mamba_decode(x, lp: MambaLayer, cfg, mamba, i: int):

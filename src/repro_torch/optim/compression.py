@@ -11,8 +11,8 @@ Error feedback (1-bit-Adam style) keeps each step's quantization residual
 and adds it to the next step's gradient, over a list of tensors (the
 port's parameter order).  Its round trip (:func:`compress_decompress`)
 launches the quantize and dequantize kernels on a card tensor and runs
-their plain versions on a CPU one.  The compressed exchange itself
-(the JAX package's ``compressed_psum``) waits for multi-device.
+their plain versions on a CPU one.  The compressed exchange itself is
+``repro_torch.parallel.collectives.compressed_psum``.
 
 Arithmetic, per block of ``block`` values: ``scale = max|x| / 127`` by
 true (IEEE) division, ``q = clip(round_half_even(x / safe), -127, 127)``

@@ -1,0 +1,205 @@
+"""Collectives over the axes of a mesh, and the compressed and hierarchical
+gradient exchanges.
+
+The JAX package names an axis inside ``shard_map`` (``jax.lax.psum``,
+``all_gather``, ``all_to_all``, ``psum_scatter``, ``ppermute``); here each
+takes the :class:`~repro_torch.launch.mesh.Mesh` and the axes, and runs in
+the process group of the ranks that share this rank's other coordinates.
+Over an axis of size 1 each returns its input.
+
+The same ops run on a gloo world (CPU tensors, or card tensors of ranks
+that share a card) and on an NCCL one.  Where an op of one backend has no
+form for some tensor, it is written as ops that every form has, with the
+same result:
+
+* sums run in f32 and round once to the input's dtype (a bf16 partial sum
+  of a row-split matmul is summed as the one-device matmul accumulates,
+  in f32), which also needs no bf16 reduction from the backend;
+* ``psum_scatter`` is an ``all_to_all_single`` and a local f32 sum in
+  peer order, not ``reduce_scatter``: one order on every backend;
+* ``ppermute`` is an ``all_to_all_single`` whose splits are empty but for
+  the one peer each way: gloo's ``send`` / ``recv`` take no card tensor.
+
+:func:`compressed_psum` and :func:`hierarchical_psum` are the JAX
+package's (``parallel/collectives.py:41``, ``:82``): the paper's finding
+that when a path *is* collective-bound, fewer bytes on the wire is the
+lever.  On a card tensor the compressed exchange runs the quantize and
+dequantize kernels (``kernels/csrc/quantize.cu``), built for 256-value
+blocks: another block raises there.  On a CPU tensor it runs their plain
+versions at any block.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.compression import (dequantize_int8_blockwise,
+                                           quantize_int8_blockwise)
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum over ``axes``, in f32, rounded once to ``x``'s dtype; every
+    member gets the same result."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=mesh.group(axes))
+    return y.to(x.dtype)
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` in axis order (the
+    JAX package's ``all_gather(..., tiled=True)``)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=mesh.group(axes))
+    return out.movedim(0, dim).contiguous()
+
+
+def all_to_all(x: torch.Tensor, mesh, axes, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Chunk ``j`` of ``x`` along ``split_dim`` goes to member ``j``; the
+    chunks received, in member order, are concatenated along
+    ``concat_dim`` (``jax.lax.all_to_all(..., tiled=True)``)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    chunks = _exchange(torch.stack(x.chunk(n, split_dim)), mesh, axes)
+    return torch.cat(chunks.unbind(0), dim=concat_dim)
+
+
+def _exchange(stacked: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """(n, ...) -> (n, ...): row ``j`` to member ``j``; row ``i`` of the
+    result came from member ``i``."""
+    out = torch.empty_like(stacked)
+    dist.all_to_all_single(out, stacked.contiguous(), group=mesh.group(axes))
+    return out
+
+
+def _sum_rows(rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """rows[0] + rows[1] + ... in that order, in f32, rounded once."""
+    acc = rows[0].float()
+    for r in rows[1:]:
+        acc = acc + r.float()
+    return acc.to(dtype)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Sum over ``axes`` of chunk ``i`` of ``x`` along ``dim``, on member
+    ``i`` (``jax.lax.psum_scatter(..., tiled=True)``): an all-to-all, then
+    the peers' chunks summed in member order in f32."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    rows = _exchange(torch.stack(x.chunk(n, dim)), mesh, axes)
+    return _sum_rows(rows, x.dtype)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
+             ) -> torch.Tensor:
+    """Member ``i`` sends ``x`` to member ``i + shift`` (mod n) and returns
+    what member ``i - shift`` sent (``jax.lax.ppermute`` with the
+    permutation ``[(i, (i + shift) % n)]``)."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    i = mesh.axis_index(axis)
+    size = x.numel()
+    send = [size if j == (i + shift) % n else 0 for j in range(n)]
+    recv = [size if j == (i - shift) % n else 0 for j in range(n)]
+    out = torch.empty_like(x).reshape(-1)
+    dist.all_to_all_single(out, x.contiguous().reshape(-1),
+                           output_split_sizes=recv, input_split_sizes=send,
+                           group=mesh.group(axis))
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Compressed and hierarchical exchanges
+# ---------------------------------------------------------------------------
+
+
+def _quantize(x: torch.Tensor, block: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes (nb, block), f32 scales (nb,)): the kernel on a card
+    tensor (its blocks padded to a multiple of 8 with zero blocks), the
+    plain quantizer on a CPU tensor."""
+    if x.is_cuda:
+        from repro_torch.kernels import ops as kops
+        if block != kops.QUANT_BLOCK:
+            raise ValueError(f"the quantize kernels take blocks of "
+                             f"{kops.QUANT_BLOCK} values, not {block}")
+        return kops.quantize(x)
+    return quantize_int8_blockwise(x, block)
+
+
+def _dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Codes and scales -> f32 (nb * block,)."""
+    shape = (q.numel(),)
+    if q.is_cuda:
+        from repro_torch.kernels import ops as kops
+        return kops.dequantize(q, s, shape)
+    return dequantize_int8_blockwise(q, s, shape)
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis, *, block: int = 256
+                    ) -> torch.Tensor:
+    """int8-wire sum over ``axis`` (g members):
+
+    1. quantize the local tensor blockwise -> (codes int8, scales f32);
+    2. ``all_to_all_single``: member i receives chunk i of every peer's
+       codes and scales (the data movement of a reduce-scatter, int8 on
+       the wire);
+    3. dequantize and sum the g received chunks in f32, in member order;
+    4. re-quantize the reduced chunk; ``all_gather_into_tensor`` of codes
+       and scales;
+    5. dequantize -> the full reduced tensor, in ``x``'s dtype.
+
+    Deterministic, so it composes exactly with error feedback.  The
+    kernel pads the blocks to a multiple of 8 and the plain quantizer does
+    not; each block is summed and re-quantized alone, so the result does
+    not depend on where the chunks split."""
+    g = mesh.axis_size(axis)
+    if g == 1:
+        return x
+    q, s = _quantize(x, block)
+    pad = (-q.shape[0]) % g
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, block))])
+        s = torch.cat([s, s.new_zeros(pad)])
+    c = q.shape[0] // g
+    q_recv = _exchange(q.reshape(g, c, block), mesh, axis)
+    s_recv = _exchange(s.reshape(g, c), mesh, axis)
+    chunk = _sum_rows(_dequantize(q_recv.reshape(g * c, block),
+                                  s_recv.reshape(-1)).reshape(g, c * block),
+                      torch.float32)
+    qr, sr = _quantize(chunk, block)
+    q_all = all_gather(qr[:c].contiguous(), mesh, axis)
+    s_all = all_gather(sr[:c].contiguous(), mesh, axis)
+    flat = _dequantize(q_all, s_all)
+    return flat[:x.numel()].reshape(x.shape).to(x.dtype)
+
+
+def hierarchical_psum(x: torch.Tensor, mesh, *, intra_axis: str,
+                      inter_axis: str, compress_inter: bool = False,
+                      block: int = 256) -> torch.Tensor:
+    """Two-level sum: reduce-scatter over ``intra_axis`` (the cheap links),
+    sum the shard over ``inter_axis`` (the expensive ones; optionally
+    int8-compressed), all-gather back over ``intra_axis``.  Cross-axis
+    traffic drops by the intra axis's size."""
+    g = mesh.axis_size(intra_axis)
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % g
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shard = psum_scatter(flat.reshape(g, -1), mesh, intra_axis)[0]
+    if compress_inter:
+        shard = compressed_psum(shard, mesh, inter_axis, block=block)
+    else:
+        shard = psum(shard, mesh, inter_axis)
+    full = all_gather(shard, mesh, intra_axis)
+    return full[:x.numel()].reshape(x.shape).to(x.dtype)

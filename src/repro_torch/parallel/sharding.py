@@ -1,0 +1,214 @@
+"""Sharding rules: parameter names -> partition specs, and a rank's shard.
+
+The JAX package's rules (MaxText-style, resolved against the production
+mesh), copied rule for rule:
+
+* batch over the data axes ``("pod", "data")`` / ``("data",)``,
+* attention heads / FFN hidden / experts / vocab over ``"model"`` (TP/EP),
+* the *other* weight dim additionally over ``"data"`` (FSDP / ZeRO-3) when
+  ``fsdp=True``,
+* every rule checks divisibility and drops an axis that does not divide.
+
+A spec is a tuple with one entry per dim, as a ``PartitionSpec`` is: an
+axis name, a tuple of axis names, or None.  The rules key on the JAX
+package's tree path (``layers/attn/wq``); :func:`jax_path` gives it for a
+port parameter name (``layers.3.attn.wq``, one layer of the stacked leaf).
+A leaf's trailing dims take the rule, so the port's per-layer tensor takes
+the stacked leaf's spec without its leading layer entry.
+
+The rules read only ``mesh.shape`` (a dict of axis sizes) and
+``mesh.axis_names``; a :class:`repro_torch.launch.mesh.Mesh` made with
+``Mesh.abstract`` serves where no world exists.
+
+:func:`shard_tensor` cuts this rank's contiguous block out of a full
+tensor.  What a rank of a serving mesh holds (:func:`serve_spec`) is the
+rule table's spec without FSDP, with one change: a head is never split.
+Where the table would cut the heads' ``H * hd`` dim at a point inside a
+head (``_fit`` checks only that ``H * hd`` divides), the rank holds that
+weight whole and computes it whole, with the same values.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, Optional
+
+from repro_torch.models.config import ModelConfig
+
+#: the layer-stacked parameter lists (a leading L axis in the JAX tree)
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+Spec = tuple
+
+
+def batch_axes_of(mesh) -> tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(mesh.shape[a] for a in axis)
+    return mesh.shape[axis]
+
+
+def _fit(mesh, shape: tuple[int, ...], want: tuple) -> Spec:
+    """Drop axes that don't divide their dim."""
+    out = []
+    for dim, axis in zip(shape, want):
+        if axis is None:
+            out.append(None)
+            continue
+        size = _axis_size(mesh, axis)
+        out.append(axis if (size > 1 and dim % size == 0) else None)
+    return tuple(out)
+
+
+def _spec_for(path: str, shape: tuple[int, ...], cfg: ModelConfig, mesh, *,
+              fsdp: bool, ep: bool) -> Spec:
+    """Rule table keyed on the trailing parameter name."""
+    d = "data" if fsdp else None
+    name = path.split("/")[-1]
+    parent = path.split("/")[-2] if "/" in path else ""
+    nd = len(shape)
+
+    def tail(*axes):
+        """Right-align axes against shape (stacked-L leading dims -> None)."""
+        want = [None] * (nd - len(axes)) + list(axes)
+        return _fit(mesh, shape, tuple(want))
+
+    if name == "embed":
+        return tail("model", d)
+    if name == "lm_head":
+        return tail(d, "model")
+    if name in ("wq", "wk", "wv"):
+        return tail(d, "model")
+    if name == "wo":
+        return tail("model", d)
+    if parent == "moe" or (parent in ("", "moe") and name == "router"):
+        if name == "router":
+            return tail(d, None)
+        if name in ("w_gate", "w_up"):
+            return tail("model", d, None) if ep else tail(None, d, "model")
+        if name == "w_down":
+            return tail("model", None, d) if ep else tail(None, "model", d)
+    if name in ("w_gate", "w_up"):
+        return tail(d, "model")
+    if name == "w_down":
+        return tail("model", d)
+    if name == "in_proj":
+        return tail(d, "model")
+    if name == "out_proj":
+        return tail("model", d)
+    if name == "conv_w":
+        return tail(None, "model")
+    if name in ("conv_b", "A_log", "D", "dt_bias", "norm_w"):
+        return tail("model")
+    if name in ("w1",):       # projector
+        return tail(d, "model")
+    if name in ("w2",):
+        return tail("model", d)
+    if name == "frame_proj":
+        return tail(d, "model")
+    # norms / scalars / step counters
+    return (None,) * nd
+
+
+def jax_path(name: str) -> str:
+    """The JAX tree path of a port parameter name: ``layers.3.attn.wq`` ->
+    ``layers/attn/wq`` (layer 3 of the stacked leaf)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        parts = parts[:1] + parts[2:]
+    return "/".join(parts)
+
+
+def _ep(cfg: ModelConfig, mesh) -> bool:
+    return bool(cfg.moe and cfg.moe.n_experts % mesh.shape["model"] == 0)
+
+
+def param_specs(shapes: Mapping[str, tuple[int, ...]], cfg: ModelConfig,
+                mesh, *, fsdp: bool = True) -> dict[str, Spec]:
+    """The spec of every parameter (or any state whose entries mirror the
+    parameters, e.g. Adam moments), by port name: ``shapes`` maps each
+    name to its shape (``{n: p.shape for n, p in lm.named_parameters()}``)."""
+    ep = _ep(cfg, mesh)
+    return {n: _spec_for(jax_path(n), tuple(s), cfg, mesh, fsdp=fsdp, ep=ep)
+            for n, s in shapes.items()}
+
+
+def param_shardings(shapes: Mapping[str, tuple[int, ...]], cfg: ModelConfig,
+                    mesh, *, fsdp: bool = True) -> dict[str, tuple]:
+    """Where each parameter's block lies on this rank of ``mesh``: the
+    slices of the full tensor under :func:`param_specs` (what a JAX
+    ``NamedSharding`` resolves to on one device)."""
+    specs = param_specs(shapes, cfg, mesh, fsdp=fsdp)
+    return {n: shard_slices(tuple(shapes[n]), specs[n], mesh) for n in specs}
+
+
+def state_shardings(state: Any, names: list[str], cfg: ModelConfig, mesh,
+                    *, fsdp: bool = True) -> Any:
+    """Specs for an ``AdamWState``: its master, m and v lists mirror the
+    parameters (``names``, in ``lm.parameters()`` order), so each entry
+    takes its parameter's spec; the step counter is replicated."""
+    from repro_torch.optim.adamw import AdamWState
+    out = {}
+    for field in ("master", "m", "v"):
+        shapes = {n: tuple(t.shape) for n, t in zip(names, getattr(state,
+                                                                   field))}
+        specs = param_specs(shapes, cfg, mesh, fsdp=fsdp)
+        out[field] = [specs[n] for n in names]
+    return AdamWState(step=(), **out)
+
+
+def batch_specs(batch: Mapping[str, Any], mesh) -> dict[str, Spec]:
+    """Batch entries: the leading dim over the data axes."""
+    axes = batch_axes_of(mesh)
+    return {k: (axes,) + (None,) * (len(v.shape) - 1)
+            for k, v in batch.items()}
+
+
+def serve_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig,
+               mesh) -> Spec:
+    """What a rank of a serving mesh holds of parameter ``name`` (a port
+    name, or a JAX tree path: its trailing dims take the rule): the rule
+    table's spec without FSDP, with no head split (module docstring):
+    ``wq`` / ``wo`` whole unless the query heads divide the model axis,
+    ``wk`` / ``wv`` whole unless the query and the KV heads both do."""
+    path = jax_path(name)
+    spec = _spec_for(path, tuple(shape), cfg, mesh, fsdp=False,
+                     ep=_ep(cfg, mesh))
+    leaf = path.split("/")[-1]
+    if leaf in ("wq", "wk", "wv", "wo"):
+        m = mesh.shape["model"]
+        split = m > 1 and cfg.n_heads % m == 0
+        if leaf in ("wk", "wv"):
+            split = split and cfg.n_kv_heads % m == 0
+        if not split:
+            return (None,) * len(shape)
+    return spec
+
+
+def shard_slices(shape: tuple[int, ...], spec: Spec, mesh
+                 ) -> tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` under ``spec``."""
+    out = []
+    for dim, axis in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if axis is None:
+            out.append(slice(None))
+            continue
+        n = mesh.axis_size(axis)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not split over {axis} ({n})")
+        size = dim // n
+        i = mesh.axis_index(axis)
+        out.append(slice(i * size, (i + 1) * size))
+    return tuple(out)
+
+
+def shard_tensor(full, spec: Spec, mesh):
+    """This rank's contiguous block of ``full`` (a tensor or an array) under
+    ``spec``: along each sharded dim, block ``i`` of ``n``, where ``i`` is
+    the rank's index along the dim's axes.  A view where ``full`` allows."""
+    return full[shard_slices(tuple(full.shape), spec, mesh)]

@@ -15,6 +15,10 @@ encdec.EncDec`) stacks two layer lists, ``enc_layers`` (dense layers) and
 ``dec_layers`` (``attn``, ``cross``, ``mlp``, ``ln1``-``ln3``), beside
 ``embed``, ``enc_norm``, ``final_norm``, ``lm_head`` and ``frame_proj``.
 
+:func:`shard_params` gives one rank of a serving mesh its shards, from
+such a tree or from a whole ``LM``; :func:`init_sharded` draws them from a
+seed as ``ModelApi.init`` does, holding no more than one layer whole.
+
 :func:`to_jax_params` is its inverse (numpy leaves, bf16 as raw 2-byte
 values, :data:`repro_torch.tree.BF16_HOST`); :func:`jax_tree` lays any
 per-parameter list (parameters, AdamW's master and moments) out as the
@@ -27,6 +31,7 @@ layer 3 of the JAX leaf ``layers/attn/wq`` (so are ``enc_layers.*`` and
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -34,12 +39,15 @@ import torch
 
 from .device import resolve_device
 from .models.blocks import (MAMBA_PARAMS, MOE_PARAMS, AttnParams, DenseLayer,
-                            MambaLayer, MlpParams, MoeLayer, MoeParams)
+                            MambaLayer, MlpParams, MoeLayer, MoeParams,
+                            _param)
 from .models.config import ModelConfig
 from .models.encdec import DecLayer, EncDec
 from .models.lm import LM, Projector, _check_family
 from .optim.adamw import AdamWState
-from .tree import Stacked, host_array, map_leaves
+from .parallel.sharding import serve_spec, shard_tensor
+from .tree import (Stacked, flatten_with_paths, host_array, map_leaves,
+                   unflatten)
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -149,6 +157,46 @@ def from_jax_params(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
 
 #: the names of layer-stacked parameter lists (a leading L axis in JAX)
 STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def _shard_leaf(name: str, a, cfg: ModelConfig, mesh):
+    """``a``'s block on this rank: ``name`` a port name or a JAX path (a
+    stacked leaf keeps its leading layer dim whole)."""
+    spec = serve_spec(name, tuple(a.shape), cfg, mesh)
+    return a if not any(spec) else shard_tensor(a, spec, mesh)
+
+
+def shard_params(src: Any, cfg: ModelConfig, mesh, *,
+                 device: torch.device | str | None = None) -> LM:
+    """This rank's ``LM`` of a serving mesh: every parameter cut to the
+    block ``parallel.sharding.serve_spec`` gives the rank (the rule
+    table's spec, no head split).  ``src`` is the JAX model's parameter
+    tree (numpy leaves: each leaf is cut first, then built on ``device``
+    by :func:`from_jax_params`), or a whole ``LM``, whose tensors the
+    result views (no copy)."""
+    if isinstance(src, LM):
+        memo = {id(p): _param(_shard_leaf(n, p.data, cfg, mesh))
+                for n, p in src.named_parameters()}
+        return copy.deepcopy(src, memo)
+    _check_family(cfg)
+    return from_jax_params(unflatten(src, [
+        _shard_leaf(path, np.asarray(a), cfg, mesh)
+        for path, a in flatten_with_paths(src)]), cfg, device=device)
+
+
+def init_sharded(cfg: ModelConfig, seed: int, mesh, *,
+                 device: torch.device | str | None = None) -> LM:
+    """This rank's shards of the parameters ``ModelApi.init(seed)`` draws
+    on ``device`` (the same generator, the same draws): each parameter is
+    cut to its block as it is drawn (``init_lm(keep=...)``), so the rank
+    holds its shards and at most one layer whole, never the model."""
+    from .models.api import build
+    dev = resolve_device(device)
+
+    def keep(name, t):
+        out = _shard_leaf(name, t, cfg, mesh)
+        return out if out is t else out.clone()
+    return build(cfg).init(seed, device=dev, keep=keep)
 
 
 def param_names(lm: LM | EncDec) -> list[str]:

@@ -1,0 +1,291 @@
+"""Reference outputs of the JAX package on an emulated 4-device CPU mesh.
+
+    python tests/jax_mesh_refs.py {mesh|gpipe} OUT.npz
+
+jax pins the device count at its first import, so the test files that
+compare the port's ranks with the JAX package's mesh run this script in
+one subprocess, which sets ``xla_force_host_platform_device_count=4``
+before importing jax (as ``tests/test_distribution.py`` does).  Every
+input is drawn here from seeded numpy (or the JAX package's own seeded
+init) and written beside the outputs, so the port's ranks
+(``tests/torch_mesh_ranks.py``) read the same values.  Entries are named
+``<case>/<what>``; the JSON entry ``meta`` lists the cases.
+
+``mesh``: ``moe_ep`` / ``moe_tp`` (meshes (1, 4) and (2, 2), capacity
+factors 8.0 and 1.25, prefill- and decode-shaped tokens) with the pairs
+each shard kept; ``compressed_psum`` (blocks 64 and 256) and
+``hierarchical_psum`` (plain and compressed); ``cache_shardings`` for
+every config; the smoke phi3 at (1, 4) and smoke mixtral at (2, 2) served
+by ``Server(cfg, mesh)``: prefill logits and teacher-forced decode logits,
+in f32.  ``gpipe``: ``pipeline_forward`` of a dense stack over a stage
+axis of 4 and of 2.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+# four emulated devices, single-threaded, on one core at a lower priority:
+# the test run shares the host with wall-clock tests in other workers
+os.nice(10)
+os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
+    -1 if sys.argv[1:2] == ["mesh"] else -2]})
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_cpu_multi_thread_eigen=false")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.launch.mesh import _make_mesh  # noqa: E402
+from repro.parallel.compat import shard_map  # noqa: E402
+
+F32 = np.float32
+MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+#: MoE cases: name -> (mesh, capacity factor, tokens shape (B, S)); a
+#: decode shape's 2 tokens drop at neither factor, so it runs at 1.25 only
+MOE_CASES = {f"{m}-cf{cf}-{kind}": (m, cf, shape)
+             for m in ("1x4", "2x2")
+             for cf, kinds in ((8.0, ("prefill",)),
+                               (1.25, ("prefill", "decode")))
+             for kind, shape in (("prefill", (2, 16)), ("decode", (2, 1)))
+             if kind in kinds}
+#: served smoke models: name -> (arch, mesh, batch, prompt, steps, max_len)
+SERVE_CASES = {"phi3": ("phi3-mini-3.8b", "1x4", 4, 16, 4, 24),
+               "mixtral": ("mixtral-8x22b", "2x2", 2, 40, 4, 48)}
+#: compressed_psum cases: name -> (mesh, axis, values per rank, block)
+CPSUM_CASES = {"model-b64": ("1x4", "model", 1300, 64),
+               "model-b256": ("1x4", "model", 3000, 256),
+               "data-b64": ("2x2", "data", 1300, 64)}
+#: pipeline cases: name -> (mesh shape, axes, stage axis, n_micro)
+GPIPE_CASES = {"pod4": ((4,), ("pod",), "pod", 4),
+               "data2": ((2, 2), ("data", "model"), "data", 3)}
+
+
+def mesh_of(name):
+    return _make_mesh(MESHES[name], ("data", "model"))
+
+
+def moe_cfg(cf):
+    from repro.models.config import ModelConfig, MoEConfig
+    return ModelConfig(name="m", family="moe", n_layers=1, d_model=32,
+                       n_heads=4, n_kv_heads=2, head_dim=8, d_ff=64,
+                       vocab=64, moe=MoEConfig(n_experts=8, top_k=2,
+                                               d_ff_expert=64,
+                                               capacity_factor=cf))
+
+
+def moe_weights():
+    rng = np.random.default_rng(11)
+    return {"wr": (rng.standard_normal((32, 8)) * 0.5).astype(F32),
+            "wg": (rng.standard_normal((8, 32, 64)) * 0.1).astype(F32),
+            "wu": (rng.standard_normal((8, 32, 64)) * 0.1).astype(F32),
+            "wd": (rng.standard_normal((8, 64, 32)) * 0.1).astype(F32)}
+
+
+def shard_keep(ffn, x, wr, cfg, mesh, impl):
+    """Which (token, k) pairs the JAX package's shards keep: each shard of
+    tokens (the split of ``moe_ep`` / ``moe_tp``) routed and dispatched
+    alone (one jitted call over the stacked shards), in (token, k) order
+    over all tokens."""
+    B, S, D = x.shape
+    T, moe = B * S, cfg.moe
+    tok_axes = ffn._token_axes(T, mesh, ("data",), "model")
+    axes = tok_axes if impl == "ep" else tuple(a for a in tok_axes
+                                               if a != "model")
+    n = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    t = T // n
+    cap = ffn._capacity(t, moe.top_k, moe.n_experts, moe.capacity_factor)
+
+    def one(xs):
+        gates, eidx, _, _ = ffn.route(xs, jnp.asarray(wr), moe.top_k)
+        keep = ffn._local_dispatch(xs, eidx, gates, moe.n_experts, cap)[4]
+        order = jnp.argsort(eidx.reshape(-1), stable=True)
+        return jnp.zeros_like(keep).at[order].set(keep).reshape(
+            t, moe.top_k)
+    shards = jnp.asarray(x.reshape(n, t, D))
+    return np.asarray(jax.jit(jax.vmap(one))(shards)).reshape(T, moe.top_k)
+
+
+def moe_refs(out):
+    from repro.models import ffn
+    w = moe_weights()
+    for k, v in w.items():
+        out[f"moe/{k}"] = v
+    for case, (m, cf, shape) in MOE_CASES.items():
+        mesh, cfg = mesh_of(m), moe_cfg(cf)
+        x = np.random.default_rng(7 + shape[1]).standard_normal(
+            shape + (32,)).astype(F32)
+        out[f"moe/{case}/x"] = x
+        args = [jnp.asarray(a) for a in (x, w["wr"], w["wg"], w["wu"],
+                                          w["wd"])]
+        for impl, fn in (("ep", ffn.moe_ep), ("tp", ffn.moe_tp)):
+            y, lb, z = jax.jit(lambda *a: fn(*a, cfg=cfg, mesh=mesh,
+                                             batch_axes=("data",)))(*args)
+            out[f"moe/{case}/{impl}/y"] = np.asarray(y)
+            out[f"moe/{case}/{impl}/aux"] = np.asarray([lb, z], F32)
+            out[f"moe/{case}/{impl}/keep"] = shard_keep(ffn, x, w["wr"], cfg,
+                                                       mesh, impl)
+        y, lb, z = ffn.moe_ref(*args, cfg=cfg)
+        out[f"moe/{case}/ref/y"] = np.asarray(y)
+
+
+def per_rank(fn, mesh):
+    """``fn(row)`` on each device's row of a (4, ...) input (device (d, m)
+    takes row d * 2 + m), results stacked the same way."""
+    spec = P(("data", "model"))
+    return shard_map(lambda xl: fn(xl[0])[None], mesh=mesh, in_specs=spec,
+                     out_specs=spec, check_vma=False)
+
+
+def collective_refs(out):
+    from repro.optim.compression import quantize_int8_blockwise
+    from repro.parallel.collectives import compressed_psum, hierarchical_psum
+    for case, (m, axis, n, block) in CPSUM_CASES.items():
+        mesh = mesh_of(m)
+        x = np.random.default_rng(n + block).standard_normal(
+            (4, n)).astype(F32)
+        out[f"cpsum/{case}/x"] = x
+        f = per_rank(lambda xl: compressed_psum(xl, axis, block=block), mesh)
+        out[f"cpsum/{case}/out"] = np.asarray(jax.jit(f)(jnp.asarray(x)))
+        q, s = jax.vmap(jax.jit(
+            lambda r: quantize_int8_blockwise(r, block)))(jnp.asarray(x))
+        out[f"cpsum/{case}/q1"] = np.asarray(q)
+        out[f"cpsum/{case}/s1"] = np.asarray(s)
+    mesh = mesh_of("2x2")
+    x = np.random.default_rng(5).standard_normal((4, 1000)).astype(F32)
+    out["hpsum/x"] = x
+    for name, c in (("plain", False), ("compressed", True)):
+        f = per_rank(lambda xl: hierarchical_psum(
+            xl, intra_axis="model", inter_axis="data", compress_inter=c,
+            block=64), mesh)
+        out[f"hpsum/{name}/out"] = np.asarray(jax.jit(f)(jnp.asarray(x)))
+
+
+def cache_refs(out):
+    from repro.configs import get_config, list_archs
+    from repro.launch.steps import cache_shardings
+    from repro.models.api import build
+    from repro.models.blocks import ShardCtx
+    table = {}
+    for arch in list_archs():
+        api = build(get_config(arch))
+        for B in (1, 8):
+            abs_ = jax.eval_shape(
+                lambda: api.init_cache(B, 4096, ShardCtx(), enc_len=1024))
+            for m in MESHES:
+                sh = cache_shardings(abs_, mesh_of(m))
+                leaves = jax.tree_util.tree_flatten_with_path(abs_)[0]
+                specs = jax.tree_util.tree_leaves(
+                    sh, is_leaf=lambda v: hasattr(v, "spec"))
+                table[f"{arch}|{B}|{m}"] = {
+                    _leaf_name(p): [list(v.shape), _spec_json(s.spec)]
+                    for (p, v), s in zip(leaves, specs)}
+    out["cache/table"] = np.asarray(json.dumps(table))
+
+
+def _leaf_name(path):
+    last = path[-1]
+    return str(getattr(last, "key", getattr(last, "name", "")))
+
+
+def _spec_json(spec):
+    return [list(a) if isinstance(a, tuple) else a for a in tuple(spec)]
+
+
+def serve_refs(out):
+    """Each smoke model served on its mesh and on one device (``mesh=None``),
+    the same weights and tokens: prefill logits, then teacher-forced
+    decode logits, and the KV heads each run's cache ends with."""
+    from repro.configs import get_smoke_config
+    from repro.launch.serve import Server
+    for case, (arch, m, B, prompt, steps, max_len) in SERVE_CASES.items():
+        cfg = get_smoke_config(arch)
+        rng = np.random.default_rng(3)
+        tokens = rng.integers(0, cfg.vocab, (B, prompt), dtype=np.int32)
+        forced = rng.integers(0, cfg.vocab, (B, steps), dtype=np.int32)
+        out[f"serve/{case}/tokens"] = tokens
+        out[f"serve/{case}/forced"] = forced
+        # the mesh run's decode is compared only where it is at fault
+        # (mixtral: see tests/test_torch_mesh.py); phi3's mesh run prefills
+        runs = (("mesh", mesh_of(m), steps if case == "mixtral" else 0),
+                ("one", None, steps))
+        for run, mesh, n in runs:
+            server = Server(cfg, mesh, max_len=max_len)
+            params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                                  server.api.init(jax.random.PRNGKey(0)))
+            logits, cache = server._prefill(params, {"tokens": tokens})
+            outs = [np.asarray(logits)]
+            for t in range(n):
+                logits, cache = server._decode(
+                    params, cache, jnp.asarray(forced[:, t:t + 1]))
+                outs.append(np.asarray(logits))
+            out[f"serve/{case}/{run}/logits"] = np.stack(outs)
+            out[f"serve/{case}/{run}/cache_heads"] = np.asarray(
+                cache["k"].shape[3])
+        for path, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = "/".join(str(getattr(p, "key", p)) for p in path)
+            out[f"serve/{case}/params/{key}"] = np.asarray(v)
+
+
+def gpipe_refs(out):
+    from repro.configs import get_smoke_config
+    from repro.models import blocks
+    from repro.models.api import build
+    from repro.parallel.pipeline import pipeline_forward
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"), n_layers=8)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          build(cfg).init(jax.random.PRNGKey(1)))
+    layers = params["layers"]
+    for path, v in jax.tree_util.tree_flatten_with_path(layers)[0]:
+        key = "/".join(str(getattr(p, "key", p)) for p in path)
+        out[f"gpipe/layers/{key}"] = np.asarray(v)
+    S = 8
+    positions = jnp.arange(S, dtype=jnp.int32)
+    ctx = blocks.ShardCtx()
+    for case, (shape, axes, stage_axis, n_micro) in GPIPE_CASES.items():
+        mesh = _make_mesh(shape, axes)
+        n_stages = mesh.shape[stage_axis]
+        x = np.random.default_rng(n_micro).standard_normal(
+            (n_micro, 2, S, cfg.d_model)).astype(F32)
+
+        def layer_fn(stage, h):
+            def body(h, lp):
+                return blocks.dense_layer_apply(
+                    h, lp, cfg, ctx, positions=positions), None
+            return jax.lax.scan(body, h, stage)[0]
+
+        y = jax.jit(lambda p, xx: pipeline_forward(
+            layer_fn, p, xx, mesh=mesh, stage_axis=stage_axis,
+            layers_per_stage=cfg.n_layers // n_stages))(layers,
+                                                        jnp.asarray(x))
+        out[f"gpipe/{case}/x"] = x
+        out[f"gpipe/{case}/y"] = np.asarray(y)
+
+
+def main():
+    job, path = sys.argv[1], sys.argv[2]
+    assert len(jax.devices()) == 4, jax.devices()
+    out = {}
+    if job == "mesh":
+        moe_refs(out)
+        collective_refs(out)
+        cache_refs(out)
+        serve_refs(out)
+    elif job == "gpipe":
+        gpipe_refs(out)
+    else:
+        raise SystemExit(f"unknown job {job!r}")
+    out["meta"] = np.asarray(json.dumps({
+        "moe": MOE_CASES, "serve": SERVE_CASES, "cpsum": CPSUM_CASES,
+        "gpipe": {k: [list(v[0]), list(v[1]), v[2], v[3]]
+                  for k, v in GPIPE_CASES.items()}}))
+    np.savez(path, **out)
+    print("MARKER jax-mesh-refs-ok", job, len(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,280 @@
+"""One rank of the port's gloo world, for the mesh tests.
+
+    python tests/torch_mesh_ranks.py {mesh|gpipe} RANK WORLD PORT REF.npz OUTDIR
+
+The test files call :func:`run_world`: it runs the JAX package's
+reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
+of these at once, each single-threaded and niced, the world on one
+core, with a free port on localhost.  Each joins the gloo world (60 s collective timeout), builds
+the meshes, reads the inputs the JAX package's run wrote, computes the
+port's outputs on its shards and rows, and writes them to
+``OUTDIR/rank<RANK>.npz``.  It imports no JAX.  Any error leaves the
+process with a traceback and a non-zero exit.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch.mesh import init_world, make_mesh  # noqa: E402
+from repro_torch.models import ffn  # noqa: E402
+from repro_torch.models.config import ModelConfig, MoEConfig  # noqa: E402
+from repro_torch.parallel import collectives as coll  # noqa: E402
+from repro_torch.parallel.sharding import shard_tensor  # noqa: E402
+
+MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+WORLD = 4
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_world(job: str, out_dir, timeout_s: float = 240.0):
+    """The JAX package's reference outputs for ``job`` (one subprocess),
+    then the port's from one gloo world of :data:`WORLD` ranks.  Returns
+    (reference npz, [rank npz ...], {"jax_s", "ranks_s"}); raises with
+    the failing process's output if one fails or outlives ``timeout_s``."""
+    from repro_torch.launch.mesh import free_port
+    out_dir = str(out_dir)
+    src = os.path.join(HERE, "..", "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    ref = os.path.join(out_dir, "ref.npz")
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, os.path.join(HERE, "jax_mesh_refs.py"),
+                        job, ref], env=env, capture_output=True, text=True,
+                       timeout=timeout_s)
+    if r.returncode:
+        raise RuntimeError(f"the JAX reference run failed:\n{r.stderr[-4000:]}")
+    t1 = time.monotonic()
+    port = free_port()
+    logs = [os.path.join(out_dir, f"rank{i}.log") for i in range(WORLD)]
+    procs = []
+    for i in range(WORLD):
+        with open(logs[i], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), job, str(i),
+                 str(WORLD), str(port), ref, out_dir], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = t1 + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        text = "\n".join(f"--- rank {i} (exit {procs[i].returncode}):\n"
+                         + open(logs[i]).read()[-3000:] for i in bad)
+        raise RuntimeError(f"ranks {bad} failed:\n{text}")
+    ranks = [np.load(os.path.join(out_dir, f"rank{i}.npz"))
+             for i in range(WORLD)]
+    return np.load(ref), ranks, {"jax_s": t1 - t0,
+                                 "ranks_s": time.monotonic() - t1}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _tree(ref, prefix: str) -> dict:
+    """The ``prefix``-named entries of ``ref`` as a nested dict."""
+    out: dict = {}
+    for key in ref.files:
+        if key.startswith(prefix):
+            node = out
+            *path, leaf = key[len(prefix):].split("/")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = ref[key]
+    return out
+
+
+def _rows(a: np.ndarray, mesh) -> np.ndarray:
+    """This rank's rows of a batch split over the data axis."""
+    n = a.shape[0] // mesh.shape["data"]
+    i = mesh.coords["data"]
+    return a[i * n:(i + 1) * n]
+
+
+def moe_cfg(cf: float) -> ModelConfig:
+    return ModelConfig(name="m", family="moe", n_layers=1, d_model=32,
+                       n_heads=4, n_kv_heads=2, head_dim=8, d_ff=64,
+                       vocab=64, moe=MoEConfig(n_experts=8, top_k=2,
+                                               d_ff_expert=64,
+                                               capacity_factor=cf))
+
+
+def moe(out, ref, meta, meshes):
+    """``moe_ep`` (its experts' block of the weights; with the D dim also
+    over data and ``fsdp_axis="data"`` where data > 1) and ``moe_tp`` (its
+    slice of d_ff) on the rank's rows, with the pairs it kept."""
+    w = {k: _t(ref[f"moe/{k}"]) for k in ("wr", "wg", "wu", "wd")}
+    for case, (m, cf, _) in meta["moe"].items():
+        mesh, cfg = meshes[m], moe_cfg(cf)
+        x = _t(_rows(ref[f"moe/{case}/x"], mesh))
+        variants = {
+            "ep": (ffn.moe_ep, ("model", None, None), ("model", None, None),
+                   {}),
+            "tp": (ffn.moe_tp, (None, None, "model"), (None, "model", None),
+                   {}),
+        }
+        if mesh.shape["data"] > 1:
+            variants["ep_fsdp"] = (ffn.moe_ep, ("model", "data", None),
+                                   ("model", None, "data"),
+                                   {"fsdp_axis": "data"})
+        for impl, (fn, up_spec, down_spec, kw) in variants.items():
+            log = ffn.RouteLog()
+            y, lb, z = fn(x, w["wr"], shard_tensor(w["wg"], up_spec, mesh),
+                          shard_tensor(w["wu"], up_spec, mesh),
+                          shard_tensor(w["wd"], down_spec, mesh), cfg=cfg,
+                          mesh=mesh, batch_axes=("data",), log=log, **kw)
+            keep, first, total = log.kept[0]
+            out[f"moe/{case}/{impl}/y"] = y.numpy()
+            out[f"moe/{case}/{impl}/aux"] = np.asarray([lb, z], np.float32)
+            out[f"moe/{case}/{impl}/keep"] = keep.numpy()
+            out[f"moe/{case}/{impl}/span"] = np.asarray([first, total])
+
+
+def collectives(out, ref, meta, meshes, rank):
+    """Each primitive on rank-dependent values, and the two exchanges on
+    the JAX run's inputs (rank r takes row r: device (d, m) of a (2, 2)
+    mesh takes row 2d + m, as ``shard_map`` splits ``P(("data",
+    "model"))``)."""
+    mesh = meshes["2x2"]
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6) + 100 * rank
+    for axes in ("data", "model", ("data", "model")):
+        name = "+".join(mesh.axes(axes))
+        out[f"prim/psum/{name}"] = coll.psum(x, mesh, axes).numpy()
+        out[f"prim/psum_bf16/{name}"] = coll.psum(
+            x.bfloat16(), mesh, axes).float().numpy()
+        out[f"prim/all_gather/{name}"] = coll.all_gather(
+            x, mesh, axes, dim=1).numpy()
+        out[f"prim/all_to_all/{name}"] = coll.all_to_all(
+            x, mesh, axes, split_dim=0, concat_dim=1).numpy()
+        out[f"prim/psum_scatter/{name}"] = coll.psum_scatter(
+            x, mesh, axes, dim=0).numpy()
+    for axis in ("data", "model"):
+        for shift in (1, -1):
+            out[f"prim/ppermute/{axis}/{shift}"] = coll.ppermute(
+                x, mesh, axis, shift).numpy()
+    for case, (m, axis, _, block) in meta["cpsum"].items():
+        xr = _t(ref[f"cpsum/{case}/x"][rank])
+        out[f"cpsum/{case}/out"] = coll.compressed_psum(
+            xr, meshes[m], axis, block=block).numpy()
+    xr = _t(ref["hpsum/x"][rank])
+    for name, c in (("plain", False), ("compressed", True)):
+        out[f"hpsum/{name}/out"] = coll.hierarchical_psum(
+            xr, mesh, intra_axis="model", inter_axis="data",
+            compress_inter=c, block=64).numpy()
+
+
+def serve(out, ref, meta, meshes):
+    """The smoke models through ``Server(cfg, mesh)`` on the JAX model's
+    weights (f32): prefill and teacher-forced decode logits, the rank's
+    cache, and ``generate`` (rank 0 streams through the mover)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.weights import shard_params
+    for case, (arch, m, B, prompt, steps, max_len) in meta["serve"].items():
+        cfg, mesh = get_smoke_config(arch), meshes[m]
+        server = Server(cfg, mesh, device="cpu", max_len=max_len)
+        server.params = shard_params(_tree(ref, f"serve/{case}/params/"),
+                                     cfg, mesh, device="cpu")
+        tokens = ref[f"serve/{case}/tokens"]
+        forced = server._on_device(ref[f"serve/{case}/forced"])
+        logits, cache = server.prefill({"tokens": tokens})
+        outs = [logits]
+        for t in range(steps):
+            logits, cache = server.decode(cache, forced[:, t:t + 1])
+            outs.append(logits)
+        out[f"serve/{case}/logits"] = torch.stack(outs).numpy()
+        out[f"serve/{case}/cache_k"] = np.asarray(cache["k"].shape)
+        out[f"serve/{case}/params"] = np.asarray(
+            sum(p.numel() for p in server.params.parameters()))
+        out[f"serve/{case}/generated"] = server.generate(
+            {"tokens": tokens}, steps)
+        out[f"serve/{case}/streamed"] = np.asarray(
+            -1 if server.last_report is None else server.last_report.items)
+
+
+def gpipe(out, ref, meta):
+    """``pipeline_forward`` of the JAX run's 8-layer stack, each stage
+    holding its slab, with the layer function's calls counted."""
+    from repro_torch.models.blocks import ShardCtx, dense_layer_apply
+    from repro_torch.parallel.pipeline import pipeline_forward
+    from repro_torch.weights import _dense_layer
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"), n_layers=8)
+    layers = _tree(ref, "gpipe/layers/")
+    ctx = ShardCtx(impl="cuda")
+    for case, (shape, axes, stage_axis, _) in meta["gpipe"].items():
+        mesh = make_mesh(tuple(shape), tuple(axes))
+        n = mesh.axis_size(stage_axis)
+        per = cfg.n_layers // n
+        stage = mesh.axis_index(stage_axis)
+        slab = [_dense_layer(layers, torch.device("cpu"), i)
+                for i in range(stage * per, (stage + 1) * per)]
+        x = _t(ref[f"gpipe/{case}/x"])
+        positions = torch.arange(x.shape[2], dtype=torch.int32)
+        calls = []
+
+        def layer_fn(ps, h):
+            calls.append(1)
+            for lp in ps:
+                h = dense_layer_apply(h, lp, cfg, ctx, positions=positions)
+            return h
+
+        with torch.no_grad():
+            y = pipeline_forward(layer_fn, slab, x, mesh=mesh,
+                                 stage_axis=stage_axis, layers_per_stage=per)
+        out[f"gpipe/{case}/y"] = y.numpy()
+        out[f"gpipe/{case}/calls"] = np.asarray(len(calls))
+
+
+def main() -> None:
+    job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
+    rank, world = int(rank), int(world)
+    # one thread each, the whole world on one core (the JAX run's: one a
+    # job), at a lower priority: the ranks share the host with wall-clock
+    # tests in other workers
+    os.nice(10)
+    os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
+        -1 if job == "mesh" else -2]})
+    torch.set_num_threads(1)
+    init_world("gloo", rank=rank, world_size=world,
+               init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
+    ref = np.load(ref_path)
+    meta = json.loads(str(ref["meta"]))
+    out: dict = {}
+    if job == "mesh":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        moe(out, ref, meta, meshes)
+        collectives(out, ref, meta, meshes, rank)
+        serve(out, ref, meta, meshes)
+    elif job == "gpipe":
+        gpipe(out, ref, meta)
+    else:
+        raise SystemExit(f"unknown job {job!r}")
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
