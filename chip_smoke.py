@@ -214,14 +214,27 @@ Phases, one JSON line each:
    ``moe_tp`` against ``moe_dispatch`` on the same 9216 tokens;
    mistral-large through ``pipeline_forward`` (4 stages of 2 layers, 8 of
    88, 4 microbatches of 1 x 1024) held to the same 8 layers run straight
-   through.  Every mesh time is labelled "4 ranks on one card over gloo:
-   not a multi-card time".
+   through; then smollm-360m trained at full width (``MESH_TRAIN``):
+   ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP on the train phase's
+   8 x 512 batches, a checkpoint every 2 steps (rank 0 writes the
+   gathered leaves), a failure injected at step 3 (every rank restores
+   step 2), then the elastic restore of the last checkpoint onto (4, 1)
+   under FSDP and 2 more steps; its step-1 loss, gradient norm and each
+   gradient leaf's norm held to a one-card step on the same weights and
+   batch (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``, ``MESH_LEAF_RTOL``), a
+   one-card ``Trainer``
+   restoring the mesh's newest checkpoint with the manifest's hashes and
+   saving it again with the same bytes; per rank and step the wall ms and
+   the share spent in collectives, each save and restore, the peak
+   memory; no kernel launches.  Every mesh time is labelled "4 ranks on
+   one card over gloo: not a multi-card time".
 
 The launch counts are set to 0 just before each path (the ten ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
 ``resume``, ``fleet``, ``codesign``, and in each rank each mesh part, the
 ranks' counts summed) and read just after; every kernel a serving path or
-the fleet runs must have run there, and none may run in ``train``.  Then
+the fleet runs must have run there, and none may run in ``train`` or the
+mesh's training.  Then
 the kernels line (launches summed over the paths, each kernel's record at
 the smollm / mamba shape and, under ``shapes``, at the gemma3, zamba2,
 llava, seamless, phi3, mistral_large, mixtral, qwen3_moe and mesh
@@ -2870,6 +2883,18 @@ MESH_PHI3 = dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, steps=32)
 MESH_MIXTRAL = dict(arch="mixtral-8x22b", batch=2, prompt=4608, layers=10)
 MESH_PIPE = dict(arch="mistral-large-123b", stages=4, per_stage=2, micro=4,
                  seq=1024)
+#: smollm-360m trained at full width on the ranks: (2, 2) under FSDP + TP,
+#: ``steps`` steps of the train phase's batch and sequence, a checkpoint
+#: every ``every`` steps and a failure injected at step ``fail_at``; then
+#: the elastic restore onto (4, 1) under FSDP and ``more`` steps
+MESH_TRAIN = dict(arch="smollm-360m", steps=4, every=2, fail_at=3, more=2)
+#: the mesh's step-1 loss, gradient norm and worst leaf's gradient norm
+#: against the one-card step's on the same weights and batch, relative:
+#: the same bf16 model, its partial sums added in f32 in another order and
+#: rounded once.  Readings on the card: loss 5.1e-6, norm 5.7e-5, worst
+#: leaf 3.3e-3 (a norm weight's, 0.004 of 2.56); dropping the gradients'
+#: sum over the data axis moved the worst leaf by 42% (smoke width, CPU)
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_LEAF_RTOL = 1e-4, 1e-3, 2e-2
 #: compressed_psum: 64 MiB of f32 a rank; hierarchical_psum: 16 MiB
 CPSUM_VALUES, HPSUM_VALUES = 16 * 2**20, 4 * 2**20
 #: the reference test's bound on a compressed sum (its largest error as a
@@ -3143,8 +3168,126 @@ def _rank_pipeline(torch, rank, meshes, lm, arch, ref_path):
             "exact": bool(torch.equal(y, want)), "digest": _digest(torch, y)}
 
 
+def _rank_train(torch, rank, meshes, root):
+    """The rank's part of training smollm-360m at full width
+    (:data:`MESH_TRAIN`): ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP
+    with checkpoints into ``root`` and an injected failure, then a trainer
+    at (4, 1) under FSDP that restores the last checkpoint (the elastic
+    restore) and trains on.  Each save and restore timed on this rank;
+    rank 0's writes; the launch counts (set to 0 just before)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import Trainer
+    cfg = get_config(MESH_TRAIN["arch"])
+    total = MESH_TRAIN["steps"] + MESH_TRAIN["more"] + 1
+    saves, restores = [], []
+
+    class Timed(Trainer):
+        """The trainer, timing each save and restore on this rank."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            save = self.ckpt.maybe_save
+
+            def maybe_save(step, tree, **k):
+                t0 = time.monotonic()
+                done = save(step, tree, **k)
+                if done:
+                    saves.append({"step": step, "mesh": mesh_of(self),
+                                  "seconds": time.monotonic() - t0})
+                return done
+            self.ckpt.maybe_save = maybe_save
+
+        def try_restore(self):
+            t0 = time.monotonic()
+            ok = super().try_restore()
+            torch.cuda.synchronize()
+            restores.append({"step": self.step_idx if ok else None,
+                             "mesh": mesh_of(self),
+                             "seconds": time.monotonic() - t0})
+            return ok
+
+    def mesh_of(t):
+        return list(t.mesh.shape.values())
+
+    def source():
+        return SyntheticTokenSource(cfg, PipelineConfig(
+            TRAIN_BATCH, TRAIN_SEQ, seed=SEED), n_batches=16)
+
+    def steps(log):
+        return [{k: r[k] for k in ("step", "loss", "grad_norm", "wall_s",
+                                   "collective_s")} for r in log]
+    out = {"leaf_norms": []}
+    _record_leaf_norms(torch, out["leaf_norms"])
+    with torch.enable_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.monotonic()
+        a = Timed(cfg, meshes["hier"], plan=CodesignPlan(
+            sharding="fsdp_tp", seq_parallel=False), device="cuda",
+            ckpt_dir=root, ckpt_every=MESH_TRAIN["every"], total_steps=total)
+        a.init_state(SEED)
+        out["params_held"] = sum(p.numel() for p in a.params.parameters())
+        out["log"] = steps(a.run(source(), MESH_TRAIN["steps"],
+                                 inject_failure_at=MESH_TRAIN["fail_at"]))
+        torch.cuda.synchronize()
+        out["writes"] = list(a.ckpt.history)
+        out["peak_gib_2x2"] = torch.cuda.max_memory_allocated() / 2**30
+        del a
+        gc.collect()
+        b = Timed(cfg, meshes["fsdp"], plan=CodesignPlan(
+            sharding="fsdp", seq_parallel=False), device="cuda",
+            ckpt_dir=root, ckpt_every=10**6, total_steps=total)
+        b.init_state(SEED)
+        out["elastic_ok"] = b.try_restore()
+        out["elastic_log"] = steps(b.run(source(), MESH_TRAIN["more"]))
+        torch.cuda.synchronize()
+        out["run_s"] = time.monotonic() - t0
+        out["launches"] = build.launch_counts()
+        out["writes"] += b.ckpt.history
+        out["final_step"] = b.step_idx
+        del b
+    out.update(saves=saves, restores=restores,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _record_leaf_norms(torch, into: list) -> None:
+    """Wraps the train step's AdamW update in this rank so that its first
+    call appends to ``into`` the whole norm of each gradient leaf (its
+    squares summed over the axes the leaf is split over, each leaf held
+    whole on several ranks counted once), in parameter order."""
+    from repro_torch.launch import steps
+    from repro_torch.parallel.collectives import psum
+    update = steps.adamw_update
+
+    def first_call(grads, state, params, *, mesh=None, split_axes=None,
+                   **kw):
+        if not into:
+            groups: dict = {}
+            for i, axes in enumerate(split_axes):
+                key = tuple(a for a in mesh.axis_names if a in axes)
+                groups.setdefault(key, []).append(i)
+            sq = [0.0] * len(grads)
+            for key in sorted(groups):
+                idx = groups[key]
+                part = psum(torch.stack([torch.sum(torch.square(
+                    grads[i].float())) for i in idx]), mesh, key)
+                for i, v in zip(idx, part.tolist()):
+                    sq[i] = v
+            into.extend(math.sqrt(v) for v in sq)
+        return update(grads, state, params, mesh=mesh,
+                      split_axes=split_axes, **kw)
+    steps.adamw_update = first_call
+
+
 MESH_PARTS = {"collectives": _rank_collectives, "serve": _rank_serve,
-              "moe_layer": _rank_moe_layer, "pipeline": _rank_pipeline}
+              "moe_layer": _rank_moe_layer, "pipeline": _rank_pipeline,
+              "train": _rank_train}
 
 
 def mesh_rank(rank, world, port, cmds, results):
@@ -3166,6 +3309,7 @@ def mesh_rank(rank, world, port, cmds, results):
                    timeout_s=MESH_COLLECTIVE_S)
         meshes = {"tp": make_mesh((1, world), ("data", "model")),
                   "hier": make_mesh((2, world // 2), ("data", "model")),
+                  "fsdp": make_mesh((world, 1), ("data", "model")),
                   "pipe": make_mesh((world,), ("pod",))}
         while True:
             part, kw = cmds.get()
@@ -3318,6 +3462,131 @@ def nccl_check(torch) -> dict:
     finally:
         dist.destroy_process_group()
     return emit("nccl", world=1, backend=backend, ok=ok)
+
+
+def mesh_train(torch, world, tmp, paths) -> dict:
+    """smollm-360m trained at full width on the ranks (``_rank_train``),
+    checked against this process: the step-1 loss and gradient norm of a
+    one-card step on the same weights and batch; every rank restored step
+    ``every`` after the failure, then the last checkpoint at (4, 1); the
+    one-card trainer restores the mesh's newest checkpoint with the
+    manifest's hashes, and its save of that state has the mesh's bytes.
+    The record of the part, checks included (``*_ok``)."""
+    from repro_torch.checkpoint.manager import (complete_steps,
+                                                save_checkpoint,
+                                                verify_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import clip_by_global_norm
+    cfg = get_config(MESH_TRAIN["arch"])
+    root = os.path.join(tmp, "mesh_ckpt")
+    one = Trainer(cfg, device="cuda", ckpt_dir=root)
+    one.init_state(SEED)
+    first = next(iter(SyntheticTokenSource(cfg, PipelineConfig(
+        TRAIN_BATCH, TRAIN_SEQ, seed=SEED), n_batches=1)))
+    first = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    loss, _ = one.api.loss(one.params, first, one.ctx)
+    names = [n for n, _ in one.params.named_parameters()]
+    grads = torch.autograd.grad(loss, list(one.params.parameters()))
+    one_loss = loss.item()
+    one_norm = clip_by_global_norm(grads, 1.0)[1].item()
+    one_leaves = [math.sqrt(torch.sum(torch.square(g.float())).item())
+                  for g in grads]
+    del loss, grads, first
+    torch.cuda.empty_cache()
+
+    outs = world.run("train", root=root)
+    paths["mesh_train"] = _summed(outs)
+    logs = [o["log"] for o in outs]
+    # every rank logs the same steps and losses (the loss is summed over
+    # the ranks); the gradient norm sums the squares of the replicated
+    # norms' gradients on each rank, so it is held to a last-bit rtol
+    mine = lambda o: o["log"] + o["elastic_log"]
+    same_ok = all(
+        [(r["step"], r["loss"]) for r in mine(o)]
+        == [(r["step"], r["loss"]) for r in mine(outs[0])]
+        and all(math.isclose(a["grad_norm"], b["grad_norm"], rel_tol=1e-6)
+                for a, b in zip(mine(o), mine(outs[0]))) for o in outs)
+    mesh_loss, mesh_norm = logs[0][0]["loss"], logs[0][0]["grad_norm"]
+    leaf_err = [abs(a - b) / b for a, b in zip(outs[0]["leaf_norms"],
+                                                one_leaves)]
+    worst = max(range(len(leaf_err)), key=leaf_err.__getitem__)
+    every, fail_at = MESH_TRAIN["every"], MESH_TRAIN["fail_at"]
+    want_steps = list(range(1, fail_at + 1)) + list(
+        range(every + 1, every + 1 + MESH_TRAIN["steps"] - fail_at))
+
+    t0 = time.monotonic()
+    restored = one.try_restore()
+    torch.cuda.synchronize()
+    one_restore_s = time.monotonic() - t0
+    step = one.step_idx
+    want = _manifest_hashes(root, step)
+    one_dir = os.path.join(tmp, "one_ckpt")
+    t0 = time.monotonic()
+    save_checkpoint(one_dir, step, one.state_tree())
+    one_save_s = time.monotonic() - t0
+    hashes_ok = restored and _leaf_hashes(one.state_tree()) == want
+    bytes_ok = _manifest_hashes(one_dir, step) == want
+    saved = complete_steps(root)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def per_rank(key):
+        return [[r[key] for r in o["log"] + o["elastic_log"]] for o in outs]
+    wall = per_rank("wall_s")
+    coll = per_rank("collective_s")
+    return emit(
+        "mesh", part="smollm-360m training", arch=cfg.name,
+        layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, label=MESH_LABEL,
+        meshes={"train": [2, MESH_RANKS // 2], "elastic": [MESH_RANKS, 1]},
+        plans={"train": "fsdp_tp", "elastic": "fsdp"},
+        params_per_rank=[o["params_held"] for o in outs],
+        steps_logged=[r["step"] for r in logs[0]],
+        elastic_steps_logged=[r["step"] for r in outs[0]["elastic_log"]],
+        losses=[r["loss"] for r in logs[0] + outs[0]["elastic_log"]],
+        grad_norms=[r["grad_norm"]
+                    for r in logs[0] + outs[0]["elastic_log"]],
+        one_card_step1_loss=one_loss, mesh_step1_loss=mesh_loss,
+        one_card_step1_grad_norm=one_norm, mesh_step1_grad_norm=mesh_norm,
+        step1_loss_rel=abs(mesh_loss - one_loss) / abs(one_loss),
+        step1_grad_norm_rel=abs(mesh_norm - one_norm) / abs(one_norm),
+        step1_leaves=len(one_leaves), step1_worst_leaf=names[worst],
+        step1_worst_leaf_rel=leaf_err[worst],
+        step1_worst_leaf_norms=[outs[0]["leaf_norms"][worst],
+                                one_leaves[worst]],
+        step_wall_ms=[[w * 1e3 for w in r] for r in wall],
+        step_collective_ms=[[c * 1e3 for c in r] for r in coll],
+        step_collective_share=[[c / w for c, w in zip(cr, wr)]
+                               for cr, wr in zip(coll, wall)],
+        saves=[o["saves"] for o in outs], writes=outs[0]["writes"],
+        restores=[o["restores"] for o in outs],
+        one_card_restore_s=one_restore_s, one_card_save_s=one_save_s,
+        saved_steps=saved, restored_step=step,
+        run_s=[o["run_s"] for o in outs],
+        peak_gib=[o["peak_gib"] for o in outs],
+        peak_gib_2x2=[o["peak_gib_2x2"] for o in outs],
+        launches=paths["mesh_train"],
+        loss_ok=abs(mesh_loss - one_loss) <= MESH_LOSS_RTOL * abs(one_loss),
+        grad_norm_ok=abs(mesh_norm - one_norm)
+        <= MESH_NORM_RTOL * abs(one_norm),
+        leaf_norms_ok=len(outs[0]["leaf_norms"]) == len(one_leaves)
+        and all(o["leaf_norms"] == outs[0]["leaf_norms"] for o in outs)
+        and leaf_err[worst] <= MESH_LEAF_RTOL,
+        losses_ok=all(math.isfinite(r["loss"]) for r in logs[0]
+                      + outs[0]["elastic_log"]),
+        same_ok=same_ok,
+        failure_ok=all([r["step"] for r in lg] == want_steps for lg in logs)
+        and all([r["step"] for r in o["restores"]] == [every, fail_at]
+                for o in outs),
+        elastic_ok=all(o["elastic_ok"] and o["final_step"] == fail_at
+                       + MESH_TRAIN["more"] for o in outs),
+        verify_ok=all(verify_checkpoint(root, s) for s in saved),
+        hashes_ok=hashes_ok, bytes_ok=bytes_ok,
+        no_kernel_ok=not any(paths["mesh_train"].values()))
 
 
 def mesh_phase(torch, paths, rng, records) -> dict:
@@ -3599,6 +3868,17 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         torch.cuda.ipc_collect()
         torch.cuda.empty_cache()
         records.append(emit("phase_time", of="mesh pipeline",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- smollm-360m trained on the mesh, the elastic restore ----------
+        t_part = time.monotonic()
+        rec = mesh_train(torch, world, tmp, paths)
+        records.append(rec)
+        checked(rec, "training on the mesh", (
+            "loss_ok", "grad_norm_ok", "losses_ok", "same_ok", "failure_ok",
+            "elastic_ok", "verify_ok", "hashes_ok", "bytes_ok",
+            "no_kernel_ok"))
+        records.append(emit("phase_time", of="mesh train",
                             seconds=time.monotonic() - t_part))
     finally:
         codes = world.close()

@@ -14,7 +14,17 @@ The device-to-host snapshot copies each leaf into one host array of its
 own; a :class:`~repro_torch.tree.Stacked` leaf (one tensor per layer) is
 copied layer by layer into its slice, never stacked on the card.  Restore
 puts each leaf on the device of the caller's ``like`` leaf, cast to its
-dtype; there is one card, so nothing is re-sharded.
+dtype.
+
+On a mesh (``shardings=``: a tree like the state's whose leaves are
+:class:`~repro_torch.parallel.sharding.NamedSharding`) every rank holds
+its blocks.  A save gathers each leaf whole, one leaf at a time, every
+rank joining each gather; rank 0 alone writes, in the same format, so a
+checkpoint saved on a mesh has the bytes of a one-device save of the same
+state.  A restore reads each leaf memory-mapped and cuts this rank's
+block, whatever mesh saved it (the elastic restore).  Every rank restores
+the same step: rank 0 waits for its own save to commit, chooses, and
+broadcasts its choice.
 
 Checkpoint traffic is a *bulk transfer* in the paper's taxonomy (data at
 rest moving device -> storage), so it runs through the same unified-mover
@@ -37,7 +47,7 @@ machinery as everything else:
   whichever replica's branch is modeled faster and falls back to the
   other on a missing or corrupt copy.
 
-This process-local implementation writes full arrays.
+Every checkpoint holds whole arrays.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.basin import (checkpoint_basin,
                                     mirrored_checkpoint_basin)
@@ -61,6 +72,47 @@ from repro_torch.core.telemetry import get_registry
 from repro_torch.tree import (BF16_HOST, Stacked, dtype_name,
                               flatten_with_paths, from_host, host_array,
                               map_leaves, unflatten)
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes the checkpoints of ``mesh`` (rank 0)."""
+    return mesh is None or mesh.rank == 0
+
+
+def _mesh_of(shardings: Any):
+    leaves = [v for _, v in flatten_with_paths(shardings)]
+    return leaves[0].mesh if leaves else None
+
+
+def gather_to_host(tree: Any, shardings: Any) -> Optional[Any]:
+    """``tree`` (this rank's blocks) as whole host arrays on the rank that
+    writes (rank 0), None on the others.  Each leaf is gathered whole under
+    its sharding (a ``Stacked`` leaf layer by layer), one leaf at a time,
+    every rank of the mesh joining each gather in the same order."""
+    from repro_torch.parallel.sharding import unshard
+    shards = dict(flatten_with_paths(shardings))
+    writes = _writes(_mesh_of(shardings))
+    out = []
+    for pstr, v in flatten_with_paths(tree):
+        sh = shards[pstr]
+        if isinstance(v, Stacked):
+            whole = Stacked(unshard(t.detach(), sh.spec[1:], sh.mesh)
+                            for t in v)
+        elif isinstance(v, torch.Tensor):
+            whole = unshard(v.detach(), sh.spec, sh.mesh)
+        else:
+            whole = v
+        out.append(host_array(whole) if writes else None)
+        del whole
+    return unflatten(tree, out) if writes else None
+
+
+def _agree(choice: Any) -> Any:
+    """Rank 0's ``choice``, on every rank of the world."""
+    import torch.distributed as dist
+    box = [choice]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 @dataclasses.dataclass
@@ -264,12 +316,16 @@ def verify_checkpoint(root: str, step: int) -> bool:
 
 
 def load_checkpoint(root: str, step: int, like: Any, *,
-                    verify: bool = False, staged: bool = True,
+                    shardings: Any = None, verify: bool = False,
+                    staged: bool = True,
                     replan_every_items: int = 0) -> Any:
     """Restore into the structure of ``like``: each leaf on the device of
     ``like``'s leaf (a tensor, or a :class:`~repro_torch.tree.Stacked`,
     which gets per-layer views of one restored tensor) and cast to its
-    dtype.
+    dtype.  With ``shardings`` (a tree like ``like``'s of
+    ``NamedSharding`` leaves) each leaf is this rank's block of the saved
+    one, read memory-mapped: the elastic restore onto whatever mesh the
+    caller has.
 
     With ``staged`` (the default) shard files are read through the
     planned mover path — concurrent reads overlap storage latency, and
@@ -280,9 +336,16 @@ def load_checkpoint(root: str, step: int, like: Any, *,
     with open(os.path.join(d, "manifest.json")) as f:
         meta = json.load(f)
     by_path = {l["path"]: l for l in meta["leaves"]}
+    cut = dict(flatten_with_paths(shardings)) if shardings is not None \
+        else {}
 
     def read_leaf(leaf: dict) -> tuple[str, Any]:
-        arr = np.load(os.path.join(d, leaf["file"]))
+        sh = cut.get(leaf["path"])
+        if sh is None:
+            arr = np.load(os.path.join(d, leaf["file"]))
+        else:
+            arr = np.load(os.path.join(d, leaf["file"]), mmap_mode="r")
+            arr = np.array(arr[sh.slices(arr.shape)])
         return leaf["path"], from_host(arr, leaf["dtype"])
 
     arrays: dict[str, Any] = {}
@@ -308,8 +371,9 @@ def load_checkpoint(root: str, step: int, like: Any, *,
             raise KeyError(f"checkpoint missing leaf {pstr}")
         arr = arrays[pstr]
         if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{pstr}: shape {tuple(arr.shape)} != "
-                             f"{tuple(ref.shape)}")
+            saved = tuple(by_path[pstr]["shape"])
+            raise ValueError(f"{pstr}: shape {tuple(arr.shape)} (of "
+                             f"{saved} saved) != {tuple(ref.shape)}")
         t = arr.to(device=ref.device, dtype=ref.dtype)
         out.append(Stacked(t.unbind(0)) if isinstance(ref, Stacked) else t)
     return unflatten(like, out)
@@ -335,8 +399,14 @@ class CheckpointManager:
 
     def __init__(self, root: str, *, every_steps: int = 100, keep: int = 3,
                  staged: bool = True, replan_every_shards: int = 16,
-                 mirror_root: Optional[str] = None):
+                 mirror_root: Optional[str] = None, mesh=None):
+        if mesh is not None and mesh.size > 1 and mirror_root:
+            raise ValueError("mirrored saves from a mesh of more than one "
+                             "rank are not ported")
         self.root = root
+        #: the mesh whose ranks share this manager's checkpoints (every
+        #: rank makes one); rank 0 writes, every rank joins the gathers
+        self.mesh = mesh
         self.mirror_root = mirror_root
         self.every_steps = every_steps
         self.keep = keep
@@ -352,13 +422,23 @@ class CheckpointManager:
         #: device -> host snapshot and of serialize + hash + write
         self.history: list[dict] = []
 
-    def maybe_save(self, step: int, tree: Any, *, force: bool = False) -> bool:
+    def maybe_save(self, step: int, tree: Any, *, force: bool = False,
+                   shardings: Any = None) -> bool:
+        """Save ``tree`` at every ``every_steps``-th step (or ``force``):
+        the host snapshot now, the write in a thread.  With ``shardings``
+        (on a mesh, every rank calls it) the snapshot gathers each leaf
+        whole and only rank 0 writes."""
         if not force and (step == 0 or step % self.every_steps):
             return False
         self.wait()
         # snapshot to host NOW (cheap), write in background (staged)
         t0 = time.monotonic()
-        host_tree = map_leaves(host_array, tree)
+        if shardings is not None:
+            host_tree = gather_to_host(tree, shardings)
+            if host_tree is None:
+                return True
+        else:
+            host_tree = map_leaves(host_array, tree)
         snapshot_s = time.monotonic() - t0
         if self.staged and self._mover is None:
             self._mover = UnifiedDataMover(MoverConfig(checksum=False),
@@ -411,7 +491,24 @@ class CheckpointManager:
             roots.reverse()
         return roots
 
-    def restore_latest(self, like: Any) -> tuple[Optional[int], Any]:
+    def restore_latest(self, like: Any, *, shardings: Any = None
+                       ) -> tuple[Optional[int], Any]:
+        """The newest complete checkpoint restored into ``like``'s structure
+        (with ``shardings``, this rank's blocks: ``load_checkpoint``), and
+        its step; (None, ``like``) where none exists.  On a mesh of more
+        than one rank every rank calls it and restores the same step:
+        rank 0 waits for its save in flight, chooses the newest complete
+        step, and broadcasts it."""
+        if self.mesh is not None and self.mesh.size > 1:
+            step = None
+            if _writes(self.mesh):
+                self.wait()
+                step = latest_step(self.root)
+            step = _agree(step)
+            if step is None:
+                return None, like
+            return step, load_checkpoint(self.root, step, like,
+                                         shardings=shardings)
         if not self.mirror_root:
             # single root: the historical contract — newest complete step
             # or bust.  Silently resuming from an older step would mask a
@@ -419,7 +516,8 @@ class CheckpointManager:
             step = latest_step(self.root)
             if step is None:
                 return None, like
-            return step, load_checkpoint(self.root, step, like)
+            return step, load_checkpoint(self.root, step, like,
+                                         shardings=shardings)
         roots = self._restore_roots()
         # every complete (step, replica) pair, newest step first, the
         # faster-modeled replica first within a step: a corrupt newest
@@ -434,7 +532,9 @@ class CheckpointManager:
                 # fallback replicas exist, so re-hash shards against the
                 # manifest: a silently bit-rotted copy must fail here so
                 # the intact mirror (or an older step) gets its turn
-                return step, load_checkpoint(r, step, like, verify=True)
+                return step, load_checkpoint(r, step, like,
+                                             shardings=shardings,
+                                             verify=True)
             except Exception as e:       # torn/corrupt replica: try the next
                 last_err = e
         raise last_err

@@ -142,7 +142,12 @@ class InputPipeline:
 
     Batches arrive as dicts of tensors on ``device`` (the card unless
     ``"cpu"`` is passed), or, with ``to_device=False``, as the decoded host
-    batch (numpy arrays; bf16 inputs as CPU tensors).
+    batch (numpy arrays; bf16 inputs as CPU tensors).  With a ``mesh``
+    each rank gets its rows of the global batch: block ``i`` of ``n``
+    along the batch dim, ``i`` its index over ``batch_axes`` and ``n``
+    their size (the JAX package's ``make_batch_sharding``); ranks that
+    share those coordinates get the same rows.  Only those rows cross to
+    the device.
 
     Staging depth and concurrency per hop come from a
     :class:`~repro_torch.core.planner.TransferPlan` derived from the basin model
@@ -179,6 +184,7 @@ class InputPipeline:
 
     def __init__(self, source: Any, *, basin: Optional[DrainageBasin] = None,
                  pc: Optional[PipelineConfig] = None,
+                 mesh=None, batch_axes: tuple[str, ...] = ("data",),
                  device: Optional[torch.device | str] = None,
                  to_device: bool = True,
                  plan: Optional[TransferPlan] = None,
@@ -199,6 +205,8 @@ class InputPipeline:
                                    else card_input_basin())
         self.pc = pc or getattr(self.sources[0] if self.sources else source,
                                 "pc", PipelineConfig(1, 128))
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
         self.to_device = to_device
         self.device = resolve_device(device) if to_device else None
         self.telemetry = telemetry if telemetry is not None else get_registry()
@@ -307,7 +315,10 @@ class InputPipeline:
         caching host allocator, which reuses it only after the copy that
         read it has finished (it records an event on the copy's stream),
         so no batch's buffer is overwritten in flight.  On the CPU the
-        arrays become tensors sharing their memory."""
+        arrays become tensors sharing their memory.  On a mesh only the
+        rank's rows are placed."""
+        if self.mesh is not None:
+            item = {k: self._rows(v) for k, v in item.items()}
         if not self.to_device:
             return item
         out = {}
@@ -318,6 +329,16 @@ class InputPipeline:
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
         return out
+
+    def _rows(self, v):
+        """This rank's block of the global batch ``v`` (its leading dim)."""
+        n = self.mesh.axis_size(self.batch_axes)
+        if v.shape[0] % n:
+            raise ValueError(f"a global batch of {v.shape[0]} rows does not "
+                             f"split over {n} data ranks")
+        size = v.shape[0] // n
+        i = self.mesh.axis_index(self.batch_axes)
+        return v[i * size:(i + 1) * size]
 
     def __iter__(self) -> Iterator[dict]:
         # fresh stages per iteration so the current plan takes effect

@@ -1,13 +1,23 @@
-"""Step factories: the train step on one card, and the serving steps over
-a mesh.
+"""Step factories: the train step on one card or over a mesh, and the
+serving steps over a mesh.
 
-The JAX package's ``make_train_step`` (``launch/steps.py``) jits the same
-step over a mesh with shardings and donation; here it runs on one card
-(the sharded step, with FSDP's gathers and the compressed gradient
-exchange, waits: ROADMAP queue 1), as a plain function.  It runs the
-model's plain path (``impl="ref"``), as the JAX package's step does: none
-of the hand-written kernels has a backward pass, and their wrappers
-refuse inputs that require gradients.
+The JAX package's ``make_train_step`` (``launch/steps.py``) jits one step
+over a mesh with shardings and donation; here the step is a plain
+function that each rank runs on its blocks of the state
+(``sharding.rank_spec``) and its rows of the batch, with the context
+:func:`make_ctx` builds (``ShardCtx.specs``: the forward gathers each
+layer's FSDP shards and carries gradients through its collectives).
+After the backward pass the gradient exchange completes what the
+collectives' backward left: a leaf split over the data axis already has
+its gradient summed over it (``fsdp_gather``'s reduce-scatter); a leaf
+that is not is summed over the data axes here (one f32 ``psum`` for all
+of them).  The exchange is exact, in f32: the JAX package's step never
+calls ``compressed_psum``, so neither does this one.  The AdamW update
+of a block is elementwise; only the global norm crosses ranks.  Without
+a mesh the same step runs on one card.  It runs the model's plain path
+(``impl="ref"``), as the JAX package's step does: none of the
+hand-written kernels has a backward pass, and their wrappers refuse
+inputs that require gradients.
 
 The serving steps (``make_serve_step``, ``make_prefill_step``) are plain
 functions over a :class:`~repro_torch.launch.mesh.Mesh`, nothing jitted:
@@ -28,12 +38,22 @@ import torch
 from repro_torch.core.codesign import CodesignPlan
 from repro_torch.models.api import ModelApi
 from repro_torch.models.blocks import ShardCtx
-from repro_torch.parallel.sharding import batch_axes_of
+from repro_torch.parallel.sharding import (batch_axes_of, jax_path, plan_fsdp,
+                                           rank_spec, spec_axes)
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWState, adamw_update, warmup_cosine
 
 
-def make_train_step(api: ModelApi, *, microbatches: int = 1,
+def default_plan(api: ModelApi, microbatches: int = 1) -> CodesignPlan:
+    """The JAX package's trainer's plan: FSDP and TP, the model's remat,
+    no sequence parallelism."""
+    return CodesignPlan(sharding="fsdp_tp", microbatches=microbatches,
+                        remat=api.cfg.remat, seq_parallel=False)
+
+
+def make_train_step(api: ModelApi, mesh=None,
+                    plan: Optional[CodesignPlan] = None, *,
+                    microbatches: Optional[int] = None,
                     lr_peak: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, impl: str = "ref"
                     ) -> tuple[Callable, ShardCtx]:
@@ -43,27 +63,48 @@ def make_train_step(api: ModelApi, *, microbatches: int = 1,
     runs forward, backward and the AdamW update; ``params`` (an ``LM``
     whose parameters require gradients) is updated in place and returned,
     ``opt_state`` is replaced.  ``batch`` holds ``tokens`` and ``labels``
-    (B, S) on the parameters' device.  ``microbatches > 1`` accumulates
-    the gradients over that many equal splits of the batch.  The model's
-    remat policy is ``api.cfg.remat``."""
-    ctx = ShardCtx(impl=impl)
+    (B, S) on the parameters' device (on a mesh, the rank's rows of the
+    global batch, ``InputPipeline(mesh=...)``), and may hold a
+    ``loss_mask``.  ``microbatches`` (default: the plan's, else 1)
+    accumulates the gradients over that many equal splits of the global
+    batch, in f32.  On ``mesh`` the parameters and the AdamW state are
+    the rank's blocks under ``plan`` (default :func:`default_plan`):
+    ``weights.init_sharded(..., plan=plan)``, ``ctx.specs`` by JAX path.
+    The model's remat policy is ``api.cfg.remat``."""
+    if microbatches is None:
+        microbatches = plan.microbatches if plan is not None else 1
+    elif plan is not None and plan.microbatches != microbatches:
+        raise ValueError(f"microbatches={microbatches} but the plan has "
+                         f"{plan.microbatches}")
+    if mesh is None:
+        ctx = ShardCtx(impl=impl)
+    else:
+        ctx = make_ctx(api, mesh, plan or default_plan(api, microbatches),
+                       impl, train=True)
 
     def loss_fn(params: LM, batch: dict):
         return api.loss(params, batch, ctx)
 
     def step(params: LM, opt_state: AdamWState, batch: dict):
+        names = [n for n, _ in params.named_parameters()]
         weights = list(params.parameters())
         if microbatches > 1:
             grads, (loss, aux) = _accumulated_grads(
-                loss_fn, params, weights, batch, microbatches)
+                loss_fn, params, weights, batch, microbatches, ctx)
         else:
             loss, aux = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, weights)
+        split = None
+        if mesh is not None:
+            specs = [ctx.specs[jax_path(n)] for n in names]
+            grads = _exchange(grads, specs, ctx)
+            split = [spec_axes(s) for s in specs]
         # the step counter is pre-increment: schedule on step + 1 so the
         # very first update trains at a nonzero warmup rate
         lr = warmup_cosine(opt_state.step + 1, peak_lr=lr_peak,
                            warmup=warmup, total=total_steps)
-        new, opt_state, om = adamw_update(grads, opt_state, weights, lr=lr)
+        new, opt_state, om = adamw_update(grads, opt_state, weights, lr=lr,
+                                          mesh=mesh, split_axes=split)
         with torch.no_grad():
             for w, n in zip(weights, new):
                 w.copy_(n)
@@ -74,21 +115,55 @@ def make_train_step(api: ModelApi, *, microbatches: int = 1,
     return step, ctx
 
 
+def _exchange(grads, specs, ctx: ShardCtx) -> list[torch.Tensor]:
+    """Each gradient summed over the data axes its leaf is not split over
+    (a split leaf's was summed by its gather's backward), in f32: the
+    leaves that need the same axes travel as one flat f32 ``psum``."""
+    from repro_torch.parallel.collectives import psum
+    out = [g.float() for g in grads]
+    groups: dict[tuple[str, ...], list[int]] = {}
+    for i, spec in enumerate(specs):
+        rest = tuple(a for a in ctx.batch_axes if a not in spec_axes(spec))
+        if ctx.mesh.axis_size(rest) > 1:
+            groups.setdefault(rest, []).append(i)
+    for axes in sorted(groups):
+        idx = groups[axes]
+        flat = psum(torch.cat([out[i].reshape(-1) for i in idx]), ctx.mesh,
+                    axes)
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+    return out
+
+
 def _accumulated_grads(loss_fn, params: LM, weights: list[torch.Tensor],
-                       batch: dict, n_micro: int) -> tuple[list, tuple]:
-    """Gradients summed in f32 over ``n_micro`` equal splits of the batch
-    and divided by their count; the loss is the microbatches' mean, aux
-    the last microbatch's."""
-    b = next(iter(batch.values())).shape[0]
+                       batch: dict, n_micro: int, ctx: ShardCtx
+                       ) -> tuple[list, tuple]:
+    """Gradients summed in f32 over ``n_micro`` equal splits of the global
+    batch and divided by their count; the loss is the microbatches' mean,
+    aux the last microbatch's.  Microbatch ``i`` is rows ``[i B / n,
+    (i + 1) B / n)`` of the global batch, as the JAX package's reshape
+    splits it; on a mesh each rank computes its block of those rows, so
+    the (small) token batch is gathered over the data axes first."""
+    local = _global_batch(batch, ctx)
+    b = next(iter(local.values())).shape[0]
     if b % n_micro:
         raise ValueError(f"batch {b} does not split into {n_micro} "
                          "microbatches")
     size = b // n_micro
+    dp, r = 1, 0
+    if ctx.mesh is not None:
+        dp = ctx.mesh.axis_size(ctx.batch_axes)
+        r = ctx.mesh.axis_index(ctx.batch_axes)
+        if size % dp:
+            raise ValueError(f"a microbatch of {size} rows does not split "
+                             f"over {dp} data ranks")
+    rows = size // dp
     acc = [torch.zeros_like(w, dtype=torch.float32) for w in weights]
     loss_sum: Any = 0.0
     aux: dict = {}
     for i in range(n_micro):
-        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        lo = i * size + r * rows
+        mb = {k: v[lo:lo + rows] for k, v in local.items()}
         loss, aux = loss_fn(params, mb)
         grads = torch.autograd.grad(loss, weights)
         for a, g in zip(acc, grads):
@@ -97,21 +172,40 @@ def _accumulated_grads(loss_fn, params: LM, weights: list[torch.Tensor],
     return [a / n_micro for a in acc], (loss_sum / n_micro, aux)
 
 
+def _global_batch(batch: dict, ctx: ShardCtx) -> dict:
+    """The global batch: on a mesh the ranks' rows gathered over the data
+    axes, in their order; without one, ``batch``."""
+    if ctx.mesh is None:
+        return batch
+    from repro_torch.parallel.collectives import all_gather
+    return {k: all_gather(v, ctx.mesh, ctx.batch_axes)
+            for k, v in batch.items()}
+
+
 # ---------------------------------------------------------------------------
 # Serving over a mesh
 # ---------------------------------------------------------------------------
 
 
 def make_ctx(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
-             impl: str = "cuda") -> ShardCtx:
-    """The model context of ``mesh`` (None: one device).  A plan's
+             impl: str = "cuda", *, train: bool = False) -> ShardCtx:
+    """The model context of ``mesh`` (None: one device); with ``train``,
+    a training mesh's under ``plan``: ``specs`` maps each parameter's JAX
+    path to what the rank holds of it (``sharding.rank_spec``).  A plan's
     sequence parallelism is a memory layout that is not ported."""
     if plan is not None and plan.seq_parallel:
-        raise NotImplementedError("seq_parallel is a memory layout that is "
-                                  "not ported (ROADMAP queue 3)")
+        raise NotImplementedError(
+            "seq_parallel is a memory layout that is not ported (ROADMAP "
+            "queue 1: sequence parallelism)")
     axes = batch_axes_of(mesh) if mesh is not None else ("data",)
+    specs = None
+    if train:
+        from repro_torch.weights import param_shapes
+        fsdp = plan_fsdp(plan or default_plan(api))
+        specs = {jax_path(n): rank_spec(n, s, api.cfg, mesh, fsdp=fsdp)
+                 for n, s in param_shapes(api.cfg).items()}
     return ShardCtx(impl=impl, mesh=mesh, batch_axes=axes,
-                    model_axis="model")
+                    model_axis="model", specs=specs)
 
 
 def make_serve_step(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,

@@ -1,4 +1,5 @@
-"""Training driver: the full co-designed data path, end to end, on one card.
+"""The trainer: the full co-designed data path, end to end, on one
+card or on a mesh.
 
     dataset -> burst-buffered input pipeline -> train_step
             -> async checksummed checkpoints -> restart recovery
@@ -10,11 +11,18 @@ A port of the JAX package's ``launch/train.py``:
 * automatic restart discovery (newest complete manifest),
 * step-failure recovery: a failing step restores the last checkpoint and
   resumes (``--inject-failure-at`` exercises this),
+* elastic restore: on a mesh, a checkpoint restores onto whatever mesh
+  the restarted job has, each rank reading its blocks,
 * the input basin is :func:`~repro_torch.core.basin.card_input_basin`
   with the host copy rate measured at the start of each run.
 
-One card and no mesh: the step is the plain PyTorch forward and backward
-(``impl="ref"``, as the JAX package trains) and AdamW with an f32 master.
+The step is the plain PyTorch forward and backward (``impl="ref"``, as the
+JAX package trains) and AdamW with an f32 master.  ``Trainer(cfg, mesh)``
+trains over a :class:`~repro_torch.launch.mesh.Mesh` under a
+``CodesignPlan`` (default FSDP and TP, as the JAX package's trainer):
+each rank holds its blocks of the weights and the AdamW state and feeds
+its rows of the batch (``launch/steps.py``); rank 0 writes the
+checkpoints and every rank restores the step rank 0 chose.
 
 Usage (the card unless ``--device cpu``):
   python -m repro_torch.launch.train --arch smollm-360m --steps 50 \
@@ -22,11 +30,17 @@ Usage (the card unless ``--device cpu``):
   python -m repro_torch.launch.train --arch repro-100m --smoke \
       --device cpu --steps 12 --global-batch 2 --seq-len 64 \
       --ckpt-dir /path/to/ckpt --ckpt-every 4
+On a mesh of 4 ranks (several ranks on one card need gloo; NCCL refuses
+them):
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm-360m --smoke --mesh 2x2 --backend gloo --steps 4 \
+      --global-batch 8 --seq-len 64 --ckpt-dir /path/to/ckpt
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -35,6 +49,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.basin import card_input_basin
+from repro_torch.core.codesign import CodesignPlan
 from repro_torch.core.telemetry import get_registry
 from repro_torch.data.pipeline import (InputPipeline, PipelineConfig,
                                        SyntheticTokenSource, batch_bytes)
@@ -44,8 +59,12 @@ from repro_torch.models import lm as lm_lib
 from repro_torch.models.api import build
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWState, adamw_init
-from repro_torch.weights import (from_jax_tree, jax_tree, opt_state_from_tree,
-                                 opt_state_tree, param_names)
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import NamedSharding, jax_path
+from repro_torch.tree import Stacked, map_leaves
+from repro_torch.weights import (from_jax_tree, init_sharded, jax_tree,
+                                 opt_state_from_tree, opt_state_tree,
+                                 param_names)
 
 
 def host_copy_gbps(nbytes: int, device: torch.device, reps: int = 5
@@ -64,23 +83,30 @@ def host_copy_gbps(nbytes: int, device: torch.device, reps: int = 5
 
 
 class Trainer:
-    """Owns the step function, state, pipeline, and recovery logic."""
+    """Owns the step function, state, pipeline, and recovery logic.  With
+    a ``mesh`` every rank of it makes one, with the same arguments."""
 
-    def __init__(self, cfg: ModelConfig, *,
+    def __init__(self, cfg: ModelConfig, mesh=None, *,
+                 plan: Optional[CodesignPlan] = None,
                  device: Optional[torch.device | str] = None,
-                 microbatches: int = 1,
+                 microbatches: Optional[int] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  lr: float = 3e-4, total_steps: int = 1000):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.api = build(cfg)
+        if mesh is not None and plan is None:
+            plan = steps_lib.default_plan(self.api, microbatches or 1)
+        self.plan = plan
         # warmup must fit inside the run: the default 100-step warmup never
         # reaches peak lr on short runs (smoke tests, examples)
         warmup = max(1, min(100, total_steps // 5))
         self.train_step, self.ctx = steps_lib.make_train_step(
-            self.api, microbatches=microbatches, lr_peak=lr, warmup=warmup,
-            total_steps=total_steps)
-        self.ckpt = (CheckpointManager(ckpt_dir, every_steps=ckpt_every)
+            self.api, mesh, plan, microbatches=microbatches, lr_peak=lr,
+            warmup=warmup, total_steps=total_steps)
+        self.ckpt = (CheckpointManager(ckpt_dir, every_steps=ckpt_every,
+                                       mesh=mesh)
                      if ckpt_dir else None)
         self.params: Optional[lm_lib.LM] = None
         self.opt_state: Optional[AdamWState] = None
@@ -91,30 +117,57 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> None:
         """Weights drawn on the trainer's device from a generator seeded
-        with ``seed``, and a fresh AdamW state."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.params = lm_lib.init_lm(self.cfg, generator=gen,
-                                     device=self.device, trainable=True)
+        with ``seed`` (on a mesh, the rank's blocks of the same draws), and
+        a fresh AdamW state."""
+        if self.mesh is not None:
+            self.params = init_sharded(self.cfg, seed, self.mesh,
+                                       device=self.device, plan=self.plan,
+                                       trainable=True)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            self.params = lm_lib.init_lm(self.cfg, generator=gen,
+                                         device=self.device, trainable=True)
         self.opt_state = adamw_init(self.params.parameters())
 
     def state_tree(self) -> dict:
         """Parameters and AdamW state in the JAX package's checkpoint
         layout: ``{"params": ..., "opt": AdamWState(...)}``, per-layer
-        tensors as :class:`~repro_torch.tree.Stacked` leaves."""
+        tensors as :class:`~repro_torch.tree.Stacked` leaves (on a mesh,
+        the rank's blocks)."""
         names = param_names(self.params)
         return {"params": jax_tree(list(self.params.parameters()), names),
                 "opt": opt_state_tree(self.opt_state, names)}
 
+    def state_shardings(self) -> Optional[dict]:
+        """On a mesh, :meth:`state_tree`'s shardings: a ``NamedSharding``
+        per leaf (a stacked leaf's spec leads with None), the AdamW master
+        and moments their parameter's; None on one card."""
+        if self.mesh is None:
+            return None
+        names = param_names(self.params)
+        per = jax_tree([NamedSharding(self.mesh, self.ctx.specs[jax_path(n)])
+                        for n in names], names)
+        tree = map_leaves(lambda v: NamedSharding(
+            self.mesh, (None,) + tuple(v[0].spec)) if isinstance(v, Stacked)
+            else v, per)
+        return {"params": tree,
+                "opt": AdamWState(step=NamedSharding(self.mesh, ()),
+                                  master=tree, m=tree, v=tree)}
+
     def try_restore(self) -> bool:
         """Resume from the newest complete checkpoint, onto the trainer's
-        device.  A save still in flight completes first, so which step the
-        failure path restores does not depend on the save thread's timing
-        (the JAX package's trainer restores whatever has committed)."""
+        device (on a mesh, each rank its blocks: the elastic restore onto
+        this mesh, whatever mesh saved it).  A save still in flight
+        completes first, so which step the failure path restores does not
+        depend on the save thread's timing (the JAX package's trainer
+        restores whatever has committed); on a mesh every rank restores
+        the step rank 0 chose."""
         if self.ckpt is None:
             return False
         self.ckpt.wait()
-        step, state = self.ckpt.restore_latest(self.state_tree())
+        step, state = self.ckpt.restore_latest(
+            self.state_tree(), shardings=self.state_shardings())
         if step is None:
             return False
         names = param_names(self.params)
@@ -144,7 +197,8 @@ class Trainer:
         basin = card_input_basin(
             host_copy_gbps=host_copy_gbps(batch_bytes(pc), self.device))
         pipeline = InputPipeline(
-            source, basin=basin, pc=pc, device=self.device,
+            source, basin=basin, pc=pc, mesh=self.mesh,
+            batch_axes=self.ctx.batch_axes, device=self.device,
             # None defers to pc.replan_every_items; an unset flag must not
             # silently disable a cadence the PipelineConfig asked for
             replan_every_items=replan_every if replan_every else None)
@@ -159,10 +213,12 @@ class Trainer:
                     inject_failure_at = -1          # fail exactly once
                     raise RuntimeError("injected node failure")
                 t0 = time.monotonic()
+                c0 = collectives.spent()["seconds"]
                 self.params, self.opt_state, metrics = self.train_step(
                     self.params, self.opt_state, batch)
                 loss = float(metrics["loss"])
                 dt = time.monotonic() - t0
+                coll_s = collectives.spent()["seconds"] - c0
             except RuntimeError as e:
                 if "injected" not in str(e):
                     raise
@@ -175,6 +231,8 @@ class Trainer:
             self.step_idx += 1
             done += 1
             rec = {"step": self.step_idx, "loss": loss, "wall_s": dt,
+                   "collective_s": coll_s,
+                   "grad_norm": float(metrics["grad_norm"]),
                    "input_stall_s": pipeline.consumer_stall_s(),
                    "input_fidelity_gap": pipeline.fidelity_gap()}
             self.metrics_log.append(rec)
@@ -184,7 +242,8 @@ class Trainer:
                 if telemetry_jsonl:
                     get_registry().append_jsonl(telemetry_jsonl)
             if self.ckpt is not None:
-                self.ckpt.maybe_save(self.step_idx, self.state_tree())
+                self.ckpt.maybe_save(self.step_idx, self.state_tree(),
+                                     shardings=self.state_shardings())
         pipeline.record_telemetry()
         if telemetry_json:
             get_registry().dump_json(telemetry_json)
@@ -193,19 +252,56 @@ class Trainer:
         if self.ckpt is not None:
             self.ckpt.wait()
             self.ckpt.maybe_save(self.step_idx, self.state_tree(),
-                                 force=True)
+                                 force=True,
+                                 shardings=self.state_shardings())
             self.ckpt.wait()
         return self.metrics_log
 
 
-def main() -> None:
+def _join_world(args):
+    """The mesh ``--mesh DxM`` names over the world: the one already
+    initialised in this process, else the one ``torchrun`` describes in
+    the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), joined over ``--backend``.  Returns (mesh, whether
+    this call started the world)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_mesh
+    try:
+        shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2:
+        raise SystemExit(f"--mesh takes DxM (data x model), not "
+                         f"{args.mesh!r}")
+    started = False
+    if not dist.is_initialized():
+        env = os.environ
+        init_world(args.backend, rank=int(env["RANK"]),
+                   world_size=int(env["WORLD_SIZE"]),
+                   init_method=f"tcp://{env['MASTER_ADDR']}:"
+                               f"{env['MASTER_PORT']}")
+        started = True
+    return make_mesh(shape, ("data", "model")), started
+
+
+def main(argv: Optional[list[str]] = None) -> list[dict]:
+    """The CLI; returns the run's metrics log (on every rank)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="repro-100m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' runs on "
-                         "the CPU)")
+                    help="torch device (default: the card, on NCCL the "
+                         "rank's LOCAL_RANK-th; 'cpu' runs on the CPU)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train on a (data, model) mesh of D x M ranks, "
+                         "FSDP and TP: the world torchrun starts, or the "
+                         "one already initialised in the process (default: "
+                         "one card)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="the world's backend when --mesh starts it: nccl "
+                         "for one rank per card, gloo on the CPU or for "
+                         "ranks that share a card")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=256)
@@ -227,15 +323,33 @@ def main() -> None:
                     help="append one telemetry snapshot per flush to PATH "
                          "as a JSONL time series")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    trainer = Trainer(cfg, device=args.device, ckpt_dir=args.ckpt_dir,
+    mesh, started = (None, False)
+    device = args.device
+    if args.mesh:
+        mesh, started = _join_world(args)
+        if device is None and args.backend == "nccl":
+            device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+            torch.cuda.set_device(torch.device(device))
+    try:
+        log = _train(args, cfg, mesh, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return log
+
+
+def _train(args, cfg: ModelConfig, mesh, device) -> list[dict]:
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    trainer = Trainer(cfg, mesh, device=device, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, lr=args.lr,
                       total_steps=args.steps)
     trainer.init_state(args.seed)
     if trainer.try_restore():
-        print(f"[train] resumed from step {trainer.step_idx}")
+        say(f"[train] resumed from step {trainer.step_idx}")
 
     pc = PipelineConfig(global_batch=args.global_batch, seq_len=args.seq_len,
                         seed=args.seed)
@@ -249,16 +363,19 @@ def main() -> None:
     for rec in log[-5:]:
         gap = rec.get("input_fidelity_gap")
         gap_s = f" gap {gap:+.3f}" if gap is not None else ""
-        print(f"[train] step {rec['step']:5d} loss {rec['loss']:.4f} "
-              f"wall {rec['wall_s']*1e3:.1f} ms "
-              f"stall {rec['input_stall_s']:.3f}s{gap_s}")
+        coll = (f" collectives {rec['collective_s'] * 1e3:.1f} ms"
+                if mesh is not None else "")
+        say(f"[train] step {rec['step']:5d} loss {rec['loss']:.4f} "
+            f"wall {rec['wall_s']*1e3:.1f} ms{coll} "
+            f"stall {rec['input_stall_s']:.3f}s{gap_s}")
     losses = [r["loss"] for r in log]
     if len(losses) >= 10:
-        print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-              f"({'improved' if losses[-1] < losses[0] else 'NOT improved'})")
-    print("[train] transfer telemetry (all layers):")
+        say(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"({'improved' if losses[-1] < losses[0] else 'NOT improved'})")
+    say("[train] transfer telemetry (all layers):")
     for line in get_registry().format_summary().splitlines():
-        print(f"[train]   {line}")
+        say(f"[train]   {line}")
+    return log
 
 
 if __name__ == "__main__":

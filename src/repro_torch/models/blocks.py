@@ -10,7 +10,7 @@ On a mesh it also holds the mesh and its axes.  The JAX package marks its
 activations with GSPMD layout constraints (``shard_act``, ``shard_heads``,
 ``shard_kv_cache``), which change no value; here each rank holds and
 computes its own part, Megatron-style, by the rule table of
-:mod:`repro_torch.parallel.sharding` (``serve_spec``):
+:mod:`repro_torch.parallel.sharding` (``rank_spec``):
 
 * attention over the rank's own query heads (and their KV heads), the
   partial sums of ``wo`` summed over the model axis;
@@ -27,6 +27,20 @@ the model axis.  The JAX package's sequence-parallel layouts
 (``seq_parallel``, ``seq_parallel_attn``) are memory layouts and are not
 ported.
 
+On a training mesh (``ShardCtx.specs``: what the rank holds of each
+parameter, ``sharding.rank_spec``) the same forward carries gradients
+through its collectives (``parallel/collectives.py``): a layer's
+weights split over the data axis (FSDP) are gathered as the layer is
+reached (:meth:`ShardCtx.gathered`), never the whole model at once;
+every region whose weights are split over the model axis is entered with
+``enter_region`` (its input's gradient summed over the model axis) and
+left with ``leave_region``; a weight held whole while the rank computes
+only its heads' share of its use (``wk`` / ``wv`` where the query heads
+divide the model axis and the KV heads do not) enters too, so its
+gradient is summed over the model axis.  Where the heads divide nothing,
+attention is computed whole on every model rank and its gradients are
+already whole.
+
 Parameters are ``nn.Module``s whose attribute names follow the JAX
 package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
 :func:`repro_torch.weights.from_jax_params` maps one onto the other by name.
@@ -38,7 +52,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+import types
+from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
@@ -82,6 +97,10 @@ class ShardCtx:
     batch_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
     moe_impl: str = "auto"         # auto | ep | tp | ref
+    #: a training mesh's spec of each parameter a rank holds, by JAX tree
+    #: path (a layer's entry without the stacked layer axis); None serves
+    specs: Optional[Mapping[str, tuple]] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.impl not in ("cuda", "ref"):
@@ -128,12 +147,64 @@ class ShardCtx:
             kv = tuple(q // G for q in range(lo, lo + hq))
         return HeadPlan(hq, len(kv), q_split=True, kv=kv)
 
+    @property
+    def training(self) -> bool:
+        """On a training mesh: the forward carries gradients through its
+        collectives."""
+        return self.mesh is not None and self.specs is not None
+
     def model_sum(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
-        """``x`` summed over the model axis when it is a ``partial`` sum."""
+        """``x`` summed over the model axis when it is a ``partial`` sum
+        (on a training mesh, leaving the region: the gradient passes to
+        every model rank unchanged)."""
         if not partial:
             return x
-        from repro_torch.parallel.collectives import psum
-        return psum(x, self.mesh, self.model_axis)
+        from repro_torch.parallel import collectives as coll
+        if self.training:
+            return coll.leave_region(x, self.mesh, self.model_axis)
+        return coll.psum(x, self.mesh, self.model_axis)
+
+    def enter(self, x: torch.Tensor, partial: bool) -> torch.Tensor:
+        """``x`` as it enters a region whose work the model ranks share
+        when ``partial``: on a training mesh its gradient is summed over
+        the model axis; elsewhere ``x`` itself."""
+        if not (partial and self.training):
+            return x
+        from repro_torch.parallel.collectives import enter_region
+        return enter_region(x, self.mesh, self.model_axis)
+
+    def gathered(self, module: Any, prefix: str) -> Any:
+        """``module``'s parameters as the layer uses them: on a training
+        mesh each one split over data axes (``specs["<prefix>/<name>"]``)
+        gathered over them with ``fsdp_gather`` (its gradient reduced and
+        scattered back), as a namespace of the module's attribute names;
+        elsewhere ``module`` itself."""
+        if not self.training:
+            return module
+        out: dict = {}
+        for name, p in module.named_parameters():
+            path = f"{prefix}/{name.replace('.', '/')}"
+            node = out
+            *owners, leaf = name.split(".")
+            for o in owners:
+                node = node.setdefault(o, {})
+            node[leaf] = self.gather_weight(p, self.specs[path])
+        return _namespace(out)
+
+    def gather_weight(self, w: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """``w``, a shard under ``spec``, gathered over every axis but the
+        model axis (FSDP's data entries), dim by dim."""
+        from repro_torch.parallel.collectives import fsdp_gather
+        for dim, axis in enumerate(spec):
+            if axis is not None and axis != self.model_axis:
+                w = fsdp_gather(w, self.mesh, axis, dim)
+        return w
+
+
+def _namespace(tree: dict) -> types.SimpleNamespace:
+    return types.SimpleNamespace(**{
+        k: _namespace(v) if isinstance(v, dict) else v
+        for k, v in tree.items()})
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -302,9 +373,12 @@ def self_attention_block(
     k_new/v_new post-RoPE (the cache's entries)."""
     B, S, D = x.shape
     hp = ctx.heads(cfg)
+    x = ctx.enter(x, hp.q_split)
+    # wk / wv held whole, used for this rank's heads only
+    wk, wv = (ctx.enter(w, hp.kv is not None) for w in (p.wk, p.wv))
     q = (x @ p.wq).reshape(B, S, hp.hq, cfg.hd)
-    k = hp.take_kv((x @ p.wk).reshape(B, S, -1, cfg.hd))
-    v = hp.take_kv((x @ p.wv).reshape(B, S, -1, cfg.hd))
+    k = hp.take_kv((x @ wk).reshape(B, S, -1, cfg.hd))
+    v = hp.take_kv((x @ wv).reshape(B, S, -1, cfg.hd))
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)   # new keys carry current positions
     out = attention(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window,
@@ -317,15 +391,18 @@ def mlp_apply(h: torch.Tensor, p: MlpParams, cfg: ModelConfig,
               ctx: ShardCtx) -> torch.Tensor:
     """SwiGLU over the ``d_ff`` columns the rank holds, summed over the
     model axis where they are a share of ``cfg.d_ff``."""
-    y = ffn_lib.swiglu(h, p.w_gate, p.w_up, p.w_down)
-    return ctx.model_sum(y, p.w_gate.shape[-1] < cfg.d_ff)
+    partial = p.w_gate.shape[-1] < cfg.d_ff
+    y = ffn_lib.swiglu(ctx.enter(h, partial), p.w_gate, p.w_up, p.w_down)
+    return ctx.model_sum(y, partial)
 
 
 def dense_layer_apply(
     x: torch.Tensor, p: DenseLayer, cfg: ModelConfig, ctx: ShardCtx, *,
     positions: torch.Tensor, window: int = 0,
 ) -> torch.Tensor:
-    """Full pre-norm causal transformer layer (no cache)."""
+    """Full pre-norm causal transformer layer (no cache); on a training
+    mesh its weights are gathered first (:meth:`ShardCtx.gathered`)."""
+    p = ctx.gathered(p, "layers")
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, _, _ = self_attention_block(
         h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)

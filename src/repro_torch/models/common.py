@@ -71,18 +71,41 @@ def embed_init(shape: tuple[int, ...], *, generator: torch.Generator,
     return w.to(dtype)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor | None = None,
-                       z_loss_coef: float = 1e-4) -> torch.Tensor:
-    """Token-mean cross entropy in f32 with an optional z-loss (keeps the
-    log-partition near 0) and an optional per-token mask."""
+#: the z-loss coefficient of the language models' cross entropy
+Z_LOSS_COEF = 1e-4
+
+
+def log_partition_and_gold(logits: torch.Tensor, labels: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp over the vocab, the label's logit) of each token, in
+    f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse, gold
+
+
+def cross_entropy_sums(lse: torch.Tensor, gold: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       z_loss_coef: float = Z_LOSS_COEF
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the masked sum of the tokens' cross entropy with its z-loss, the
+    count of tokens the mask keeps): the token mean's numerator and
+    denominator, from each token's log-sum-exp and label logit."""
     ce = lse - gold
     if z_loss_coef:
         ce = ce + z_loss_coef * torch.square(lse)
-    if mask is not None:
-        mask = mask.float()
-        return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(ce)
+    if mask is None:
+        return torch.sum(ce), ce.new_tensor(float(ce.numel()))
+    mask = mask.float()
+    return torch.sum(ce * mask), torch.sum(mask)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       z_loss_coef: float = Z_LOSS_COEF) -> torch.Tensor:
+    """Token-mean cross entropy in f32 with an optional z-loss (keeps the
+    log-partition near 0) and an optional per-token mask."""
+    total, count = cross_entropy_sums(*log_partition_and_gold(logits, labels),
+                                      mask, z_loss_coef)
+    return total / torch.clamp(count, min=1.0)

@@ -39,6 +39,19 @@ ends with the same whole logits), the attention heads of
 families run there; the SSM, hybrid and VLM families raise on a mesh whose
 model axis is larger than 1 (ROADMAP queue 1).
 
+On a training mesh (``ctx.training``) the dense family trains: the
+forward carries gradients through its collectives (``models/blocks.py``),
+each layer's weights gathered over the data axis as it is reached (the
+layer recomputed in its backward, so the gathered weights are never
+kept, whatever ``cfg.remat`` says), and :func:`lm_loss` is the global
+token mean.  Its cross entropy is vocab-parallel: the rank's logits are
+those of its vocab columns, and the row max, the sum of exponentials and
+the target's logit are each combined over the model axis, the same
+function as the cross entropy of the gathered logits without gathering
+them.  The masked sum and the token count are each summed over the data
+axes before the division.  The other families on a training mesh raise
+(ROADMAP queue 1).
+
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
 backward pass keeps, as the JAX package's ``_remat`` does: ``"full"``
@@ -62,7 +75,8 @@ from .blocks import (DenseLayer, MambaLayer, MoeLayer, ShardCtx, _param,
                      dense_layer_apply, ffn_apply, init_dense_layer,
                      init_mamba_layer, init_moe_layer, moe_layer_apply,
                      self_attention_block)
-from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
+from .common import (cross_entropy_loss, cross_entropy_sums, dense_init,
+                     embed_init, log_partition_and_gold, rms_norm,
                      rope_angles, rotate)
 from .config import ModelConfig
 
@@ -116,6 +130,12 @@ def _check_family(cfg: ModelConfig, ctx: Optional[ShardCtx] = None) -> None:
             f"{cfg.name}: the {cfg.family} family on a mesh whose model "
             f"axis is larger than 1 waits (ROADMAP queue 1); a mesh runs "
             f"{MESH_FAMILIES}")
+    if (ctx is not None and ctx.training and ctx.mesh.size > 1
+            and cfg.family != "dense"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family on a mesh waits "
+            f"(ROADMAP queue 1: the MoE on a training mesh, then the other "
+            f"families); a training mesh runs the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +199,31 @@ def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     summed over the model axis: one rank adds each token's row, the others
     zeros, so the sum is exact."""
     t = tokens.long()
-    rows = params.embed.shape[0]
+    embed = _weight(params, "embed", ctx)
+    rows = embed.shape[0]
     if rows == cfg.vocab:
-        return params.embed[t]
+        return embed[t]
     t = t - ctx.mesh.axis_index(ctx.model_axis) * rows
     mine = (t >= 0) & (t < rows)
-    x = torch.where(mine[..., None], params.embed[t.clamp(0, rows - 1)], 0)
+    x = torch.where(mine[..., None], embed[t.clamp(0, rows - 1)], 0)
     return ctx.model_sum(x, True)
+
+
+def _weight(params: LM, name: str, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """A top-level parameter as the forward uses it: on a training mesh
+    gathered over its data axes."""
+    w = getattr(params, name)
+    if ctx is None or not ctx.training:
+        return w
+    return ctx.gather_weight(w, ctx.specs[name])
+
+
+def _head(params: LM, cfg: ModelConfig,
+          ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The LM head (D, V or the rank's vocab columns)."""
+    if cfg.tie_embeddings:
+        return _weight(params, "embed", ctx).T
+    return _weight(params, "lm_head", ctx)
 
 
 def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
@@ -212,8 +250,7 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor,
     """The logits over the whole vocab: where the rank holds a share of the
     head's vocab columns, its logits gathered over the model axis."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head
+    logits = x @ _head(params, cfg, ctx)
     if logits.shape[-1] < cfg.vocab:
         from repro_torch.parallel.collectives import all_gather
         logits = all_gather(logits, ctx.mesh, ctx.model_axis,
@@ -281,6 +318,27 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     loss, router z-loss): for the MoE family each summed over the layers,
     as the JAX package's scan carries them; 0 for the other families.  A
     VLM's S counts its ``frontend_len`` projected ``extra_embeds`` first."""
+    x, lb, z = _hidden(params, cfg, tokens, ctx, extra_embeds)
+    return _logits(params, cfg, x, ctx), lb, z
+
+
+def _layer_remat(cfg: ModelConfig, ctx: ShardCtx) -> str:
+    """``cfg.remat``, but ``"full"`` where the layers' weights are gathered
+    over the data axis on a training mesh: the gathered weights are then
+    recomputed in the backward pass, never kept."""
+    if ctx.training and any(
+            any(a is not None and a != ctx.model_axis for a in spec)
+            for path, spec in ctx.specs.items()
+            if path.startswith("layers/")):
+        return "full"
+    return cfg.remat
+
+
+def _hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            ctx: ShardCtx, extra_embeds: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward up to the final norm: (x (B, S, D), load-balance loss,
+    router z-loss)."""
     _check_family(cfg, ctx)
     x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
     S = x.shape[1]
@@ -296,10 +354,10 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             lb, z = lb + lbi, z + zi
     else:
         body = _remat(_mamba_layer if cfg.family == "ssm" else _dense_layer,
-                      cfg.remat)
+                      _layer_remat(cfg, ctx))
         for lp, w in zip(params.layers, cfg.layer_windows()):
             x = body(x, lp, cfg, ctx, positions, w)
-    return _logits(params, cfg, x, ctx), lb, z
+    return x, lb, z
 
 
 def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -321,7 +379,11 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     ``labels`` under the model, plus, for an MoE config,
     ``load_balance_coef * lb + router_z_coef * z``; and the aux dict of the
     JAX package (``ce``, ``load_balance``, ``router_z``).  A VLM's
-    frontend positions carry no labels: only the text tail is scored."""
+    frontend positions carry no labels: only the text tail is scored.  On
+    a training mesh the global token mean over the rank's rows and its
+    vocab columns (module docstring)."""
+    if ctx.training:
+        return _mesh_loss(params, cfg, batch, ctx)
     logits, lb, z = forward_lm(params, cfg, batch["tokens"], ctx,
                                extra_embeds=batch.get("extra_embeds"))
     labels = batch["labels"]
@@ -333,6 +395,38 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
         total = (total + cfg.moe.load_balance_coef * lb
                  + cfg.moe.router_z_coef * z)
     return total, {"ce": ce, "load_balance": lb, "router_z": z}
+
+
+def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
+               ) -> tuple[torch.Tensor, dict]:
+    """:func:`lm_loss` on a training mesh (the dense family): the rank's
+    logits over its vocab columns, the vocab-parallel cross entropy, and
+    the masked sum and token count summed over the data axes before the
+    division."""
+    from repro_torch.parallel import collectives as coll
+    x, lb, z = _hidden(params, cfg, batch["tokens"], ctx)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    head = _head(params, cfg, ctx)
+    split = head.shape[-1] < cfg.vocab
+    logits = (ctx.enter(x, split) @ head).float()
+    labels = batch["labels"].long()
+    if split:
+        mesh, ax = ctx.mesh, ctx.model_axis
+        top = coll.pmax(logits.detach().amax(-1), mesh, ax)
+        lse = torch.log(coll.leave_region(
+            torch.exp(logits - top[..., None]).sum(-1), mesh, ax)) + top
+        n = logits.shape[-1]
+        t = labels - mesh.axis_index(ax) * n
+        mine = (t >= 0) & (t < n)
+        gold = torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+        gold = coll.leave_region(torch.where(mine, gold, 0.0), mesh, ax)
+    else:
+        lse, gold = log_partition_and_gold(logits, labels)
+    total, count = cross_entropy_sums(lse, gold, batch.get("loss_mask"))
+    sums = coll.leave_region(torch.stack([total, count]), ctx.mesh,
+                             ctx.batch_axes)
+    ce = sums[0] / torch.clamp(sums[1], min=1.0)
+    return ce, {"ce": ce, "load_balance": lb, "router_z": z}
 
 
 # ---------------------------------------------------------------------------

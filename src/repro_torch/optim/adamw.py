@@ -41,11 +41,25 @@ def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
             v=[torch.zeros_like(p, dtype=torch.float32) for p in params])
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, *,
+                        mesh=None, split_axes=None
                         ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Grads in f32, scaled so their global norm is at most ``max_norm``;
-    returns (grads, the norm before scaling)."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+    returns (grads, the norm before scaling).  On a ``mesh`` each grad is
+    this rank's block of a leaf split over the axes ``split_axes[i]``
+    names: its squares are summed over those axes only, so a leaf held
+    whole on several ranks counts once and the norm is the whole
+    model's, the same on every rank."""
+    if mesh is None:
+        sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+    else:
+        from repro_torch.parallel.collectives import psum
+        groups: dict[tuple[str, ...], torch.Tensor] = {}
+        for g, axes in zip(grads, split_axes, strict=True):
+            key = tuple(a for a in mesh.axis_names if a in axes)
+            part = torch.sum(torch.square(g.float()))
+            groups[key] = groups[key] + part if key in groups else part
+        sq = sum(psum(groups[k], mesh, k) for k in sorted(groups))
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [g.float() * scale for g in grads], norm
@@ -63,10 +77,16 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     max_grad_norm: float = 1.0,
+    mesh=None,
+    split_axes=None,
 ) -> tuple[list[torch.Tensor], AdamWState, dict]:
     """One AdamW step.  Returns (new params in the params' dtypes, new
-    state, metrics); the inputs are left as they were."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    state, metrics); the inputs are left as they were.  On a ``mesh``
+    every list holds this rank's blocks (``split_axes``: each leaf's split
+    axes, for the global norm); the update of a block is elementwise, so
+    nothing else crosses ranks."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, mesh=mesh,
+                                       split_axes=split_axes)
     step = state.step + 1
     t = step.float()
     f32 = dict(dtype=torch.float32, device=t.device)

@@ -20,6 +20,24 @@ same result:
 * ``ppermute`` is an ``all_to_all_single`` whose splits are empty but for
   the one peer each way: gloo's ``send`` / ``recv`` take no card tensor.
 
+Autograd does not go through the plain ops above; the serving paths use
+them under ``no_grad``.  A training mesh differentiates through three
+``torch.autograd.Function`` pairs built on them, each backward the
+conjugate of its forward (Megatron's ``f`` and ``g``; FSDP's gather):
+
+* :func:`fsdp_gather`: ``all_gather`` forward, ``psum_scatter`` of the
+  gradient backward (each data rank saw other rows, so their gradients
+  of a shard sum);
+* :func:`enter_region`: identity forward, ``psum`` of the gradient
+  backward, where a replicated activation (or a weight held whole) enters
+  a region each rank computes a part of;
+* :func:`leave_region`: ``psum`` forward, identity backward, where such a
+  region's partial sums leave it (and for a loss's sums over the data
+  axes).
+
+Every collective of this module adds its wall time to :func:`spent`
+(a trainer's share of a step spent in collectives).
+
 :func:`compressed_psum` and :func:`hierarchical_psum` are the JAX
 package's (``parallel/collectives.py:41``, ``:82``): the paper's finding
 that when a path *is* collective-bound, fewer bytes on the wire is the
@@ -31,11 +49,34 @@ versions at any block.
 
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.optim.compression import (dequantize_int8_blockwise,
                                            quantize_int8_blockwise)
+
+
+#: wall seconds and calls of this process's collectives (:func:`spent`)
+_SPENT = {"seconds": 0.0, "calls": 0}
+
+
+def spent() -> dict:
+    """{"seconds", "calls"}: the wall time this process has spent inside
+    the collectives of this module so far, and their number.  A gloo
+    collective of card tensors returns once its result is on the card, so
+    its wall time covers the copies through the host."""
+    return dict(_SPENT)
+
+
+def _timed(collective, *args, **kw):
+    t0 = time.perf_counter()
+    try:
+        return collective(*args, **kw)
+    finally:
+        _SPENT["seconds"] += time.perf_counter() - t0
+        _SPENT["calls"] += 1
 
 
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -44,8 +85,17 @@ def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh.axis_size(axes) == 1:
         return x
     y = x.to(torch.float32, copy=True)
-    dist.all_reduce(y, group=mesh.group(axes))
+    _timed(dist.all_reduce, y, group=mesh.group(axes))
     return y.to(x.dtype)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum over ``axes`` (no gradient)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    y = x.detach().clone()
+    _timed(dist.all_reduce, y, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    return y
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
@@ -56,7 +106,7 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
-    dist.all_gather_into_tensor(out, xt, group=mesh.group(axes))
+    _timed(dist.all_gather_into_tensor, out, xt, group=mesh.group(axes))
     return out.movedim(0, dim).contiguous()
 
 
@@ -76,7 +126,8 @@ def _exchange(stacked: torch.Tensor, mesh, axes) -> torch.Tensor:
     """(n, ...) -> (n, ...): row ``j`` to member ``j``; row ``i`` of the
     result came from member ``i``."""
     out = torch.empty_like(stacked)
-    dist.all_to_all_single(out, stacked.contiguous(), group=mesh.group(axes))
+    _timed(dist.all_to_all_single, out, stacked.contiguous(),
+           group=mesh.group(axes))
     return out
 
 
@@ -112,10 +163,75 @@ def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
     send = [size if j == (i + shift) % n else 0 for j in range(n)]
     recv = [size if j == (i - shift) % n else 0 for j in range(n)]
     out = torch.empty_like(x).reshape(-1)
-    dist.all_to_all_single(out, x.contiguous().reshape(-1),
-                           output_split_sizes=recv, input_split_sizes=send,
-                           group=mesh.group(axis))
+    _timed(dist.all_to_all_single, out, x.contiguous().reshape(-1),
+           output_split_sizes=recv, input_split_sizes=send,
+           group=mesh.group(axis))
     return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Collectives that carry gradients
+# ---------------------------------------------------------------------------
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return psum_scatter(g.contiguous(), mesh, axes, dim), None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, *ctx.args), None, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def fsdp_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The whole of a tensor split over ``axes`` along ``dim``
+    (:func:`all_gather`); its gradient is summed over ``axes`` and
+    scattered back (:func:`psum_scatter`), so the shard's gradient counts
+    every member's rows."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _FsdpGather.apply(x, mesh, axes, dim)
+
+
+def enter_region(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``axes``: the members of a
+    region each use ``x`` for their part of the work, so each holds a part
+    of its gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _Enter.apply(x, mesh, axes)
+
+
+def leave_region(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over ``axes`` (:func:`psum`); its gradient passes to
+    each member unchanged: every member uses the same sum."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _Leave.apply(x, mesh, axes)
 
 
 # ---------------------------------------------------------------------------

@@ -21,15 +21,21 @@ The rules read only ``mesh.shape`` (a dict of axis sizes) and
 ``Mesh.abstract`` serves where no world exists.
 
 :func:`shard_tensor` cuts this rank's contiguous block out of a full
-tensor.  What a rank of a serving mesh holds (:func:`serve_spec`) is the
-rule table's spec without FSDP, with one change: a head is never split.
-Where the table would cut the heads' ``H * hd`` dim at a point inside a
-head (``_fit`` checks only that ``H * hd`` divides), the rank holds that
-weight whole and computes it whole, with the same values.
+tensor.  What a rank holds (:func:`rank_spec`) is the rule table's spec,
+with FSDP's ``"data"`` entries on a training mesh whose plan shards that
+way (the JAX package's ``param_shardings(..., fsdp=)``), and with one
+change: a head is never split.  Where the table would cut the heads'
+``H * hd`` dim at a point inside a head (``_fit`` checks only that
+``H * hd`` divides), the rank holds that weight whole over the model axis
+and computes it whole, with the same values.  The AdamW master and
+moments take their parameter's spec.  A :class:`NamedSharding` (a mesh
+and a spec) is one leaf of a tree of shardings, as the JAX class of that
+name is (``load_checkpoint``'s ``shardings=``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Mapping, Optional
 
@@ -169,25 +175,65 @@ def batch_specs(batch: Mapping[str, Any], mesh) -> dict[str, Spec]:
             for k, v in batch.items()}
 
 
-def serve_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig,
-               mesh) -> Spec:
-    """What a rank of a serving mesh holds of parameter ``name`` (a port
-    name, or a JAX tree path: its trailing dims take the rule): the rule
-    table's spec without FSDP, with no head split (module docstring):
-    ``wq`` / ``wo`` whole unless the query heads divide the model axis,
-    ``wk`` / ``wv`` whole unless the query and the KV heads both do."""
-    path = jax_path(name)
-    spec = _spec_for(path, tuple(shape), cfg, mesh, fsdp=False,
-                     ep=_ep(cfg, mesh))
+def _heads_whole(path: str, cfg: ModelConfig, mesh) -> bool:
+    """Whether an attention weight is held whole over the model axis (no
+    head split, module docstring): ``wq`` / ``wo`` unless the query heads
+    divide the model axis, ``wk`` / ``wv`` unless the query and the KV
+    heads both do."""
     leaf = path.split("/")[-1]
-    if leaf in ("wq", "wk", "wv", "wo"):
-        m = mesh.shape["model"]
-        split = m > 1 and cfg.n_heads % m == 0
-        if leaf in ("wk", "wv"):
-            split = split and cfg.n_kv_heads % m == 0
-        if not split:
-            return (None,) * len(shape)
+    if leaf not in ("wq", "wk", "wv", "wo"):
+        return False
+    m = mesh.shape["model"]
+    split = m > 1 and cfg.n_heads % m == 0
+    if leaf in ("wk", "wv"):
+        split = split and cfg.n_kv_heads % m == 0
+    return not split
+
+
+def plan_fsdp(plan) -> bool:
+    """Whether a ``CodesignPlan`` shards the weights over the data axis
+    too (the JAX package's ``fsdp=plan.sharding in ("fsdp",
+    "fsdp_tp")``)."""
+    return plan.sharding in ("fsdp", "fsdp_tp")
+
+
+def rank_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig, mesh,
+              *, fsdp: bool = False) -> Spec:
+    """What a rank of ``mesh`` holds of parameter ``name`` (a port name, or
+    a JAX tree path: its trailing dims take the rule; on a training mesh
+    also of its AdamW master and moments): the rule table's spec, with
+    FSDP's ``"data"`` entries when ``fsdp``.  Its ``"model"`` entries
+    stand whatever the plan (a model axis of 1 drops them, as ``_fit``
+    does), but a head is never split: an attention weight that
+    :func:`_heads_whole` names keeps only its ``"data"`` entry."""
+    path = jax_path(name)
+    spec = _spec_for(path, tuple(shape), cfg, mesh, fsdp=fsdp,
+                     ep=_ep(cfg, mesh))
+    if _heads_whole(path, cfg, mesh):
+        spec = tuple(None if a == "model" else a for a in spec)
     return spec
+
+
+def spec_axes(spec: Spec) -> tuple[str, ...]:
+    """The mesh axes a spec splits over, in the order its entries name
+    them."""
+    out: list[str] = []
+    for a in spec:
+        out += [] if a is None else [a] if isinstance(a, str) else list(a)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf of a tree of shardings: the block of a whole leaf that this
+    rank of ``mesh`` holds under ``spec`` (a stacked leaf's spec has a
+    leading None for its layer axis)."""
+
+    mesh: Any = dataclasses.field(compare=False, repr=False)
+    spec: Spec = ()
+
+    def slices(self, shape: tuple[int, ...]) -> tuple[slice, ...]:
+        return shard_slices(tuple(shape), self.spec, self.mesh)
 
 
 def shard_slices(shape: tuple[int, ...], spec: Spec, mesh
@@ -205,6 +251,17 @@ def shard_slices(shape: tuple[int, ...], spec: Spec, mesh
         i = mesh.axis_index(axis)
         out.append(slice(i * size, (i + 1) * size))
     return tuple(out)
+
+
+def unshard(t, spec: Spec, mesh):
+    """The inverse of :func:`shard_tensor`: the whole tensor of which ``t``
+    is this rank's block under ``spec``, gathered dim by dim over each
+    split dim's axes.  Every rank of ``mesh`` calls it (collectives)."""
+    from repro_torch.parallel.collectives import all_gather
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            t = all_gather(t, mesh, axis, dim)
+    return t
 
 
 def shard_tensor(full, spec: Spec, mesh):

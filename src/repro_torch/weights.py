@@ -18,6 +18,9 @@ encdec.EncDec`) stacks two layer lists, ``enc_layers`` (dense layers) and
 :func:`shard_params` gives one rank of a serving mesh its shards, from
 such a tree or from a whole ``LM``; :func:`init_sharded` draws them from a
 seed as ``ModelApi.init`` does, holding no more than one layer whole.
+Given a ``CodesignPlan`` both cut a training mesh's blocks instead
+(``sharding.rank_spec``: FSDP's data entries where the plan asks for
+them).
 
 :func:`to_jax_params` is its inverse (numpy leaves, bf16 as raw 2-byte
 values, :data:`repro_torch.tree.BF16_HOST`); :func:`jax_tree` lays any
@@ -45,7 +48,7 @@ from .models.config import ModelConfig
 from .models.encdec import DecLayer, EncDec
 from .models.lm import LM, Projector, _check_family
 from .optim.adamw import AdamWState
-from .parallel.sharding import serve_spec, shard_tensor
+from .parallel.sharding import plan_fsdp, rank_spec, shard_tensor
 from .tree import (Stacked, flatten_with_paths, host_array, map_leaves,
                    unflatten)
 
@@ -159,44 +162,65 @@ def from_jax_params(np_tree: Mapping[str, Any], cfg: ModelConfig, *,
 STACKED = ("layers", "enc_layers", "dec_layers")
 
 
-def _shard_leaf(name: str, a, cfg: ModelConfig, mesh):
-    """``a``'s block on this rank: ``name`` a port name or a JAX path (a
-    stacked leaf keeps its leading layer dim whole)."""
-    spec = serve_spec(name, tuple(a.shape), cfg, mesh)
+def param_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig, mesh,
+               plan=None) -> tuple:
+    """What this rank holds of parameter ``name`` (a port name or a JAX
+    path; a stacked leaf's leading layer dim stays whole): a serving
+    mesh's block without a plan, a training mesh's under ``plan``
+    (``sharding.rank_spec``)."""
+    return rank_spec(name, tuple(shape), cfg, mesh,
+                     fsdp=plan is not None and plan_fsdp(plan))
+
+
+def _shard_leaf(name: str, a, cfg: ModelConfig, mesh, plan=None):
+    """``a``'s block on this rank (:func:`param_spec`)."""
+    spec = param_spec(name, tuple(a.shape), cfg, mesh, plan)
     return a if not any(spec) else shard_tensor(a, spec, mesh)
 
 
 def shard_params(src: Any, cfg: ModelConfig, mesh, *,
-                 device: torch.device | str | None = None) -> LM:
-    """This rank's ``LM`` of a serving mesh: every parameter cut to the
-    block ``parallel.sharding.serve_spec`` gives the rank (the rule
-    table's spec, no head split).  ``src`` is the JAX model's parameter
+                 device: torch.device | str | None = None, plan=None,
+                 trainable: bool = False) -> LM:
+    """This rank's ``LM``: every parameter cut to the block
+    :func:`param_spec` gives the rank (a serving mesh's without a plan, a
+    training mesh's under ``plan``).  ``src`` is the JAX model's parameter
     tree (numpy leaves: each leaf is cut first, then built on ``device``
     by :func:`from_jax_params`), or a whole ``LM``, whose tensors the
-    result views (no copy)."""
+    result views (no copy).  ``trainable`` shards require gradients."""
     if isinstance(src, LM):
-        memo = {id(p): _param(_shard_leaf(n, p.data, cfg, mesh))
+        memo = {id(p): _param(_shard_leaf(n, p.data, cfg, mesh, plan))
                 for n, p in src.named_parameters()}
-        return copy.deepcopy(src, memo)
+        return copy.deepcopy(src, memo).requires_grad_(trainable)
     _check_family(cfg)
     return from_jax_params(unflatten(src, [
-        _shard_leaf(path, np.asarray(a), cfg, mesh)
-        for path, a in flatten_with_paths(src)]), cfg, device=device)
+        _shard_leaf(path, np.asarray(a), cfg, mesh, plan)
+        for path, a in flatten_with_paths(src)]), cfg, device=device,
+        trainable=trainable)
 
 
 def init_sharded(cfg: ModelConfig, seed: int, mesh, *,
-                 device: torch.device | str | None = None) -> LM:
-    """This rank's shards of the parameters ``ModelApi.init(seed)`` draws
-    on ``device`` (the same generator, the same draws): each parameter is
-    cut to its block as it is drawn (``init_lm(keep=...)``), so the rank
-    holds its shards and at most one layer whole, never the model."""
+                 device: torch.device | str | None = None, plan=None,
+                 trainable: bool = False) -> LM:
+    """This rank's shards (:func:`param_spec`) of the parameters
+    ``ModelApi.init(seed)`` draws on ``device`` (the same generator, the
+    same draws): each parameter is cut to its block as it is drawn
+    (``init_lm(keep=...)``), so the rank holds its shards and at most one
+    layer whole, never the model."""
     from .models.api import build
     dev = resolve_device(device)
 
     def keep(name, t):
-        out = _shard_leaf(name, t, cfg, mesh)
+        out = _shard_leaf(name, t, cfg, mesh, plan)
         return out if out is t else out.clone()
-    return build(cfg).init(seed, device=dev, keep=keep)
+    return build(cfg).init(seed, device=dev, keep=keep, trainable=trainable)
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's whole shape by port name, from an init on the
+    ``meta`` device (no memory)."""
+    from .models.lm import init_lm
+    lm = init_lm(cfg, generator=torch.Generator(), device="meta")
+    return {n: tuple(p.shape) for n, p in lm.named_parameters()}
 
 
 def param_names(lm: LM | EncDec) -> list[str]:

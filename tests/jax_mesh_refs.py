@@ -1,6 +1,6 @@
 """Reference outputs of the JAX package on an emulated 4-device CPU mesh.
 
-    python tests/jax_mesh_refs.py {mesh|gpipe} OUT.npz
+    python tests/jax_mesh_refs.py {mesh|gpipe|train} OUT.npz
 
 jax pins the device count at its first import, so the test files that
 compare the port's ranks with the JAX package's mesh run this script in
@@ -18,7 +18,13 @@ each shard kept; ``compressed_psum`` (blocks 64 and 256) and
 every config; the smoke phi3 at (1, 4) and smoke mixtral at (2, 2) served
 by ``Server(cfg, mesh)``: prefill logits and teacher-forced decode logits,
 in f32.  ``gpipe``: ``pipeline_forward`` of a dense stack over a stage
-axis of 4 and of 2.
+axis of 4 and of 2.  ``train``: ``make_train_step`` on each mesh of
+``TRAIN_CASES`` for 2 steps from the JAX model's weights in f32 (the
+metrics and the final weights); the loss and gradients of one batch with
+a ``loss_mask`` that differs row by row (one device: the reference's
+jitted mesh step takes no mask); the JAX ``Trainer`` at (2, 2) saving a
+checkpoint beside OUT.npz (``jax_ckpt/``); and the JAX input pipeline's
+global batches on the (2, 2) mesh.
 """
 
 import dataclasses
@@ -30,7 +36,7 @@ import sys
 # the test run shares the host with wall-clock tests in other workers
 os.nice(10)
 os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
-    -1 if sys.argv[1:2] == ["mesh"] else -2]})
+    {"mesh": -1, "gpipe": -2}.get(sys.argv[1], -3)]})
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -63,6 +69,14 @@ CPSUM_CASES = {"model-b64": ("1x4", "model", 1300, 64),
 #: pipeline cases: name -> (mesh shape, axes, stage axis, n_micro)
 GPIPE_CASES = {"pod4": ((4,), ("pod",), "pod", 4),
                "data2": ((2, 2), ("data", "model"), "data", 3)}
+#: mesh train steps: name -> (arch, mesh, plan sharding, microbatches)
+TRAIN_CASES = {"smollm-2x2-fsdp_tp": ("smollm-360m", "2x2", "fsdp_tp", 1),
+               "phi3-1x4-tp": ("phi3-mini-3.8b", "1x4", "tp", 1),
+               "smollm-4x1-fsdp-mb2": ("smollm-360m", "4x1", "fsdp", 2)}
+#: the train job's batches (B, S), learning rate and steps; the trainer's
+#: checkpoint run: its batches (B, S), pipeline seed and steps
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = (8, 16), 1e-3, 2
+CKPT_RUN = dict(batch=8, seq=16, seed=5, steps=2, every=2)
 
 
 def mesh_of(name):
@@ -266,6 +280,92 @@ def gpipe_refs(out):
         out[f"gpipe/{case}/y"] = np.asarray(y)
 
 
+def _flat(out, prefix, tree):
+    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in p)
+        out[f"{prefix}/{key}"] = np.asarray(v)
+
+
+def train_batches(vocab, n):
+    """``n`` seeded (tokens, labels) batches of :data:`TRAIN_BATCH`."""
+    rng = np.random.default_rng(17)
+    B, S = TRAIN_BATCH
+    return [{"tokens": rng.integers(0, vocab, (B, S), dtype=np.int32),
+             "labels": rng.integers(0, vocab, (B, S), dtype=np.int32)}
+            for _ in range(n)]
+
+
+def loss_mask():
+    """A mask that keeps a different share of each row's tokens."""
+    B, S = TRAIN_BATCH
+    rng = np.random.default_rng(23)
+    return (rng.random((B, S)) < np.linspace(0.15, 0.95, B)[:, None]
+            ).astype(np.float32)
+
+
+def train_refs(out, path):
+    """The mesh train steps, the masked loss and gradients, the trainer's
+    checkpoint and the input feed (module docstring)."""
+    from repro.configs import get_smoke_config
+    from repro.core.codesign import CodesignPlan
+    from repro.data.pipeline import (InputPipeline, PipelineConfig,
+                                     SyntheticTokenSource)
+    from repro.launch import steps as steps_lib
+    from repro.launch.train import Trainer
+    from repro.models.api import build
+    from repro.models.blocks import ShardCtx
+    from repro.optim.adamw import adamw_init
+    from repro.parallel.sharding import param_shardings
+    for case, (arch, m, sharding, micro) in TRAIN_CASES.items():
+        cfg = get_smoke_config(arch)
+        api, mesh = build(cfg), mesh_of(m)
+        params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                              api.init(jax.random.PRNGKey(0)))
+        _flat(out, f"train/{case}/params", params)
+        plan = CodesignPlan(sharding=sharding, microbatches=micro,
+                            seq_parallel=False)
+        step, p_shard, s_shard, _ = steps_lib.make_train_step(
+            api, mesh, plan, lr_peak=TRAIN_LR, warmup=1,
+            total_steps=10)
+        params = jax.device_put(params, p_shard)
+        opt = jax.jit(adamw_init, out_shardings=s_shard)(params)
+        metrics = []
+        for b in train_batches(cfg.vocab, TRAIN_STEPS):
+            params, opt, mt = step(params, opt, b)
+            metrics.append([float(mt[k]) for k in
+                            ("loss", "ce", "grad_norm", "lr")])
+        out[f"train/{case}/metrics"] = np.asarray(metrics)
+        _flat(out, f"train/{case}/final", params)
+
+    cfg = get_smoke_config("smollm-360m")
+    api = build(cfg)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          api.init(jax.random.PRNGKey(1)))
+    _flat(out, "masked/params", params)
+    batch = dict(train_batches(cfg.vocab, 1)[0], loss_mask=loss_mask())
+    (loss, aux), grads = jax.jit(jax.value_and_grad(
+        lambda p: api.loss(p, batch, ShardCtx()), has_aux=True))(params)
+    out["masked/loss"] = np.asarray([float(loss), float(aux["ce"])])
+    _flat(out, "masked/grads", grads)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(path)), "jax_ckpt")
+    r = CKPT_RUN
+    trainer = Trainer(cfg, mesh_of("2x2"), ckpt_dir=root,
+                      ckpt_every=r["every"], total_steps=10)
+    trainer.init_state(0)
+    pc = PipelineConfig(r["batch"], r["seq"], seed=r["seed"])
+    trainer.run(SyntheticTokenSource(cfg, pc, n_batches=r["steps"] + 2),
+                r["steps"])
+    out["ckpt/root"] = np.asarray(root)
+    out["ckpt/step"] = np.asarray(trainer.step_idx)
+
+    pipe = InputPipeline(SyntheticTokenSource(cfg, pc, n_batches=2), pc=pc,
+                         mesh=mesh_of("2x2"), batch_axes=("data",))
+    got = [jax.tree.map(np.asarray, b) for b in pipe]
+    out["feed/tokens"] = np.stack([b["tokens"] for b in got])
+    out["feed/labels"] = np.stack([b["labels"] for b in got])
+
+
 def main():
     job, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -277,12 +377,16 @@ def main():
         serve_refs(out)
     elif job == "gpipe":
         gpipe_refs(out)
+    elif job == "train":
+        train_refs(out, path)
     else:
         raise SystemExit(f"unknown job {job!r}")
     out["meta"] = np.asarray(json.dumps({
         "moe": MOE_CASES, "serve": SERVE_CASES, "cpsum": CPSUM_CASES,
         "gpipe": {k: [list(v[0]), list(v[1]), v[2], v[3]]
-                  for k, v in GPIPE_CASES.items()}}))
+                  for k, v in GPIPE_CASES.items()},
+        "train": TRAIN_CASES, "train_batch": TRAIN_BATCH,
+        "train_lr": TRAIN_LR, "ckpt_run": CKPT_RUN}))
     np.savez(path, **out)
     print("MARKER jax-mesh-refs-ok", job, len(out))
 

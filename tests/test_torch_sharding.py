@@ -6,8 +6,8 @@ memory), with and without FSDP, on meshes (1, 4), (2, 2) and (4, 1); and
 ``_token_axes``, ``_capacity`` and ``choose_moe_impl``.  The JAX
 functions are called with a stand-in mesh that has ``shape`` (a dict) and
 ``axis_names``, all they read; the JAX package is not patched.  Then the
-port's own pieces that need no world: ``serve_spec`` (the table without a
-head split), ``shard_tensor``, ``ShardCtx.heads``, the meshes' shapes,
+port's own pieces that need no world: ``rank_spec`` on a serving mesh
+(the table without FSDP or a head split), ``shard_tensor``, ``ShardCtx.heads``, the meshes' shapes,
 the draws of ``weights.init_sharded`` and the families a mesh refuses.
 Each test loops over its cases, so the file keeps under 27 tests (see
 ``tests/test_torch_mesh.py``).
@@ -183,7 +183,7 @@ def _check_serve_spec(arch, shape):
     kv_split = q_split and cfg.n_kv_heads % m == 0
     for name, s in shapes.items():
         leaf = name.split(".")[-1]
-        got = sharding.serve_spec(name, s, cfg, mesh)
+        got = sharding.rank_spec(name, s, cfg, mesh)
         if leaf in ("wq", "wo") and not q_split or \
                 leaf in ("wk", "wv") and not kv_split:
             assert got == (None,) * len(s)

@@ -1,6 +1,6 @@
 """One rank of the port's gloo world, for the mesh tests.
 
-    python tests/torch_mesh_ranks.py {mesh|gpipe} RANK WORLD PORT REF.npz OUTDIR
+    python tests/torch_mesh_ranks.py {mesh|gpipe|train} RANK WORLD PORT REF.npz OUTDIR
 
 The test files call :func:`run_world`: it runs the JAX package's
 reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
@@ -32,6 +32,7 @@ from repro_torch.models import ffn  # noqa: E402
 from repro_torch.models.config import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.parallel import collectives as coll  # noqa: E402
 from repro_torch.parallel.sharding import shard_tensor  # noqa: E402
+from repro_torch.tree import flatten_with_paths, host_array  # noqa: E402
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
 WORLD = 4
@@ -246,6 +247,220 @@ def gpipe(out, ref, meta):
         out[f"gpipe/{case}/calls"] = np.asarray(len(calls))
 
 
+# ---------------------------------------------------------------------------
+# train: the mesh train step, its collectives, the elastic restore
+# ---------------------------------------------------------------------------
+
+#: the gradient collectives' inputs: (rows, cols) of each rank's x
+GRAD_SHAPE = (2, 3)
+
+
+def grad_inputs(rank: int):
+    """Rank ``rank``'s x and the weight w of its loss ``sum(w * f(x))``."""
+    rng = np.random.default_rng(100 + rank)
+    return (rng.standard_normal(GRAD_SHAPE).astype(np.float32),
+            rng.standard_normal((4, 6)).astype(np.float32))
+
+
+def grad_collectives(out, mesh, rank):
+    """Each collective that carries gradients, on the (2, 2) mesh: the
+    gradient of ``sum(w * f(x))`` with respect to the rank's x.  Where
+    ``f``'s result is the same on every member (``leave_region``), the
+    members' loss is one replicated loss and each uses the model group's
+    first member's w."""
+    from repro_torch.parallel import collectives as coll
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    first = d * mesh.shape["model"]          # rank (d, 0)
+    cases = {
+        "fsdp_gather": (lambda x: coll.fsdp_gather(x, mesh, "data", 0),
+                        rank, (4, 3)),
+        "enter_region": (lambda x: coll.enter_region(x, mesh, "model"),
+                         rank, GRAD_SHAPE),
+        "leave_region": (lambda x: coll.leave_region(x, mesh, "model"),
+                         first, GRAD_SHAPE),
+    }
+    for name, (fn, w_rank, shape) in cases.items():
+        x = _t(grad_inputs(rank)[0]).requires_grad_(True)
+        w = _t(grad_inputs(w_rank)[1][:shape[0], :shape[1]])
+        y = fn(x)
+        (g,) = torch.autograd.grad(torch.sum(w * y), x)
+        out[f"grad/{name}"] = g.numpy()
+        out[f"grad/{name}/y"] = y.detach().numpy()
+
+
+def train_steps(out, ref, meta, meshes, rank):
+    """Each case's 2 steps on the rank's shards (``shard_params`` under the
+    plan) and rows; rank 0 writes the gathered final weights."""
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.weights import shard_params
+    B, S = meta["train_batch"]
+    for case, (arch, m, sharding, micro) in meta["train"].items():
+        cfg, mesh = get_smoke_config(arch), meshes[m]
+        plan = CodesignPlan(sharding=sharding, microbatches=micro,
+                            seq_parallel=False)
+        lm = shard_params(_tree(ref, f"train/{case}/params/"), cfg, mesh,
+                          device="cpu", plan=plan, trainable=True)
+        opt = adamw_init(lm.parameters())
+        step, ctx = make_train_step(build(cfg), mesh, plan,
+                                    lr_peak=meta["train_lr"], warmup=1,
+                                    total_steps=10)
+        metrics = []
+        for b in _train_batches(cfg.vocab, len(ref[f"train/{case}/metrics"]),
+                                B, S):
+            lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
+                                         for k, v in b.items()})
+            metrics.append([float(mt[k]) for k in
+                            ("loss", "ce", "grad_norm", "lr")])
+        out[f"train/{case}/metrics"] = np.asarray(metrics)
+        out[f"train/{case}/params_held"] = np.asarray(
+            sum(p.numel() for p in lm.parameters()))
+        whole = _gather_params(lm, cfg, mesh, plan)
+        if rank == 0:
+            for path, v in flatten_with_paths(whole):
+                out[f"train/{case}/final/{path}"] = v
+
+
+def _gather_params(lm, cfg, mesh, plan):
+    """The whole parameters of which ``lm`` holds this rank's blocks under
+    ``plan``, as the JAX package's numpy tree, gathered one parameter at a
+    time (every rank joins each gather)."""
+    from repro_torch.parallel.sharding import unshard
+    from repro_torch.tree import map_leaves
+    from repro_torch.weights import (jax_tree, param_names, param_shapes,
+                                     param_spec)
+    shapes, names = param_shapes(cfg), param_names(lm)
+    whole = [unshard(p.detach(), param_spec(n, shapes[n], cfg, mesh, plan),
+                     mesh).cpu() for n, p in zip(names, lm.parameters())]
+    return map_leaves(host_array, jax_tree(whole, names))
+
+
+def _train_batches(vocab, n, B, S):
+    """The JAX run's batches (the same seeded numpy draws)."""
+    rng = np.random.default_rng(17)
+    return [{"tokens": rng.integers(0, vocab, (B, S), dtype=np.int32),
+             "labels": rng.integers(0, vocab, (B, S), dtype=np.int32)}
+            for _ in range(n)]
+
+
+def _loss_mask(B, S):
+    """The JAX run's mask: a different share of each row's tokens kept."""
+    rng = np.random.default_rng(23)
+    return (rng.random((B, S)) < np.linspace(0.15, 0.95, B)[:, None]
+            ).astype(np.float32)
+
+
+def masked_grads(out, ref, meta, meshes, rank):
+    """The loss and the exchanged, gathered gradients of one batch whose
+    loss mask differs row by row (so rank by rank) at (2, 2) FSDP + TP."""
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build
+    from repro_torch.parallel.sharding import jax_path, unshard
+    from repro_torch.weights import jax_tree, param_names, shard_params
+    cfg, mesh = get_smoke_config("smollm-360m"), meshes["2x2"]
+    plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
+    api = build(cfg)
+    lm = shard_params(_tree(ref, "masked/params/"), cfg, mesh, device="cpu",
+                      plan=plan, trainable=True)
+    ctx = steps.make_ctx(api, mesh, plan, "ref", train=True)
+    B, S = meta["train_batch"]
+    batch = dict(_train_batches(cfg.vocab, 1, B, S)[0],
+                 loss_mask=_loss_mask(B, S))
+    loss, aux = api.loss(lm, {k: _t(_rows(v, mesh)) for k, v in batch.items()},
+                         ctx)
+    names = param_names(lm)
+    grads = torch.autograd.grad(loss, list(lm.parameters()))
+    specs = [ctx.specs[jax_path(n)] for n in names]
+    grads = steps._exchange(grads, specs, ctx)
+    whole = [unshard(g, s, mesh).numpy() for g, s in zip(grads, specs)]
+    out["masked/loss"] = np.asarray([float(loss), float(aux["ce"])])
+    if rank == 0:
+        for path, v in flatten_with_paths(jax_tree(whole, names)):
+            out[f"masked/grads/{path}"] = np.stack(v) if isinstance(
+                v, tuple) else v
+
+
+def elastic(out, ref, meta, meshes, rank, out_dir):
+    """The JAX trainer's (2, 2) checkpoint restored by the port's
+    ``Trainer`` at (4, 1) FSDP (each rank's blocks written as they came);
+    the restored state saved again from the mesh (rank 0 writes
+    ``OUTDIR/port_ckpt``); and the rank's rows of the input feed."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.data.pipeline import (InputPipeline, PipelineConfig,
+                                           SyntheticTokenSource)
+    from repro_torch.launch.train import Trainer
+    cfg, mesh = get_smoke_config("smollm-360m"), meshes["4x1"]
+    plan = CodesignPlan(sharding="fsdp", seq_parallel=False)
+    t = Trainer(cfg, mesh, plan=plan, device="cpu",
+                ckpt_dir=str(ref["ckpt/root"]))
+    t.init_state(9)
+    assert t.try_restore(), "no checkpoint restored"
+    out["elastic/step"] = np.asarray(t.step_idx)
+    for path, v in flatten_with_paths(t.state_tree()):
+        out[f"elastic/state/{path}"] = host_array(v)
+    ck = CheckpointManager(os.path.join(out_dir, "port_ckpt"), mesh=mesh)
+    ck.maybe_save(t.step_idx, t.state_tree(), force=True,
+                  shardings=t.state_shardings())
+    ck.wait()
+    r = meta["ckpt_run"]
+    pc = PipelineConfig(r["batch"], r["seq"], seed=r["seed"])
+    pipe = InputPipeline(SyntheticTokenSource(cfg, pc, n_batches=2), pc=pc,
+                         mesh=meshes["2x2"], device="cpu")
+    rows = list(pipe)
+    out["feed/tokens"] = np.stack([b["tokens"].numpy() for b in rows])
+    out["feed/labels"] = np.stack([b["labels"].numpy() for b in rows])
+
+
+def failure(out, meshes, rank, out_dir):
+    """The CLI on the (2, 2) mesh (``train.main``, in this world) with an
+    injected failure after step 3, then a trainer that restores the run's
+    step-2 checkpoint and trains on the batches the run fed after its
+    restore: its losses against the run's."""
+    from repro_torch.checkpoint.manager import load_checkpoint
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticTokenSource
+    from repro_torch.launch import train
+    from repro_torch.weights import from_jax_tree, opt_state_from_tree
+    from repro_torch.weights import param_names
+    root = os.path.join(out_dir, "cli_ckpt")
+    args = ["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--mesh",
+            "2x2", "--steps", "6", "--global-batch", "8", "--seq-len", "16",
+            "--ckpt-dir", root, "--ckpt-every", "2",
+            "--inject-failure-at", "3"]
+    log = train.main(args)
+    out["fail/steps"] = np.asarray([r["step"] for r in log])
+    out["fail/losses"] = np.asarray([r["loss"] for r in log])
+    cfg = get_smoke_config("smollm-360m")
+    t = train.Trainer(cfg, meshes["2x2"], device="cpu", total_steps=6)
+    t.init_state(0)
+    state = load_checkpoint(root, 2, t.state_tree(),
+                            shardings=t.state_shardings())
+    names = param_names(t.params)
+    with torch.no_grad():
+        for w, v in zip(t.params.parameters(),
+                        from_jax_tree(state["params"], names)):
+            w.copy_(v)
+    t.opt_state = opt_state_from_tree(state["opt"], names)
+    t.step_idx = 2
+
+    class After:
+        """The CLI run's source from its fifth batch on (batches 1-3 fed
+        steps 1-3, the fourth was drawn when the failure struck)."""
+        pc = PipelineConfig(8, 16, seed=0)
+
+        def __iter__(self):
+            it = iter(SyntheticTokenSource(cfg, self.pc, n_batches=14))
+            for _ in range(4):
+                next(it)
+            return it
+    again = t.run(After(), 3)
+    out["fail/resumed_steps"] = np.asarray([r["step"] for r in again])
+    out["fail/resumed_losses"] = np.asarray([r["loss"] for r in again])
+
+
 def main() -> None:
     job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -254,7 +469,7 @@ def main() -> None:
     # tests in other workers
     os.nice(10)
     os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
-        -1 if job == "mesh" else -2]})
+        {"mesh": -1, "gpipe": -2}.get(job, -3)]})
     torch.set_num_threads(1)
     init_world("gloo", rank=rank, world_size=world,
                init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
@@ -269,6 +484,14 @@ def main() -> None:
         serve(out, ref, meta, meshes)
     elif job == "gpipe":
         gpipe(out, ref, meta)
+    elif job == "train":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        grad_collectives(out, meshes["2x2"], rank)
+        train_steps(out, ref, meta, meshes, rank)
+        masked_grads(out, ref, meta, meshes, rank)
+        elastic(out, ref, meta, meshes, rank, out_dir)
+        failure(out, meshes, rank, out_dir)
     else:
         raise SystemExit(f"unknown job {job!r}")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
