@@ -191,9 +191,10 @@ Phases, one JSON line each:
 16. ``mesh``, last: NCCL at a world of one (an ``all_reduce`` and an
    ``all_to_all_single`` on the card); the kernels at the per-rank shapes
    (flash phi3 B4 Hq8 Hkv8 S1024 hd 96, mixtral B2 Hq12 Hkv2 S4608 at
-   window 4096, a mistral-large stage B1 Hq96 Hkv8 S1024; decode phi3
-   8/8 over 1057 slots, mixtral 12/2 over the wrapped 4096-slot ring; the
-   digest of one rank's KV item; quantize and dequantize at 64 MiB); then
+   window 4096, llava B4 Hq8 Hkv2 S1088 hd 128, a mistral-large stage B1
+   Hq96 Hkv8 S1024; decode phi3 8/8 over 1057 slots, mixtral 12/2 over
+   the wrapped 4096-slot ring, llava 8/2 over 1121 slots; the digest of
+   one rank's KV item; quantize and dequantize at 64 MiB); then
    four ranks spawned once (``MeshWorld``), sharing the card over gloo,
    each single-threaded with a 60 s collective timeout (a rank that
    raises, hangs or exits non-zero fails the run with its traceback).
@@ -204,7 +205,7 @@ Phases, one JSON line each:
    sum; bit-equal to the same exchange on the CPU) and
    ``hierarchical_psum`` on (2, 2), plain and compressed; phi3-mini at TP
    4 (mesh (1, 4)): ``Server(cfg, mesh).generate`` (rank 0 streams
-   through the mover), then the logits over 4 x 1024 tokens and 32
+   through the mover), then the logits over 4 x 1024 tokens and 8
    teacher-forced steps held to this process's kernel path within
    ``LOGIT_SHARE``, and that path to the plain path; rank 0 stages its
    prefill's KV items under the accel digest; mixtral at EP 4 (10 of 56
@@ -214,20 +215,42 @@ Phases, one JSON line each:
    ``moe_tp`` against ``moe_dispatch`` on the same 9216 tokens;
    mistral-large through ``pipeline_forward`` (4 stages of 2 layers, 8 of
    88, 4 microbatches of 1 x 1024) held to the same 8 layers run straight
-   through; then smollm-360m trained at full width (``MESH_TRAIN``):
+   through; llava-next-mistral-7b at TP 4 (``MESH_LLAVA``: 4 x (576 stub
+   patches + 512 tokens), a 1121-slot cache) served and held as phi3 is,
+   without the staging; then smollm-360m trained at full width
+   (``MESH_TRAIN``):
    ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP on the train phase's
    8 x 512 batches, a checkpoint every 2 steps (rank 0 writes the
-   gathered leaves), a failure injected at step 3 (every rank restores
-   step 2), then the elastic restore of the last checkpoint onto (4, 1)
-   under FSDP and 2 more steps; its step-1 loss, gradient norm and each
-   gradient leaf's norm held to a one-card step on the same weights and
-   batch (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``, ``MESH_LEAF_RTOL``), a
-   one-card ``Trainer``
-   restoring the mesh's newest checkpoint with the manifest's hashes and
-   saving it again with the same bytes; per rank and step the wall ms and
-   the share spent in collectives, each save and restore, the peak
-   memory; no kernel launches.  Every mesh time is labelled "4 ranks on
-   one card over gloo: not a multi-card time".
+   gathered leaves; no save at the end of a run: one checkpoint a part,
+   for the machine's 45 GiB disk budget), 3 steps with a failure
+   injected before step 3 (every rank restores step 2), then the elastic
+   restore of that checkpoint onto (4, 1) under FSDP and 1 more step on
+   the batch the (2, 2) trainer's step 3 took, its loss and gradient norm
+   held to that step's (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``); its
+   step-1 loss,
+   gradient norm and each gradient leaf's norm held to a one-card step
+   on the same weights and batch (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``,
+   ``MESH_LEAF_RTOL``), a one-card ``Trainer`` restoring the checkpoint
+   with the manifest's hashes; per rank and step the wall ms and
+   the share spent in collectives (all, FSDP's gathers and
+   reduce-scatters, the MoE's all-to-alls), each save and restore, the
+   peak memory; no kernel launches.  Then llava trained at published
+   widths, 4 of 32 layers (``MESH_VLM_TRAIN``): ``make_train_step`` at
+   (2, 2) under FSDP + TP for 2 steps on 8 rows of 576 stub patches + 512
+   scored text tokens, step 1 held to a one-card step as above; and last
+   qwen3-moe-30b-a3b trained at published widths, 2 of 48 layers
+   (``MESH_MOE_TRAIN``; it fails first unless the disk holds twice its
+   26 GB state): ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + EP (64
+   experts a rank) for 3 steps, a checkpoint at step 2, a failure before
+   step 3 (every rank restores step 2), then the elastic restore onto
+   (1, 4) (EP, 32 experts a rank) and 1 step, held to the (2, 2) step 3
+   as smollm's is; step 1 held to a one-card step under the ranks' expert
+   choices and kept pairs (``RouteLog(forced=...)``: the mesh drops pairs
+   past an expert's capacity, the one-card oracle none), the share of
+   dropped pairs recorded, and the share of the ranks' decisions the one
+   card's own router makes on that batch bounded by
+   ``MESH_ROUTE_AGREE`` in each layer.  Every mesh time is labelled "4 ranks on one card over
+   gloo: not a multi-card time".
 
 The launch counts are set to 0 just before each path (the ten ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
@@ -251,6 +274,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -2875,19 +2899,53 @@ MESH_LABEL = "4 ranks on one card over gloo: not a multi-card time"
 MESH_RANKS = 4
 #: each rank's collective timeout (s), and the parent's wait for one part
 MESH_COLLECTIVE_S, MESH_PART_S = 60, 300
-#: phi3-mini at TP 4 (mesh (1, 4)): the phi3 phase's batch and prompt, 32
-#: teacher-forced decode steps; mixtral at EP 4 (mesh (1, 4)) at the
+#: phi3-mini at TP 4 (mesh (1, 4)): the phi3 phase's batch and prompt, 8
+#: teacher-forced decode steps (cut from 32 for the run's time limit);
+#: mixtral at EP 4 (mesh (1, 4)) at the
 #: mixtral phase's batch, prompt and depth; mistral-large through the
 #: pipeline: 4 stages of 2 layers, 4 microbatches of 1 x 1024 tokens
-MESH_PHI3 = dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, steps=32)
+MESH_PHI3 = dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, steps=8)
 MESH_MIXTRAL = dict(arch="mixtral-8x22b", batch=2, prompt=4608, layers=10)
 MESH_PIPE = dict(arch="mistral-large-123b", stages=4, per_stage=2, micro=4,
                  seq=1024)
 #: smollm-360m trained at full width on the ranks: (2, 2) under FSDP + TP,
 #: ``steps`` steps of the train phase's batch and sequence, a checkpoint
-#: every ``every`` steps and a failure injected at step ``fail_at``; then
-#: the elastic restore onto (4, 1) under FSDP and ``more`` steps
-MESH_TRAIN = dict(arch="smollm-360m", steps=4, every=2, fail_at=3, more=2)
+#: every ``every`` steps and a failure injected once ``fail_at`` steps are
+#: done; then the elastic restore onto (4, 1) under FSDP and ``more``
+#: steps on the batches the (2, 2) trainer fed after its restore (cut from
+#: 4 steps and 2, for the run's time limit)
+MESH_TRAIN = dict(arch="smollm-360m", steps=3, every=2, fail_at=2, more=1,
+                  mesh="hier", plan="fsdp_tp", elastic="fsdp",
+                  elastic_plan="fsdp")
+# The disk budget: a call's machine takes at most 45 GiB of writes to its
+# disk, deleted files included.  The train phase writes two 5.33 GiB
+# checkpoints, so each mesh training part writes one, at step ``every``
+# (the part's steps stop before a second): its trainers make no save at
+# the end of a run (``_timed_trainer``), and the elastic restore reads the
+# checkpoint the failure restored (smollm-360m 5.33 GiB, qwen3-moe 24.36
+# GiB: 40.4 GiB with the train phase's).
+#: qwen3-moe-30b-a3b trained at published widths (128 experts, top 8, d
+#: 2048, vocab 151,936), its depth cut to ``layers`` of 48: 2 layers and
+#: the embeddings are 1.87 B parameters, about 26 GB of bf16 weights and
+#: f32 master and moments over the 4 ranks; a third layer would add about
+#: 8.5 GB of state and the one-card check step's dense oracle more.
+#: (2, 2) under FSDP + EP (64 experts a rank), ``steps`` steps of the
+#: train phase's 8 x 512 batches, a checkpoint every ``every`` steps, a
+#: failure injected once ``fail_at`` steps are done (every rank restores
+#: step ``every``), then the elastic restore of that checkpoint onto (1, 4)
+#: (EP, 32 experts a rank) and ``more`` steps on the batches the (2, 2)
+#: trainer fed after its restore; the first step's routing recorded
+MESH_MOE_TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=2, steps=3, every=2,
+                      fail_at=2, more=1, mesh="hier",
+                      plan="fsdp_tp", elastic="tp", elastic_plan="tp",
+                      routes=True)
+#: llava-next-mistral-7b at TP 4 (mesh (1, 4)) at full width: the llava
+#: phase's 4 x (576 stub patches + 512 tokens), 32 teacher-forced steps
+MESH_LLAVA = dict(arch="llava-next-mistral-7b", steps=32)
+#: llava trained at (2, 2) under FSDP + TP at published widths, its depth
+#: cut to ``layers`` of 32 (1.17 B parameters): ``steps`` steps of 8 rows
+#: of 576 stub patches + 512 text tokens, no checkpoint
+MESH_VLM_TRAIN = dict(arch="llava-next-mistral-7b", layers=4, steps=2)
 #: the mesh's step-1 loss, gradient norm and worst leaf's gradient norm
 #: against the one-card step's on the same weights and batch, relative:
 #: the same bf16 model, its partial sums added in f32 in another order and
@@ -2895,6 +2953,13 @@ MESH_TRAIN = dict(arch="smollm-360m", steps=4, every=2, fail_at=3, more=2)
 #: leaf 3.3e-3 (a norm weight's, 0.004 of 2.56); dropping the gradients'
 #: sum over the data axis moved the worst leaf by 42% (smoke width, CPU)
 MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_LEAF_RTOL = 1e-4, 1e-3, 2e-2
+#: qwen3-moe's step 1: the least share, in any layer, of the ranks'
+#: (token, expert) decisions that the one card's own router makes on the
+#: same batch.  The ranks' layer inputs differ by rounding, and from the
+#: second layer on by the pairs past an expert's capacity the mesh drops
+#: (the one card drops none); a rank routing another rank's tokens, or
+#: another top-k, agrees on about k / E = 8 / 128 of them
+MESH_ROUTE_AGREE = 0.95
 #: compressed_psum: 64 MiB of f32 a rank; hierarchical_psum: 16 MiB
 CPSUM_VALUES, HPSUM_VALUES = 16 * 2**20, 4 * 2**20
 #: the reference test's bound on a compressed sum (its largest error as a
@@ -2962,12 +3027,15 @@ def _rank_collectives(torch, rank, meshes):
     return out
 
 
-def _forced_run(torch, server, tokens, forced, steps, ctx=None):
-    """Prefill ``tokens`` and ``steps`` decode steps teacher-forced with
-    ``forced``, under ``ctx`` (the server's unless given): the logits of
-    each, (steps + 1, B, V) f32 on the card, and the cache."""
+def _forced_run(torch, server, batch, forced, steps, ctx=None):
+    """Prefill ``batch`` (its tokens and a VLM's ``extra_embeds``) and
+    ``steps`` decode steps teacher-forced with ``forced``, under ``ctx``
+    (the server's unless given): the logits of each, (steps + 1, B, V) f32
+    on the card, and the cache."""
     ctx = ctx or server.ctx
-    inputs = {"tokens": server._on_device(tokens, torch.int32)}
+    inputs = {"tokens": server._on_device(batch["tokens"], torch.int32)}
+    if "extra_embeds" in batch:
+        inputs["extra_embeds"] = server._on_device(batch["extra_embeds"])
     logits, cache = server.api.prefill(server.params, inputs, ctx,
                                        server.max_len)
     out = [logits[:, -1].float()]
@@ -2999,8 +3067,10 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     cfg = (dataclasses.replace(published, n_layers=layers) if layers
            else published)
     mesh = meshes["tp"]
-    server = Server(cfg, mesh, device="cuda",
-                    max_len=batch["tokens"].shape[1] + GEN + 1)
+    # a VLM's cache also holds its patch positions
+    prompt = batch["tokens"].shape[1] + (cfg.frontend_len if cfg.frontend
+                                         else 0)
+    server = Server(cfg, mesh, device="cuda", max_len=prompt + GEN + 1)
     server.params = shard_params(lm, cfg, mesh)
     out = {"params": sum(p.numel() for p in server.params.parameters())}
     torch.cuda.synchronize()
@@ -3014,7 +3084,6 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     _, out["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
     _, cache = server.prefill(batch)
     tok = server._on_device(tokens[:, :1], torch.int32)
-    prompt = batch["tokens"].shape[1]
 
     def step():
         cache["pos"] = prompt
@@ -3025,7 +3094,7 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     log = ffn.RouteLog() if cfg.moe else None
     forced = tokens if ref_path is None else torch.load(ref_path)["tokens"]
     logits, cache = _forced_run(
-        torch, server, batch["tokens"], forced, steps,
+        torch, server, batch, forced, steps,
         ctx=dataclasses.replace(server.ctx, routes=log))
     out["logits_digest"] = _digest(torch, logits)
     if ref_path is not None:
@@ -3168,31 +3237,36 @@ def _rank_pipeline(torch, rank, meshes, lm, arch, ref_path):
             "exact": bool(torch.equal(y, want)), "digest": _digest(torch, y)}
 
 
-def _rank_train(torch, rank, meshes, root):
-    """The rank's part of training smollm-360m at full width
-    (:data:`MESH_TRAIN`): ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP
-    with checkpoints into ``root`` and an injected failure, then a trainer
-    at (4, 1) under FSDP that restores the last checkpoint (the elastic
-    restore) and trains on.  Each save and restore timed on this rank;
-    rank 0's writes; the launch counts (set to 0 just before)."""
+def _train_cfg(spec: dict):
+    """A mesh training part's config: the published one, its depth cut to
+    ``spec["layers"]`` where given."""
     from repro_torch.configs import get_config
-    from repro_torch.core.codesign import CodesignPlan
-    from repro_torch.data.pipeline import (PipelineConfig,
-                                           SyntheticTokenSource)
-    from repro_torch.kernels import build
+    cfg = get_config(spec["arch"])
+    return (dataclasses.replace(cfg, n_layers=spec["layers"])
+            if spec.get("layers") else cfg)
+
+
+def _timed_trainer(torch, saves: list, restores: list):
+    """``Trainer``, timing each save and restore on this rank into
+    ``saves`` and ``restores``, and making no save at the end of a run
+    (the mesh phase's disk budget, above :data:`MESH_MOE_TRAIN`)."""
     from repro_torch.launch.train import Trainer
-    cfg = get_config(MESH_TRAIN["arch"])
-    total = MESH_TRAIN["steps"] + MESH_TRAIN["more"] + 1
-    saves, restores = [], []
+
+    def mesh_of(t):
+        return list(t.mesh.shape.values())
 
     class Timed(Trainer):
-        """The trainer, timing each save and restore on this rank."""
-
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             save = self.ckpt.maybe_save
 
             def maybe_save(step, tree, **k):
+                if k.get("force"):
+                    return False
+                # the save gathers each leaf whole on every rank: give back
+                # the step's cached blocks first, which the other ranks
+                # sharing the card cannot use
+                torch.cuda.empty_cache()
                 t0 = time.monotonic()
                 done = save(step, tree, **k)
                 if done:
@@ -3209,50 +3283,152 @@ def _rank_train(torch, rank, meshes, root):
                              "mesh": mesh_of(self),
                              "seconds": time.monotonic() - t0})
             return ok
+    return Timed
 
-    def mesh_of(t):
-        return list(t.mesh.shape.values())
 
-    def source():
-        return SyntheticTokenSource(cfg, PipelineConfig(
+def _step_log(log) -> list:
+    return [{k: r[k] for k in ("step", "loss", "grad_norm", "wall_s",
+                               "collective_s", "collective_kinds_s")}
+            for r in log]
+
+
+def _rank_train(torch, rank, meshes, root, spec):
+    """The rank's part of training ``spec``'s model on the ranks
+    (:data:`MESH_TRAIN`, :data:`MESH_MOE_TRAIN`): ``Trainer(cfg, mesh)``
+    on ``spec["mesh"]`` under ``spec["plan"]`` with checkpoints into
+    ``root`` and an injected failure, then a trainer on
+    ``spec["elastic"]`` under its plan that restores the last checkpoint
+    (the elastic restore) and trains on, saving nothing, from the batch
+    the first trainer's step after its restore took (its batches
+    ``fail_at`` steps, the one the failure drew, then the rest), so the
+    two layouts take that step on the same weights and batch.  Each save and
+    restore timed on this rank; rank 0's writes; the launch counts (set
+    to 0 just before); with ``spec["routes"]``, the routing of the first
+    step's forward."""
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import ffn
+    cfg = _train_cfg(spec)
+    total = spec["steps"] + spec["more"] + 1
+    saves, restores = [], []
+    Timed = _timed_trainer(torch, saves, restores)
+
+    def plan(name):
+        return CodesignPlan(sharding=name, seq_parallel=False)
+
+    def source(skip=0):
+        """The train phase's batches from the ``skip``-th on."""
+        src = SyntheticTokenSource(cfg, PipelineConfig(
             TRAIN_BATCH, TRAIN_SEQ, seed=SEED), n_batches=16)
 
-    def steps(log):
-        return [{k: r[k] for k in ("step", "loss", "grad_norm", "wall_s",
-                                   "collective_s")} for r in log]
-    out = {"leaf_norms": []}
+        class From:
+            pc = src.pc
+
+            def __iter__(self):
+                return itertools.islice(iter(src), skip, None)
+        return From()
+    out = {"leaf_norms": [], "card_free_gib_at_start":
+           torch.cuda.mem_get_info()[0] / 2**30}
     _record_leaf_norms(torch, out["leaf_norms"])
+    routes = ffn.RouteLog() if spec.get("routes") else None
+    make_ctx = steps_lib.make_ctx
     with torch.enable_grad():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         t0 = time.monotonic()
-        a = Timed(cfg, meshes["hier"], plan=CodesignPlan(
-            sharding="fsdp_tp", seq_parallel=False), device="cuda",
-            ckpt_dir=root, ckpt_every=MESH_TRAIN["every"], total_steps=total)
+        if routes is not None:         # the first trainer's steps log
+            steps_lib.make_ctx = lambda *a, **k: dataclasses.replace(
+                make_ctx(*a, **k), routes=routes)
+        try:
+            a = Timed(cfg, meshes[spec["mesh"]], plan=plan(spec["plan"]),
+                      device="cuda", ckpt_dir=root,
+                      ckpt_every=spec["every"], total_steps=total)
+        finally:
+            steps_lib.make_ctx = make_ctx
         a.init_state(SEED)
         out["params_held"] = sum(p.numel() for p in a.params.parameters())
-        out["log"] = steps(a.run(source(), MESH_TRAIN["steps"],
-                                 inject_failure_at=MESH_TRAIN["fail_at"]))
+        out["log"] = _step_log(a.run(source(), spec["steps"],
+                                     inject_failure_at=spec["fail_at"]))
         torch.cuda.synchronize()
         out["writes"] = list(a.ckpt.history)
-        out["peak_gib_2x2"] = torch.cuda.max_memory_allocated() / 2**30
+        out["peak_gib_train"] = torch.cuda.max_memory_allocated() / 2**30
         del a
         gc.collect()
-        b = Timed(cfg, meshes["fsdp"], plan=CodesignPlan(
-            sharding="fsdp", seq_parallel=False), device="cuda",
-            ckpt_dir=root, ckpt_every=10**6, total_steps=total)
+        b = Timed(cfg, meshes[spec["elastic"]],
+                  plan=plan(spec["elastic_plan"]), device="cuda",
+                  ckpt_dir=root, ckpt_every=10**6, total_steps=total)
         b.init_state(SEED)
         out["elastic_ok"] = b.try_restore()
-        out["elastic_log"] = steps(b.run(source(), MESH_TRAIN["more"]))
+        out["elastic_params_held"] = sum(p.numel()
+                                         for p in b.params.parameters())
+        b.ckpt = None
+        out["elastic_log"] = _step_log(b.run(source(spec["fail_at"] + 1),
+                                             spec["more"]))
         torch.cuda.synchronize()
         out["run_s"] = time.monotonic() - t0
         out["launches"] = build.launch_counts()
-        out["writes"] += b.ckpt.history
         out["final_step"] = b.step_idx
         del b
+    if routes is not None:
+        L = cfg.n_layers
+        out["routes"] = [(e.cpu(), k.cpu(), first, n) for (e, _), (
+            k, first, n) in zip(routes.calls[:L], routes.kept[:L])]
     out.update(saves=saves, restores=restores,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _rank_vlm_train(torch, rank, meshes, batches):
+    """The rank's part of training llava on the ranks
+    (:data:`MESH_VLM_TRAIN`): ``make_train_step`` at (2, 2) under FSDP +
+    TP on its rows of ``batches`` (the VLM's batches carry patch
+    embeddings, which the trainer's input feed does not make), each step
+    timed; the launch counts (set to 0 just before)."""
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build as build_api
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.parallel import collectives
+    from repro_torch.weights import init_sharded
+    cfg = _train_cfg(MESH_VLM_TRAIN)
+    mesh = meshes["hier"]
+    plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
+    out = {"leaf_norms": [], "log": []}
+    _record_leaf_norms(torch, out["leaf_norms"])
+    n = len(batches[0]["tokens"]) // mesh.axis_size(("data",))
+    lo = mesh.axis_index(("data",)) * n
+    with torch.enable_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        lm = init_sharded(cfg, SEED, mesh, device="cuda", plan=plan,
+                          trainable=True)
+        out["params_held"] = sum(p.numel() for p in lm.parameters())
+        opt = adamw_init(lm.parameters())
+        step, _ = make_train_step(build_api(cfg), mesh, plan, warmup=1,
+                                  total_steps=10)
+        for i, b in enumerate(batches):
+            rows = {k: v[lo:lo + n].cuda() for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            c0 = collectives.spent()
+            lm, opt, m = step(lm, opt, rows)
+            loss = float(m["loss"])
+            coll = collectives.spent_since(c0)
+            out["log"].append({
+                "step": i + 1, "loss": loss,
+                "grad_norm": float(m["grad_norm"]),
+                "wall_s": time.monotonic() - t0,
+                "collective_s": coll["seconds"],
+                "collective_kinds_s": coll["kinds"]})
+        out["launches"] = build.launch_counts()
+        del lm, opt
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -3287,7 +3463,7 @@ def _record_leaf_norms(torch, into: list) -> None:
 
 MESH_PARTS = {"collectives": _rank_collectives, "serve": _rank_serve,
               "moe_layer": _rank_moe_layer, "pipeline": _rank_pipeline,
-              "train": _rank_train}
+              "train": _rank_train, "vlm_train": _rank_vlm_train}
 
 
 def mesh_rank(rank, world, port, cmds, results):
@@ -3433,6 +3609,21 @@ def _assemble_routes(torch, outs) -> list:
     return calls
 
 
+def _route_agreement(torch, mesh_calls, one_calls, n_experts) -> list:
+    """Per MoE layer, the share of the ranks' (token, expert) decisions
+    (``_assemble_routes``) that the one card's router made too on the same
+    batch."""
+    shares = []
+    for (e, _), (f, _) in zip(mesh_calls, one_calls):
+        e, f = e.cpu(), f.cpu().reshape(e.shape)
+        a = torch.zeros((e.shape[0], n_experts), dtype=torch.bool)
+        b = torch.zeros_like(a)
+        a.scatter_(1, e, True)
+        b.scatter_(1, f, True)
+        shares.append(int((a & b).sum()) / e.numel())
+    return shares
+
+
 def _rank_heads(cfg, m: int):
     """The heads model rank 0 of a (1, m) mesh computes
     (``ShardCtx.heads``): the kernels' per-rank shapes."""
@@ -3464,80 +3655,157 @@ def nccl_check(torch) -> dict:
     return emit("nccl", world=1, backend=backend, ok=ok)
 
 
+def _first_batch(torch, cfg) -> dict:
+    """The train phase's first batch (the trainers' first step's), on the
+    card."""
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    first = next(iter(SyntheticTokenSource(cfg, PipelineConfig(
+        TRAIN_BATCH, TRAIN_SEQ, seed=SEED), n_batches=1)))
+    return {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+
+
+def _one_card_step(torch, api, params, batch, ctx) -> dict:
+    """The loss, the gradient norm and each gradient leaf's norm of one
+    step on this card (no update)."""
+    from repro_torch.optim.adamw import clip_by_global_norm
+    with torch.enable_grad():
+        loss, _ = api.loss(params, batch, ctx)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+    out = {"loss": loss.item(),
+           "grad_norm": clip_by_global_norm(grads, 1.0)[1].item(),
+           "leaves": [math.sqrt(torch.sum(torch.square(g.float())).item())
+                      for g in grads],
+           "names": [n for n, _ in params.named_parameters()]}
+    del loss, grads
+    return out
+
+
+def _step1_checks(outs, logs, one) -> dict:
+    """The mesh's step-1 loss, gradient norm and gradient leaf norms (every
+    rank's the same) against the one-card step ``one``, and the per-rank,
+    per-step wall ms and collective shares (all, FSDP's gathers and
+    reduce-scatters, the MoE's all-to-alls)."""
+    mesh_loss, mesh_norm = logs[0][0]["loss"], logs[0][0]["grad_norm"]
+    leaf_err = [abs(a - b) / b for a, b in zip(outs[0]["leaf_norms"],
+                                                one["leaves"])]
+    worst = max(range(len(leaf_err)), key=leaf_err.__getitem__)
+    wall = [[r["wall_s"] for r in lg] for lg in logs]
+
+    def share(key):
+        return [[(r["collective_s"] if key is None else
+                  r["collective_kinds_s"].get(key, 0.0)) / r["wall_s"]
+                 for r in lg] for lg in logs]
+    return dict(
+        one_card_step1_loss=one["loss"], mesh_step1_loss=mesh_loss,
+        one_card_step1_grad_norm=one["grad_norm"],
+        mesh_step1_grad_norm=mesh_norm,
+        step1_loss_rel=abs(mesh_loss - one["loss"]) / abs(one["loss"]),
+        step1_grad_norm_rel=abs(mesh_norm - one["grad_norm"])
+        / abs(one["grad_norm"]),
+        step1_leaves=len(one["leaves"]),
+        step1_worst_leaf=one["names"][worst],
+        step1_worst_leaf_rel=leaf_err[worst],
+        step1_worst_leaf_norms=[outs[0]["leaf_norms"][worst],
+                                one["leaves"][worst]],
+        step_wall_ms=[[w * 1e3 for w in r] for r in wall],
+        step_collective_ms=[[r["collective_s"] * 1e3 for r in lg]
+                            for lg in logs],
+        step_collective_share=share(None),
+        step_fsdp_share=share("fsdp"),
+        step_all_to_all_share=share("all_to_all"),
+        loss_ok=abs(mesh_loss - one["loss"])
+        <= MESH_LOSS_RTOL * abs(one["loss"]),
+        grad_norm_ok=abs(mesh_norm - one["grad_norm"])
+        <= MESH_NORM_RTOL * abs(one["grad_norm"]),
+        leaf_norms_ok=len(outs[0]["leaf_norms"]) == len(one["leaves"])
+        and all(o["leaf_norms"] == outs[0]["leaf_norms"] for o in outs)
+        and leaf_err[worst] <= MESH_LEAF_RTOL,
+        losses_ok=all(math.isfinite(r["loss"]) for lg in logs for r in lg),
+        # every rank logs the same steps and losses (the loss is summed
+        # over the ranks); the gradient norm sums the squares of the
+        # replicated norms' gradients on each rank, so it is held to a
+        # last-bit rtol
+        same_ok=all([(r["step"], r["loss"]) for r in lg]
+                    == [(r["step"], r["loss"]) for r in logs[0]]
+                    and all(math.isclose(a["grad_norm"], b["grad_norm"],
+                                         rel_tol=1e-6)
+                            for a, b in zip(lg, logs[0])) for lg in logs))
+
+
+def _restart_checks(outs, spec, root) -> dict:
+    """The failure and elastic restore of a training part: every rank
+    logged steps 1..fail_at, then every+1.. after restoring step
+    ``every``; the elastic trainer restored that checkpoint, the only one
+    (the disk budget, above :data:`MESH_MOE_TRAIN`), and ran ``more``
+    steps, its first held to the first trainer's step after its restore
+    (the same weights and batch on another layout: ``MESH_LOSS_RTOL``,
+    ``MESH_NORM_RTOL``); it verifies."""
+    from repro_torch.checkpoint.manager import (complete_steps,
+                                                verify_checkpoint)
+    every, fail_at = spec["every"], spec["fail_at"]
+    want_steps = list(range(1, fail_at + 1)) + list(range(
+        every + 1, every + 1 + spec["steps"] - fail_at))
+    saved = complete_steps(root)
+    after = [r for r in outs[0]["log"] if r["step"] == every + 1]
+    again = outs[0]["elastic_log"][0]
+    loss_rel = (abs(again["loss"] - after[0]["loss"]) / abs(after[0]["loss"])
+                if after else math.inf)
+    norm_rel = (abs(again["grad_norm"] - after[0]["grad_norm"])
+                / abs(after[0]["grad_norm"]) if after else math.inf)
+    return dict(
+        steps_logged=[r["step"] for r in outs[0]["log"]],
+        elastic_steps_logged=[r["step"] for r in outs[0]["elastic_log"]],
+        losses=[r["loss"] for r in outs[0]["log"] + outs[0]["elastic_log"]],
+        grad_norms=[r["grad_norm"]
+                    for r in outs[0]["log"] + outs[0]["elastic_log"]],
+        saves=[o["saves"] for o in outs], writes=outs[0]["writes"],
+        restores=[o["restores"] for o in outs], saved_steps=saved,
+        run_s=[o["run_s"] for o in outs],
+        peak_gib=[o["peak_gib"] for o in outs],
+        failure_ok=all([r["step"] for r in o["log"]] == want_steps
+                       and [r["step"] for r in o["restores"]]
+                       == [every, every] for o in outs),
+        elastic_ok=all(o["elastic_ok"] and o["final_step"]
+                       == every + spec["more"] for o in outs),
+        elastic_step_loss_rel=loss_rel, elastic_step_grad_norm_rel=norm_rel,
+        elastic_step_ok=loss_rel <= MESH_LOSS_RTOL
+        and norm_rel <= MESH_NORM_RTOL,
+        verify_ok=saved == [every] and verify_checkpoint(root, every))
+
+
 def mesh_train(torch, world, tmp, paths) -> dict:
     """smollm-360m trained at full width on the ranks (``_rank_train``),
     checked against this process: the step-1 loss and gradient norm of a
     one-card step on the same weights and batch; every rank restored step
-    ``every`` after the failure, then the last checkpoint at (4, 1); the
-    one-card trainer restores the mesh's newest checkpoint with the
-    manifest's hashes, and its save of that state has the mesh's bytes.
-    The record of the part, checks included (``*_ok``)."""
-    from repro_torch.checkpoint.manager import (complete_steps,
-                                                save_checkpoint,
-                                                verify_checkpoint)
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import (PipelineConfig,
-                                           SyntheticTokenSource)
+    ``every`` after the failure, then the same checkpoint at (4, 1); the
+    one-card trainer restores it with the manifest's hashes (of each
+    leaf's bytes, what a one-card save of that state would write).  The
+    record of the part, checks included (``*_ok``)."""
     from repro_torch.launch.train import Trainer
-    from repro_torch.optim.adamw import clip_by_global_norm
-    cfg = get_config(MESH_TRAIN["arch"])
+    spec = MESH_TRAIN
+    cfg = _train_cfg(spec)
     root = os.path.join(tmp, "mesh_ckpt")
     one = Trainer(cfg, device="cuda", ckpt_dir=root)
     one.init_state(SEED)
-    first = next(iter(SyntheticTokenSource(cfg, PipelineConfig(
-        TRAIN_BATCH, TRAIN_SEQ, seed=SEED), n_batches=1)))
-    first = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
-    loss, _ = one.api.loss(one.params, first, one.ctx)
-    names = [n for n, _ in one.params.named_parameters()]
-    grads = torch.autograd.grad(loss, list(one.params.parameters()))
-    one_loss = loss.item()
-    one_norm = clip_by_global_norm(grads, 1.0)[1].item()
-    one_leaves = [math.sqrt(torch.sum(torch.square(g.float())).item())
-                  for g in grads]
-    del loss, grads, first
+    step1 = _one_card_step(torch, one.api, one.params,
+                           _first_batch(torch, cfg), one.ctx)
     torch.cuda.empty_cache()
 
-    outs = world.run("train", root=root)
+    outs = world.run("train", root=root, spec=spec)
     paths["mesh_train"] = _summed(outs)
-    logs = [o["log"] for o in outs]
-    # every rank logs the same steps and losses (the loss is summed over
-    # the ranks); the gradient norm sums the squares of the replicated
-    # norms' gradients on each rank, so it is held to a last-bit rtol
-    mine = lambda o: o["log"] + o["elastic_log"]
-    same_ok = all(
-        [(r["step"], r["loss"]) for r in mine(o)]
-        == [(r["step"], r["loss"]) for r in mine(outs[0])]
-        and all(math.isclose(a["grad_norm"], b["grad_norm"], rel_tol=1e-6)
-                for a, b in zip(mine(o), mine(outs[0]))) for o in outs)
-    mesh_loss, mesh_norm = logs[0][0]["loss"], logs[0][0]["grad_norm"]
-    leaf_err = [abs(a - b) / b for a, b in zip(outs[0]["leaf_norms"],
-                                                one_leaves)]
-    worst = max(range(len(leaf_err)), key=leaf_err.__getitem__)
-    every, fail_at = MESH_TRAIN["every"], MESH_TRAIN["fail_at"]
-    want_steps = list(range(1, fail_at + 1)) + list(
-        range(every + 1, every + 1 + MESH_TRAIN["steps"] - fail_at))
+    logs = [o["log"] + o["elastic_log"] for o in outs]
 
     t0 = time.monotonic()
     restored = one.try_restore()
     torch.cuda.synchronize()
     one_restore_s = time.monotonic() - t0
     step = one.step_idx
-    want = _manifest_hashes(root, step)
-    one_dir = os.path.join(tmp, "one_ckpt")
-    t0 = time.monotonic()
-    save_checkpoint(one_dir, step, one.state_tree())
-    one_save_s = time.monotonic() - t0
-    hashes_ok = restored and _leaf_hashes(one.state_tree()) == want
-    bytes_ok = _manifest_hashes(one_dir, step) == want
-    saved = complete_steps(root)
+    hashes_ok = restored and (_leaf_hashes(one.state_tree())
+                              == _manifest_hashes(root, step))
     del one
     gc.collect()
     torch.cuda.empty_cache()
-
-    def per_rank(key):
-        return [[r[key] for r in o["log"] + o["elastic_log"]] for o in outs]
-    wall = per_rank("wall_s")
-    coll = per_rank("collective_s")
     return emit(
         "mesh", part="smollm-360m training", arch=cfg.name,
         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
@@ -3545,48 +3813,233 @@ def mesh_train(torch, world, tmp, paths) -> dict:
         meshes={"train": [2, MESH_RANKS // 2], "elastic": [MESH_RANKS, 1]},
         plans={"train": "fsdp_tp", "elastic": "fsdp"},
         params_per_rank=[o["params_held"] for o in outs],
-        steps_logged=[r["step"] for r in logs[0]],
-        elastic_steps_logged=[r["step"] for r in outs[0]["elastic_log"]],
-        losses=[r["loss"] for r in logs[0] + outs[0]["elastic_log"]],
-        grad_norms=[r["grad_norm"]
-                    for r in logs[0] + outs[0]["elastic_log"]],
-        one_card_step1_loss=one_loss, mesh_step1_loss=mesh_loss,
-        one_card_step1_grad_norm=one_norm, mesh_step1_grad_norm=mesh_norm,
-        step1_loss_rel=abs(mesh_loss - one_loss) / abs(one_loss),
-        step1_grad_norm_rel=abs(mesh_norm - one_norm) / abs(one_norm),
-        step1_leaves=len(one_leaves), step1_worst_leaf=names[worst],
-        step1_worst_leaf_rel=leaf_err[worst],
-        step1_worst_leaf_norms=[outs[0]["leaf_norms"][worst],
-                                one_leaves[worst]],
-        step_wall_ms=[[w * 1e3 for w in r] for r in wall],
-        step_collective_ms=[[c * 1e3 for c in r] for r in coll],
-        step_collective_share=[[c / w for c, w in zip(cr, wr)]
-                               for cr, wr in zip(coll, wall)],
-        saves=[o["saves"] for o in outs], writes=outs[0]["writes"],
-        restores=[o["restores"] for o in outs],
-        one_card_restore_s=one_restore_s, one_card_save_s=one_save_s,
-        saved_steps=saved, restored_step=step,
-        run_s=[o["run_s"] for o in outs],
-        peak_gib=[o["peak_gib"] for o in outs],
-        peak_gib_2x2=[o["peak_gib_2x2"] for o in outs],
-        launches=paths["mesh_train"],
-        loss_ok=abs(mesh_loss - one_loss) <= MESH_LOSS_RTOL * abs(one_loss),
-        grad_norm_ok=abs(mesh_norm - one_norm)
-        <= MESH_NORM_RTOL * abs(one_norm),
-        leaf_norms_ok=len(outs[0]["leaf_norms"]) == len(one_leaves)
-        and all(o["leaf_norms"] == outs[0]["leaf_norms"] for o in outs)
-        and leaf_err[worst] <= MESH_LEAF_RTOL,
-        losses_ok=all(math.isfinite(r["loss"]) for r in logs[0]
-                      + outs[0]["elastic_log"]),
-        same_ok=same_ok,
-        failure_ok=all([r["step"] for r in lg] == want_steps for lg in logs)
-        and all([r["step"] for r in o["restores"]] == [every, fail_at]
-                for o in outs),
-        elastic_ok=all(o["elastic_ok"] and o["final_step"] == fail_at
-                       + MESH_TRAIN["more"] for o in outs),
-        verify_ok=all(verify_checkpoint(root, s) for s in saved),
-        hashes_ok=hashes_ok, bytes_ok=bytes_ok,
+        **_restart_checks(outs, spec, root), **_step1_checks(outs, logs,
+                                                             step1),
+        one_card_restore_s=one_restore_s, restored_step=step,
+        peak_gib_2x2=[o["peak_gib_train"] for o in outs],
+        launches=paths["mesh_train"], hashes_ok=hashes_ok,
         no_kernel_ok=not any(paths["mesh_train"].values()))
+
+
+def _sizes(torch, cfg) -> tuple[int, int]:
+    """(parameters, bytes of a training state: each parameter in its dtype,
+    bf16 or f32, and its f32 master, m and v) of ``cfg``."""
+    from repro_torch.models.lm import init_lm
+    lm = init_lm(cfg, generator=torch.Generator(), device="meta")
+    return (sum(p.numel() for p in lm.parameters()),
+            sum(p.numel() * (p.element_size() + 12)
+                for p in lm.parameters()))
+
+
+def mesh_moe_train(torch, world, tmp, paths) -> dict:
+    """qwen3-moe-30b-a3b trained at published widths on the ranks
+    (:data:`MESH_MOE_TRAIN`), checked against this process: the step-1
+    loss, gradient norm and gradient leaf norms of a one-card step on the
+    same weights and batch under the ranks' expert choices and kept pairs
+    (the mesh drops pairs past an expert's capacity, the one-card oracle
+    drops none; ``RouteLog(forced=...)``, the forward's routing and then
+    the backward's recompute, layers in reverse); the dropped share; the
+    failure and elastic restore.  Fails before it starts unless the disk
+    holds twice the state.  The record of the part, checks included."""
+    from repro_torch.models import ffn
+    from repro_torch.models.api import build as build_api
+    from repro_torch.models.blocks import ShardCtx
+    from repro_torch.configs import get_config
+    spec = MESH_MOE_TRAIN
+    cfg = _train_cfg(spec)
+    root = os.path.join(tmp, "moe_ckpt")
+    n_params, state = _sizes(torch, cfg)
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * state:
+        fail(f"the MoE training part needs twice its {state / 1e9:.1f} GB "
+             f"state on disk; {free / 1e9:.1f} GB are free under {tmp}")
+    torch.cuda.empty_cache()
+    parent_reserved = torch.cuda.memory_reserved() / 2**30
+    t0 = time.monotonic()
+    outs = world.run("train", root=root, spec=spec)
+    ranks_s = time.monotonic() - t0
+    paths["mesh_moe_train"] = _summed(outs)
+    logs = [o["log"] + o["elastic_log"] for o in outs]
+    routes = _assemble_routes(torch, outs)
+    pairs = sum(k.numel() for _, k in routes)
+    dropped = sum(int((~k).sum()) for _, k in routes)
+    forced = [(e.cuda(), k.cuda()) for e, k in routes]
+    t0 = time.monotonic()
+    api = build_api(cfg)
+    params = api.init(SEED, device="cuda", trainable=True)
+    torch.cuda.reset_peak_memory_stats()
+    first = _first_batch(torch, cfg)
+    step1 = _one_card_step(
+        torch, api, params, first,
+        ShardCtx(impl="ref", routes=ffn.RouteLog(
+            forced=forced + forced[::-1])))
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    one_card_s = time.monotonic() - t0
+    own = ffn.RouteLog()                # the one card's own routing
+    with torch.no_grad():
+        api.loss(params, first, ShardCtx(impl="ref", routes=own))
+    agree = _route_agreement(torch, routes, own.calls, cfg.moe.n_experts)
+    del params, forced, first, own
+    gc.collect()
+    torch.cuda.empty_cache()
+    return emit(
+        "mesh", part="qwen3-moe training", arch=cfg.name,
+        layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+        experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        capacity_factor=cfg.moe.capacity_factor,
+        reduced={"n_layers": [cfg.n_layers,
+                              get_config(spec["arch"]).n_layers]},
+        params=n_params,
+        state_bytes=state, disk_free_bytes=free,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, label=MESH_LABEL,
+        meshes={"train": [2, MESH_RANKS // 2], "elastic": [1, MESH_RANKS]},
+        plans={"train": "fsdp_tp (EP + FSDP)", "elastic": "tp (EP)"},
+        experts_per_rank={"train": cfg.moe.n_experts // 2,
+                          "elastic": cfg.moe.n_experts // MESH_RANKS},
+        params_per_rank=[o["params_held"] for o in outs],
+        elastic_params_per_rank=[o["elastic_params_held"] for o in outs],
+        card_free_gib_at_start=[o["card_free_gib_at_start"] for o in outs],
+        parent_reserved_gib=parent_reserved,
+        route_calls=len(routes), pairs=pairs, dropped_pairs=dropped,
+        dropped_share=dropped / pairs, route_agreement=agree,
+        route_agreement_bound=MESH_ROUTE_AGREE,
+        routes_ok=len(agree) == cfg.n_layers
+        and min(agree) >= MESH_ROUTE_AGREE,
+        **_restart_checks(outs, spec, root), **_step1_checks(outs, logs,
+                                                             step1),
+        peak_gib_2x2=[o["peak_gib_train"] for o in outs],
+        one_card_step_peak_gib=one_peak, ranks_s=ranks_s,
+        one_card_s=one_card_s,
+        launches=paths["mesh_moe_train"],
+        no_kernel_ok=not any(paths["mesh_moe_train"].values()))
+
+
+def mesh_vlm_train(torch, world, paths) -> dict:
+    """llava trained at published widths on the ranks
+    (:data:`MESH_VLM_TRAIN`), checked against this process: the step-1
+    loss, gradient norm and gradient leaf norms of a one-card step on the
+    same weights and batch.  The record of the part, checks included."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build as build_api
+    from repro_torch.models.blocks import ShardCtx
+    spec = MESH_VLM_TRAIN
+    cfg = _train_cfg(spec)
+    g = torch.Generator().manual_seed(SEED + 61)
+    batches = [{
+        "tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                generator=g, dtype=torch.int32),
+        "labels": torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                generator=g, dtype=torch.int32),
+        "extra_embeds": torch.randn(
+            (TRAIN_BATCH, cfg.frontend_len, cfg.d_model),
+            generator=g).bfloat16()} for _ in range(spec["steps"])]
+    outs = world.run("vlm_train", batches=batches)
+    paths["mesh_vlm_train"] = _summed(outs)
+    logs = [o["log"] for o in outs]
+    api = build_api(cfg)
+    params = api.init(SEED, device="cuda", trainable=True)
+    step1 = _one_card_step(torch, api, params,
+                           {k: v.cuda() for k, v in batches[0].items()},
+                           ShardCtx(impl="ref"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return emit(
+        "mesh", part="llava training", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab,
+        reduced={"n_layers": [cfg.n_layers,
+                              get_config(spec["arch"]).n_layers]},
+        params=_sizes(torch, cfg)[0],
+        global_batch=TRAIN_BATCH, patches=cfg.frontend_len,
+        text_len=TRAIN_SEQ, label=MESH_LABEL, mesh=[2, MESH_RANKS // 2],
+        plan="fsdp_tp", params_per_rank=[o["params_held"] for o in outs],
+        steps_logged=[r["step"] for r in logs[0]],
+        losses=[r["loss"] for r in logs[0]],
+        grad_norms=[r["grad_norm"] for r in logs[0]],
+        peak_gib=[o["peak_gib"] for o in outs],
+        **_step1_checks(outs, logs, step1),
+        launches=paths["mesh_vlm_train"],
+        no_kernel_ok=not any(paths["mesh_vlm_train"].values()))
+
+
+def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
+                  path, kv_digest=None) -> dict:
+    """``cfg`` served at TP 4 (mesh (1, 4)) by the ranks on views of this
+    process's weights: ``Server(cfg, mesh).generate`` (rank 0 streams
+    through the mover), then the logits over ``batch`` and ``steps``
+    teacher-forced steps held to this process's kernel path within
+    ``LOGIT_SHARE``, and that path to the plain path; with ``kv_digest``
+    rank 0 stages its prefill's KV items under the accel digest.  Flash
+    once per layer per rank per prefill, decode once per layer per rank
+    per step.  Appends the record (checks included) to ``records``."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.blocks import ShardCtx
+    t_part = time.monotonic()
+    m = MESH_RANKS
+    frontend = cfg.frontend_len if cfg.frontend else 0
+    prompt = batch["tokens"].shape[1]
+    server = Server(cfg, device="cuda",
+                    max_len=frontend + prompt + GEN + 1)
+    server.load(SEED)
+    tokens = server.generate(batch, GEN)
+    one, _ = _forced_run(torch, server, batch, tokens, steps)
+    plain, _ = _forced_run(torch, server, batch, tokens, steps,
+                           ctx=ShardCtx(impl="ref"))
+    scale = plain.abs().max().item()
+    one_err = (one - plain).abs().amax(dim=(1, 2)).tolist()
+    ref_path = os.path.join(tmp, f"{path}.pt")
+    torch.save({"tokens": torch.as_tensor(tokens), "logits": one.cpu()},
+               ref_path)
+    del plain
+    outs = world.run("serve", lm=server.params, arch=cfg.name, layers=None,
+                     batch=batch, steps=steps, ref_path=ref_path,
+                     kv_digest=kv_digest)
+    paths[path] = _summed(outs)
+    rank_err = max(max(o["logits_max_abs_err"]) for o in outs)
+    stage = {}
+    if kv_digest:
+        stage = outs[0]["stage"]
+        paths[f"{path}_stage_kv"] = stage["launches"]
+    rec = emit(
+        "mesh", part=f"{cfg.name} TP {m}", arch=cfg.name, mesh=[1, m],
+        batch=len(batch["tokens"]), prompt=prompt, patches=frontend,
+        gen=GEN, teacher_forced_steps=steps, label=MESH_LABEL,
+        params_per_rank=[o["params"] for o in outs],
+        generate_s=[o["generate_s"] for o in outs],
+        prefill=[o["prefill"] for o in outs],
+        decode_step=[o["decode_step"] for o in outs],
+        peak_gib=[o["peak_gib"] for o in outs], launches=paths[path],
+        one_process_vs_plain_max_abs_err=one_err, logits_scale=scale,
+        ranks_vs_one_process_max_abs_err=rank_err,
+        logits_tol=LOGIT_SHARE * scale,
+        one_process_ok=max(one_err) <= LOGIT_SHARE * scale,
+        logits_ok=rank_err <= LOGIT_SHARE * scale,
+        same_ok=len({o["logits_digest"] for o in outs}) == 1
+        and all((o["tokens"] == outs[0]["tokens"]).all() for o in outs),
+        tokens_ok=outs[0]["tokens"].shape == (len(batch["tokens"]), GEN),
+        stage={k: v for k, v in stage.items() if k != "launches"},
+        stage_launches=stage.get("launches"),
+        kv_staged_ok=not kv_digest or (stage["digest_ok"]
+                                       and stage["bytes_ok"]))
+    records.append(rec)
+    checked(rec, f"{cfg.name} on the mesh", (
+        "one_process_ok", "logits_ok", "same_ok", "tokens_ok",
+        "kv_staged_ok"))
+    need(paths, path, ("flash_attention", "decode_attention"))
+    _launches_per_layer(paths, path, "flash_attention", m * cfg.n_layers)
+    _launches_per_layer(paths, path, "decode_attention",
+                        m * cfg.n_layers * (GEN - 1))
+    if kv_digest:
+        need(paths, f"{path}_stage_kv", ("digest_items",))
+        _launches_per_layer(paths, f"{path}_stage_kv", "digest_items",
+                            stage["folds"])
+    del server, one
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    records.append(emit("phase_time", of=f"mesh {cfg.name}",
+                        seconds=time.monotonic() - t_part))
+    return rec
 
 
 def mesh_phase(torch, paths, rng, records) -> dict:
@@ -3616,11 +4069,13 @@ def mesh_phase(torch, paths, rng, records) -> dict:
     mix = dataclasses.replace(get_config(MESH_MIXTRAL["arch"]),
                               n_layers=MESH_MIXTRAL["layers"])
     big = get_config(MESH_PIPE["arch"])
+    llava = get_config(MESH_LLAVA["arch"])
     m = MESH_RANKS
     bf16 = torch.bfloat16
     pB, pS = MESH_PHI3["batch"], MESH_PHI3["prompt"]
     xB, xS = MESH_MIXTRAL["batch"], MESH_MIXTRAL["prompt"]
-    ph, xh = _rank_heads(phi3, m), _rank_heads(mix, m)
+    ph, xh, lh = (_rank_heads(c, m) for c in (phi3, mix, llava))
+    lS = llava.frontend_len + LLAVA_PROMPT
     g = torch.Generator(device="cuda").manual_seed(44)
     kv_len = pS + GEN + 1
     kv = torch.randint(0, 256, (pB * kv_len * ph.hkv * phi3.hd * 2,),
@@ -3644,6 +4099,14 @@ def mesh_phase(torch, paths, rng, records) -> dict:
                                        fill=xS + GEN // 2,
                                        window=mix.window, ring=False,
                                        wrapped=True),
+        "llava flash": check_flash(torch, B=LLAVA_BATCH, Hq=lh.hq,
+                                   Hkv=lh.hkv, S=lS, hd=llava.hd,
+                                   dtype=bf16, window=0),
+        "llava decode": check_decode(torch, B=LLAVA_BATCH, Hq=lh.hq,
+                                     Hkv=lh.hkv, S=lS + GEN + 1,
+                                     hd=llava.hd, dtype=bf16,
+                                     fill=lS + GEN // 2, window=0,
+                                     ring=False),
         "mistral_large flash": check_flash(
             torch, B=1, Hq=big.n_heads, Hkv=big.n_kv_heads,
             S=MESH_PIPE["seq"], hd=big.hd, dtype=bf16, window=0),
@@ -3696,66 +4159,9 @@ def mesh_phase(torch, paths, rng, records) -> dict:
             _launches_per_layer(paths, "mesh_collectives", name, 2 * m)
 
         # ---- phi3-mini at TP 4 -------------------------------------------
-        t_part = time.monotonic()
-        server = Server(phi3, device="cuda", max_len=kv_len)
-        server.load(SEED)
         batch = _prompts(torch, phi3, pB, pS, rng)
-        tokens = server.generate(batch, GEN)
-        steps = MESH_PHI3["steps"]
-        one, _ = _forced_run(torch, server, batch["tokens"], tokens, steps)
-        plain, _ = _forced_run(torch, server, batch["tokens"], tokens, steps,
-                               ctx=ShardCtx(impl="ref"))
-        scale = plain.abs().max().item()
-        one_err = (one - plain).abs().amax(dim=(1, 2)).tolist()
-        ref_path = os.path.join(tmp, "phi3.pt")
-        torch.save({"tokens": torch.as_tensor(tokens),
-                    "logits": one.cpu()}, ref_path)
-        del plain
-        outs = world.run("serve", lm=server.params, arch=phi3.name,
-                         layers=None, batch=batch, steps=steps,
-                         ref_path=ref_path, kv_digest=kv_digest)
-        paths["mesh_phi3"] = _summed(outs)
-        stage = outs[0]["stage"]
-        paths["mesh_phi3_stage_kv"] = stage["launches"]
-        rank_err = max(max(o["logits_max_abs_err"]) for o in outs)
-        rec = emit(
-            "mesh", part="phi3 TP 4", arch=phi3.name, mesh=[1, m],
-            batch=pB, prompt=pS, gen=GEN, teacher_forced_steps=steps,
-            label=MESH_LABEL, params_per_rank=[o["params"] for o in outs],
-            generate_s=[o["generate_s"] for o in outs],
-            prefill=[o["prefill"] for o in outs],
-            decode_step=[o["decode_step"] for o in outs],
-            peak_gib=[o["peak_gib"] for o in outs],
-            launches=paths["mesh_phi3"],
-            one_process_vs_plain_max_abs_err=one_err, logits_scale=scale,
-            ranks_vs_one_process_max_abs_err=rank_err,
-            logits_tol=LOGIT_SHARE * scale,
-            one_process_ok=max(one_err) <= LOGIT_SHARE * scale,
-            logits_ok=rank_err <= LOGIT_SHARE * scale,
-            same_ok=len({o["logits_digest"] for o in outs}) == 1
-            and all((o["tokens"] == outs[0]["tokens"]).all() for o in outs),
-            tokens_ok=outs[0]["tokens"].shape == (pB, GEN),
-            stage={k: v for k, v in stage.items() if k != "launches"},
-            stage_launches=stage["launches"],
-            kv_staged_ok=stage["digest_ok"] and stage["bytes_ok"])
-        records.append(rec)
-        checked(rec, "phi3 on the mesh", ("one_process_ok", "logits_ok",
-                                          "same_ok", "tokens_ok",
-                                          "kv_staged_ok"))
-        need(paths, "mesh_phi3", ("flash_attention", "decode_attention"))
-        need(paths, "mesh_phi3_stage_kv", ("digest_items",))
-        _launches_per_layer(paths, "mesh_phi3_stage_kv", "digest_items",
-                            stage["folds"])
-        _launches_per_layer(paths, "mesh_phi3", "flash_attention",
-                            m * phi3.n_layers)
-        _launches_per_layer(paths, "mesh_phi3", "decode_attention",
-                            m * phi3.n_layers * (GEN - 1))
-        del server, one
-        gc.collect()
-        torch.cuda.ipc_collect()
-        torch.cuda.empty_cache()
-        records.append(emit("phase_time", of="mesh phi3",
-                            seconds=time.monotonic() - t_part))
+        mesh_tp_serve(torch, world, tmp, paths, records, phi3, batch,
+                      MESH_PHI3["steps"], "mesh_phi3", kv_digest=kv_digest)
 
         # ---- mixtral at EP 4 ---------------------------------------------
         t_part = time.monotonic()
@@ -3769,7 +4175,7 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         routes = _assemble_routes(torch, outs)
         forced = ffn.RouteLog(forced=[(e.cuda(), k.cuda())
                                       for e, k in routes])
-        one, _ = _forced_run(torch, server, batch["tokens"], tokens, 4,
+        one, _ = _forced_run(torch, server, batch, tokens, 4,
                              ctx=dataclasses.replace(server.ctx,
                                                      routes=forced))
         ranks_logits = outs[0]["logits"].to("cuda")
@@ -3870,15 +4276,42 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         records.append(emit("phase_time", of="mesh pipeline",
                             seconds=time.monotonic() - t_part))
 
+        # ---- llava at TP 4 -----------------------------------------------
+        batch = _prompts(torch, llava, LLAVA_BATCH, LLAVA_PROMPT, rng)
+        batch["extra_embeds"] = torch.randn(
+            (LLAVA_BATCH, llava.frontend_len, llava.d_model),
+            generator=rng).numpy()
+        mesh_tp_serve(torch, world, tmp, paths, records, llava, batch,
+                      MESH_LLAVA["steps"], "mesh_llava")
+
         # ---- smollm-360m trained on the mesh, the elastic restore ----------
+        train_checks = ("loss_ok", "grad_norm_ok", "leaf_norms_ok",
+                        "losses_ok", "same_ok", "no_kernel_ok")
+        restart_checks = ("failure_ok", "elastic_ok", "elastic_step_ok",
+                          "verify_ok")
         t_part = time.monotonic()
         rec = mesh_train(torch, world, tmp, paths)
         records.append(rec)
-        checked(rec, "training on the mesh", (
-            "loss_ok", "grad_norm_ok", "losses_ok", "same_ok", "failure_ok",
-            "elastic_ok", "verify_ok", "hashes_ok", "bytes_ok",
-            "no_kernel_ok"))
+        checked(rec, "training on the mesh", train_checks + restart_checks
+                + ("hashes_ok",))
         records.append(emit("phase_time", of="mesh train",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- llava trained on the mesh ------------------------------------
+        t_part = time.monotonic()
+        rec = mesh_vlm_train(torch, world, paths)
+        records.append(rec)
+        checked(rec, "llava's training on the mesh", train_checks)
+        records.append(emit("phase_time", of="mesh llava train",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- qwen3-moe trained on the mesh, the elastic restore ------------
+        t_part = time.monotonic()
+        rec = mesh_moe_train(torch, world, tmp, paths)
+        records.append(rec)
+        checked(rec, "qwen3-moe's training on the mesh",
+                train_checks + restart_checks + ("routes_ok",))
+        records.append(emit("phase_time", of="mesh qwen3-moe train",
                             seconds=time.monotonic() - t_part))
     finally:
         codes = world.close()

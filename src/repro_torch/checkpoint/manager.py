@@ -18,8 +18,9 @@ dtype.
 
 On a mesh (``shardings=``: a tree like the state's whose leaves are
 :class:`~repro_torch.parallel.sharding.NamedSharding`) every rank holds
-its blocks.  A save gathers each leaf whole, one leaf at a time, every
-rank joining each gather; rank 0 alone writes, in the same format, so a
+its blocks.  A save gathers each leaf's blocks to rank 0, one leaf at a
+time, every rank joining each gather; rank 0 alone writes, in the same
+format, so a
 checkpoint saved on a mesh has the bytes of a one-device save of the same
 state.  A restore reads each leaf memory-mapped and cuts this rank's
 block, whatever mesh saved it (the elastic restore).  Every rank restores
@@ -86,25 +87,52 @@ def _mesh_of(shardings: Any):
 
 def gather_to_host(tree: Any, shardings: Any) -> Optional[Any]:
     """``tree`` (this rank's blocks) as whole host arrays on the rank that
-    writes (rank 0), None on the others.  Each leaf is gathered whole under
-    its sharding (a ``Stacked`` leaf layer by layer), one leaf at a time,
-    every rank of the mesh joining each gather in the same order."""
-    from repro_torch.parallel.sharding import unshard
+    writes (rank 0), None on the others.  Each leaf's blocks go to rank 0
+    alone (:func:`_gather_block`; a ``Stacked`` leaf layer by layer), one
+    leaf at a time, every rank of the mesh joining each gather in the same
+    order: no rank but rank 0 ever holds more of a leaf than its block."""
     shards = dict(flatten_with_paths(shardings))
     writes = _writes(_mesh_of(shardings))
     out = []
     for pstr, v in flatten_with_paths(tree):
         sh = shards[pstr]
         if isinstance(v, Stacked):
-            whole = Stacked(unshard(t.detach(), sh.spec[1:], sh.mesh)
-                            for t in v)
+            whole = [_gather_block(t.detach(), sh.spec[1:], sh.mesh)
+                     for t in v]
+            whole = Stacked(whole) if writes else None
         elif isinstance(v, torch.Tensor):
-            whole = unshard(v.detach(), sh.spec, sh.mesh)
+            whole = _gather_block(v.detach(), sh.spec, sh.mesh)
         else:
             whole = v
         out.append(host_array(whole) if writes else None)
         del whole
     return unflatten(tree, out) if writes else None
+
+
+def _gather_block(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+    """The whole tensor of which ``t`` is this rank's block under ``spec``,
+    on rank 0's host (None on the others): every rank's block gathered to
+    rank 0 (copied to the host first where the backend is gloo, which
+    gathers host tensors) and put at its slices there.  A leaf held whole
+    is rank 0's own."""
+    if not any(spec):
+        return t if _writes(mesh) else None
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import shard_slices
+    group = mesh.group(mesh.axis_names)
+    block = t if dist.get_backend(group) == "nccl" else t.cpu()
+    block = block.contiguous()
+    blocks = ([torch.empty_like(block) for _ in range(mesh.size)]
+              if _writes(mesh) else None)
+    dist.gather(block, blocks, dst=0, group=group)
+    if blocks is None:
+        return None
+    shape = tuple(n * mesh.axis_size(a) if a is not None else n
+                  for n, a in zip(t.shape, tuple(spec) + (None,) * t.ndim))
+    whole = torch.empty(shape, dtype=t.dtype)
+    for r, b in enumerate(blocks):
+        whole[shard_slices(shape, spec, mesh.of_rank(r))] = b.cpu()
+    return whole
 
 
 def _agree(choice: Any) -> Any:

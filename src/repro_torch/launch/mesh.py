@@ -121,6 +121,12 @@ class Mesh:
             idx = idx * self.shape[a] + self.coords[a]
         return idx
 
+    def of_rank(self, rank: int) -> "Mesh":
+        """This mesh as rank ``rank`` of its world holds it: its
+        row-major coordinates, no process groups."""
+        return Mesh(self.shape, self.axis_names, rank=rank, coords=dict(
+            zip(self.axis_names, _coords(rank, tuple(self.shape.values())))))
+
     def group(self, axes):
         """The process group over ``axes`` that holds this rank."""
         if self.groups is None:

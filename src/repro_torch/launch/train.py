@@ -204,6 +204,7 @@ class Trainer:
             replan_every_items=replan_every if replan_every else None)
         it = iter(pipeline)
         done = 0
+        saved = None                       # the step this run last saved
         while done < n_steps:
             batch = next(it, None)
             if batch is None:
@@ -213,12 +214,12 @@ class Trainer:
                     inject_failure_at = -1          # fail exactly once
                     raise RuntimeError("injected node failure")
                 t0 = time.monotonic()
-                c0 = collectives.spent()["seconds"]
+                c0 = collectives.spent()
                 self.params, self.opt_state, metrics = self.train_step(
                     self.params, self.opt_state, batch)
                 loss = float(metrics["loss"])
                 dt = time.monotonic() - t0
-                coll_s = collectives.spent()["seconds"] - c0
+                coll = collectives.spent_since(c0)
             except RuntimeError as e:
                 if "injected" not in str(e):
                     raise
@@ -231,7 +232,8 @@ class Trainer:
             self.step_idx += 1
             done += 1
             rec = {"step": self.step_idx, "loss": loss, "wall_s": dt,
-                   "collective_s": coll_s,
+                   "collective_s": coll["seconds"],
+                   "collective_kinds_s": coll["kinds"],
                    "grad_norm": float(metrics["grad_norm"]),
                    "input_stall_s": pipeline.consumer_stall_s(),
                    "input_fidelity_gap": pipeline.fidelity_gap()}
@@ -241,9 +243,10 @@ class Trainer:
                     get_registry().dump_json(telemetry_json)
                 if telemetry_jsonl:
                     get_registry().append_jsonl(telemetry_jsonl)
-            if self.ckpt is not None:
-                self.ckpt.maybe_save(self.step_idx, self.state_tree(),
-                                     shardings=self.state_shardings())
+            if self.ckpt is not None and self.ckpt.maybe_save(
+                    self.step_idx, self.state_tree(),
+                    shardings=self.state_shardings()):
+                saved = self.step_idx
         pipeline.record_telemetry()
         if telemetry_json:
             get_registry().dump_json(telemetry_json)
@@ -251,10 +254,13 @@ class Trainer:
             get_registry().append_jsonl(telemetry_jsonl)
         if self.ckpt is not None:
             self.ckpt.wait()
-            self.ckpt.maybe_save(self.step_idx, self.state_tree(),
-                                 force=True,
-                                 shardings=self.state_shardings())
-            self.ckpt.wait()
+            # the last step, unless its cadence save already holds it (every
+            # rank decides alike: it counts its own saves)
+            if saved != self.step_idx:
+                self.ckpt.maybe_save(self.step_idx, self.state_tree(),
+                                     force=True,
+                                     shardings=self.state_shardings())
+                self.ckpt.wait()
         return self.metrics_log
 
 

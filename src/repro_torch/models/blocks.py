@@ -31,7 +31,9 @@ On a training mesh (``ShardCtx.specs``: what the rank holds of each
 parameter, ``sharding.rank_spec``) the same forward carries gradients
 through its collectives (``parallel/collectives.py``): a layer's
 weights split over the data axis (FSDP) are gathered as the layer is
-reached (:meth:`ShardCtx.gathered`), never the whole model at once;
+reached (:meth:`ShardCtx.gathered`, an MoE layer's ``moe/*`` too),
+never the whole model at once; the MoE's exchanges carry gradients
+(``ffn.moe_ep`` / ``moe_tp``);
 every region whose weights are split over the model axis is entered with
 ``enter_region`` (its input's gradient summed over the model axis) and
 left with ``leave_region``; a weight held whole while the rank computes
@@ -414,19 +416,20 @@ def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
               ctx: ShardCtx) -> tuple[torch.Tensor, Optional[torch.Tensor],
                                       Optional[torch.Tensor]]:
     """The layer's feed-forward on its normed input: (y, load-balance loss,
-    router z-loss), the losses None for a dense layer's SwiGLU."""
-    if isinstance(p, MoeLayer):
-        m = p.moe
-        impl = ctx.choose_moe(cfg)
-        if impl in ("ep", "tp"):
-            fn = ffn_lib.moe_ep if impl == "ep" else ffn_lib.moe_tp
-            return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
-                      mesh=ctx.mesh, batch_axes=ctx.batch_axes,
-                      model_axis=ctx.model_axis, log=ctx.routes)
-        fn = ffn_lib.moe_ref if impl == "ref" else ffn_lib.moe_dispatch
+    router z-loss), the losses None for a dense layer's SwiGLU.  ``p`` is
+    the layer (or, on a training mesh, its gathered namespace)."""
+    m = getattr(p, "moe", None)
+    if m is None:
+        return mlp_apply(h, p.mlp, cfg, ctx), None, None
+    impl = ctx.choose_moe(cfg)
+    if impl in ("ep", "tp"):
+        fn = ffn_lib.moe_ep if impl == "ep" else ffn_lib.moe_tp
         return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
-                  log=ctx.routes)
-    return mlp_apply(h, p.mlp, cfg, ctx), None, None
+                  mesh=ctx.mesh, batch_axes=ctx.batch_axes,
+                  model_axis=ctx.model_axis, log=ctx.routes)
+    fn = ffn_lib.moe_ref if impl == "ref" else ffn_lib.moe_dispatch
+    return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
+              log=ctx.routes)
 
 
 def moe_layer_apply(
@@ -434,7 +437,9 @@ def moe_layer_apply(
     positions: torch.Tensor, window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full pre-norm causal MoE layer (no cache); returns (x, load-balance
-    loss, router z-loss)."""
+    loss, router z-loss).  On a training mesh its weights, the MoE's
+    ``moe/*`` among them, are gathered first (:meth:`ShardCtx.gathered`)."""
+    p = ctx.gathered(p, "layers")
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, _, _ = self_attention_block(
         h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)

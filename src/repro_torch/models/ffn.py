@@ -39,7 +39,14 @@ one-device path.
 
 A rank's activations are its data row's tokens, whole over the model axis
 (``models/blocks.py``); each path takes and returns them so.  The expert
-matmuls are ``torch.bmm`` here too.
+matmuls are ``torch.bmm`` here too.  Both carry gradients through their
+collectives (``parallel/collectives.py``), whose forwards are the plain
+ops, so serving and a training mesh run the same code: the EP exchanges
+through ``all_to_all_grad``, the row split and the output gather through
+``split_model`` / ``gather_model``, partial sums through
+``enter_region`` / ``leave_region``.  Each path says where its partial
+gradients are and are not (the router's under ``moe_tp`` is whole on
+every model rank).
 
 A :class:`RouteLog` (``ShardCtx.routes``) records every :func:`route`
 call's decisions (and, on the capacity paths, which pairs were kept), so
@@ -348,16 +355,25 @@ def _aux_over(probs, eidx, logits, cfg: ModelConfig, total: float, mesh,
               axes) -> tuple[torch.Tensor, torch.Tensor]:
     """(load-balance loss, router z-loss) with the count, mass and z sums
     reduced over ``axes`` before they are combined (the global
-    estimator: see :func:`aux_losses`)."""
-    from repro_torch.parallel.collectives import psum
+    estimator: see :func:`aux_losses`).  The mass and z sums leave the
+    region of the ranks that route disjoint tokens (``leave_region``:
+    every rank's gradient of a sum is the sum's); the counts carry no
+    gradient."""
+    from repro_torch.parallel import collectives as coll
     moe = cfg.moe
     counts, mass, z_num = aux_losses(probs, eidx, moe.n_experts, logits)
     if axes:
-        counts, mass, z_num = (psum(t, mesh, axes)
-                               for t in (counts, mass, z_num))
+        counts = coll.psum(counts, mesh, axes)
+        mass, z_num = (coll.leave_region(t, mesh, axes)
+                       for t in (mass, z_num))
     lb = moe.n_experts * torch.sum(counts * mass) / (total * total
                                                      * moe.top_k)
     return lb, z_num / total
+
+
+def _records_grad(*ts: torch.Tensor) -> bool:
+    """Whether this forward records gradients for any of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _kept_by_token(keep: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
@@ -376,16 +392,25 @@ def _kept_by_token(keep: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
 def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
            w_up: torch.Tensor, w_down: torch.Tensor, *, cfg: ModelConfig,
            mesh, batch_axes: tuple[str, ...], model_axis: str = "model",
-           fsdp_axis: Optional[str] = None,
            log: Optional[RouteLog] = None
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE layer on the rank's rows x (Bl, S, D), the batch
     split evenly over ``batch_axes``; the rank holds experts
     ``[i * E/ep, (i + 1) * E/ep)`` (``w_gate`` (E/ep, D, F) ...), where i
-    is its index on the model axis.  With ``fsdp_axis`` the expert weights
-    are also split over that axis along D (FSDP) and are gathered first.
-    Returns (y (Bl, S, D), load-balance loss, router z-loss)."""
-    from repro_torch.parallel.collectives import all_gather, all_to_all
+    is its index on the model axis, whole over every other axis (on a
+    training mesh ``ShardCtx.gathered`` gathers FSDP's split first).
+    Returns (y (Bl, S, D), load-balance loss, router z-loss).
+
+    The forward carries gradients: the rank's share of the row is cut by
+    ``split_model`` and the outputs come back by ``gather_model``, the
+    buffers travel by ``all_to_all_grad``; each model rank routes only
+    its own tokens, so the router weight enters the model region (its
+    gradient summed over the model axis) and the mass and z sums leave
+    the token axes.  Tokens too few to split over the model axis (a
+    decode step) are routed whole by every model rank, which serves but
+    would count the experts' gradients once a member, so a forward that
+    records gradients refuses them."""
+    from repro_torch.parallel import collectives as coll
     moe = cfg.moe
     ep = mesh.shape[model_axis]
     if moe.n_experts % ep:
@@ -394,34 +419,35 @@ def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     Bl, S, D = x.shape
     total = mesh.axis_size(batch_axes) * Bl * S
     tok_axes = _token_axes(total, mesh, batch_axes, model_axis)
+    if _records_grad(x, w_router) and model_axis not in tok_axes:
+        raise ValueError(f"training moe_ep needs the {total} tokens to split "
+                         f"over the batch and model axes {tok_axes}")
     rows, first, total = _row_tokens(x, mesh, batch_axes, tok_axes)
-    xl = rows
+    xl, wr = rows, w_router
     if model_axis in tok_axes:           # this rank's share of the row
-        n = rows.shape[0] // ep
-        i = mesh.axis_index(model_axis)
-        xl, first = rows[i * n:(i + 1) * n], first + i * n
-    if fsdp_axis and mesh.shape.get(fsdp_axis, 1) > 1:
-        w_gate = all_gather(w_gate, mesh, fsdp_axis, dim=1)
-        w_up = all_gather(w_up, mesh, fsdp_axis, dim=1)
-        w_down = all_gather(w_down, mesh, fsdp_axis, dim=2)
+        first += mesh.axis_index(model_axis) * (rows.shape[0] // ep)
+        xl = coll.split_model(rows, mesh, model_axis)
+        wr = coll.enter_region(w_router, mesh, model_axis)
     cap = _capacity(xl.shape[0], moe.top_k, moe.n_experts,
                     moe.capacity_factor)
-    gates, eidx, probs, logits = route(xl, w_router, moe.top_k, log)
+    gates, eidx, probs, logits = route(xl, wr, moe.top_k, log)
     buf, se, st, pos, keep = _local_dispatch(xl, eidx, gates,
                                              moe.n_experts, cap)
     order_gates = gates.reshape(-1)[torch.argsort(eidx.reshape(-1),
                                                   stable=True)]
     # exchange: (E, C, D) -> (E/ep, C*ep, D) on the experts' owner
-    recv = all_to_all(buf, mesh, model_axis, split_dim=0, concat_dim=1)
+    recv = coll.all_to_all_grad(buf, mesh, model_axis, split_dim=0,
+                                concat_dim=1)
     yl = _experts(recv, w_gate, w_up, w_down)
-    back = all_to_all(yl, mesh, model_axis, split_dim=1, concat_dim=0)
+    back = coll.all_to_all_grad(yl, mesh, model_axis, split_dim=1,
+                                concat_dim=0)
     out = _local_combine(back, se, st, pos, keep, order_gates, xl.shape[0])
     if log is not None:
         log.kept.append((_kept_by_token(keep, eidx), first, total))
     lb, z = _aux_over(probs, eidx, logits, cfg, float(total), mesh,
                       tok_axes)
     if model_axis in tok_axes:
-        out = all_gather(out, mesh, model_axis)
+        out = coll.gather_model(out, mesh, model_axis)
     return _own_rows(out, x, mesh, batch_axes, tok_axes), lb, z
 
 
@@ -441,7 +467,16 @@ def moe_tp(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     ``w_down`` (E, F/m, D)).  Every model rank routes the row's tokens
     (the JAX package all-gathers them; the rank holds them already) with
     the row's capacity, and the partial outputs are summed over the model
-    axis.  Returns (y (Bl, S, D), load-balance loss, router z-loss)."""
+    axis.  Returns (y (Bl, S, D), load-balance loss, router z-loss).
+
+    Only the expert path is partial: the rows that fill the buffers and
+    the gates that weight the combine enter the model region, the
+    partial outputs leave it; routing and the aux terms are whole on
+    every model rank, so the router's gradient is too (summing it over
+    the model axis would count the aux terms m times).  Rows gathered
+    over the batch axes (a decode step) carry no gradient, so a forward
+    that records gradients refuses them."""
+    from repro_torch.parallel import collectives as coll
     moe = cfg.moe
     m = mesh.shape[model_axis]
     if w_gate.shape[-1] * m != moe.d_ff_expert:
@@ -450,19 +485,22 @@ def moe_tp(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     Bl, S, D = x.shape
     total = mesh.axis_size(batch_axes) * Bl * S
     tok_axes = _token_axes(total, mesh, batch_axes, model_axis)
+    if _records_grad(x, w_router) and not set(batch_axes) <= set(tok_axes):
+        raise ValueError(f"training moe_tp needs the {total} tokens to split "
+                         f"over the batch axes {tuple(batch_axes)}")
     xr, first, total = _row_tokens(x, mesh, batch_axes, tok_axes)
     cap = _capacity(xr.shape[0], moe.top_k, moe.n_experts,
                     moe.capacity_factor)
     gates, eidx, probs, logits = route(xr, w_router, moe.top_k, log)
-    buf, se, st, pos, keep = _local_dispatch(xr, eidx, gates,
-                                             moe.n_experts, cap)
-    order_gates = gates.reshape(-1)[torch.argsort(eidx.reshape(-1),
-                                                  stable=True)]
+    xd, gd = (coll.enter_region(t, mesh, model_axis) for t in (xr, gates))
+    buf, se, st, pos, keep = _local_dispatch(xd, eidx, gd, moe.n_experts,
+                                             cap)
+    order_gates = gd.reshape(-1)[torch.argsort(eidx.reshape(-1),
+                                               stable=True)]
     y_part = _experts(buf, w_gate, w_up, w_down)   # partial over F
     out = _local_combine(y_part, se, st, pos, keep, order_gates,
                          xr.shape[0])
-    from repro_torch.parallel.collectives import psum
-    out = psum(out, mesh, model_axis)
+    out = coll.leave_region(out, mesh, model_axis)
     if log is not None:
         log.kept.append((_kept_by_token(keep, eidx), first, total))
     row_axes = tuple(a for a in tok_axes if a != model_axis)

@@ -35,12 +35,14 @@ its part of the weights (``models/blocks.py``): the embedding's vocab rows
 (a masked lookup, summed over the model axis), the LM head's vocab
 columns (the logits gathered over the model axis, so every model rank
 ends with the same whole logits), the attention heads of
-``ctx.heads(cfg)`` and a cache of just those heads.  The dense and MoE
-families run there; the SSM, hybrid and VLM families raise on a mesh whose
-model axis is larger than 1 (ROADMAP queue 1).
+``ctx.heads(cfg)`` and a cache of just those heads; a VLM's projector
+column- then row-parallel (:func:`_project`).  The dense, MoE and VLM
+families run there; the SSM, hybrid and enc-dec families raise on a mesh
+whose model axis is larger than 1 (ROADMAP queue 1).
 
-On a training mesh (``ctx.training``) the dense family trains: the
-forward carries gradients through its collectives (``models/blocks.py``),
+On a training mesh (``ctx.training``) the same three families train: the
+forward carries gradients through its collectives (``models/blocks.py``;
+the MoE's exchanges, ``models/ffn.py``),
 each layer's weights gathered over the data axis as it is reached (the
 layer recomputed in its backward, so the gathered weights are never
 kept, whatever ``cfg.remat`` says), and :func:`lm_loss` is the global
@@ -49,8 +51,9 @@ those of its vocab columns, and the row max, the sum of exponentials and
 the target's logit are each combined over the model axis, the same
 function as the cross entropy of the gathered logits without gathering
 them.  The masked sum and the token count are each summed over the data
-axes before the division.  The other families on a training mesh raise
-(ROADMAP queue 1).
+axes before the division; the MoE's load-balance and router z terms are
+added as ``lm_loss`` adds them, and a VLM scores its text tail alone.
+The other families on a training mesh raise (ROADMAP queue 1).
 
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
@@ -82,8 +85,9 @@ from .config import ModelConfig
 
 #: families this module runs (the enc-dec family is ``models/encdec.py``)
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-#: families that run on a mesh whose model axis is larger than 1
-MESH_FAMILIES = ("dense", "moe")
+#: families that run on a mesh whose model axis is larger than 1, and
+#: train on a mesh
+MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 class Projector(nn.Module):
@@ -131,11 +135,11 @@ def _check_family(cfg: ModelConfig, ctx: Optional[ShardCtx] = None) -> None:
             f"axis is larger than 1 waits (ROADMAP queue 1); a mesh runs "
             f"{MESH_FAMILIES}")
     if (ctx is not None and ctx.training and ctx.mesh.size > 1
-            and cfg.family != "dense"):
+            and cfg.family not in MESH_FAMILIES):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family on a mesh waits "
-            f"(ROADMAP queue 1: the MoE on a training mesh, then the other "
-            f"families); a training mesh runs the dense family")
+            f"(ROADMAP queue 1: the other families on a mesh); a training "
+            f"mesh runs {MESH_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -237,12 +241,27 @@ def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} has a {cfg.frontend!r} frontend: "
                              "pass its stub embeddings as extra_embeds")
-        fe = extra_embeds.to(x.dtype)
-        h = fe @ params.projector.w1
-        h = torch.nn.functional.gelu(h.float(), approximate="tanh")
-        h = h.to(x.dtype)
-        x = torch.cat([h @ params.projector.w2, x], dim=1)
+        x = torch.cat([_project(params, cfg, extra_embeds.to(x.dtype), ctx),
+                       x], dim=1)
     return x
+
+
+def _project(params: LM, cfg: ModelConfig, fe: torch.Tensor,
+             ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The projector on patch embeddings ``fe``: ``w1``, the tanh GELU in
+    f32, ``w2``.  Where the rank holds a share of ``w1``'s columns (and of
+    ``w2``'s rows) it is column- then row-parallel: the GELU runs on the
+    rank's columns, the ``w2`` partial sums are summed over the model
+    axis (on a training mesh ``fe`` enters that region, and the weights
+    are gathered over the data axis first)."""
+    p = params.projector if ctx is None else ctx.gathered(params.projector,
+                                                          "projector")
+    partial = p.w1.shape[-1] < cfg.d_model
+    if partial:
+        fe = ctx.enter(fe, True)
+    h = torch.nn.functional.gelu((fe @ p.w1).float(), approximate="tanh")
+    y = h.to(fe.dtype) @ p.w2
+    return ctx.model_sum(y, True) if partial else y
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -348,7 +367,7 @@ def _hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, cfg, x, ctx, positions)
     elif cfg.family == "moe":
-        body = _remat(_moe_layer, cfg.remat)
+        body = _remat(_moe_layer, _layer_remat(cfg, ctx))
         for lp, w in zip(params.layers, cfg.layer_windows()):
             x, lbi, zi = body(x, lp, cfg, ctx, positions, w)
             lb, z = lb + lbi, z + zi
@@ -399,12 +418,17 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
 
 def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
                ) -> tuple[torch.Tensor, dict]:
-    """:func:`lm_loss` on a training mesh (the dense family): the rank's
-    logits over its vocab columns, the vocab-parallel cross entropy, and
-    the masked sum and token count summed over the data axes before the
-    division."""
+    """:func:`lm_loss` on a training mesh: the rank's logits over its
+    vocab columns (a VLM's over its text tail alone), the vocab-parallel
+    cross entropy, and the masked sum and token count summed over the
+    data axes before the division; an MoE config adds its load-balance
+    and router z terms, already global means (``ffn.moe_ep`` /
+    ``moe_tp``)."""
     from repro_torch.parallel import collectives as coll
-    x, lb, z = _hidden(params, cfg, batch["tokens"], ctx)
+    x, lb, z = _hidden(params, cfg, batch["tokens"], ctx,
+                       batch.get("extra_embeds"))
+    if cfg.frontend:
+        x = x[:, -batch["labels"].shape[1]:]
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = _head(params, cfg, ctx)
     split = head.shape[-1] < cfg.vocab
@@ -426,7 +450,11 @@ def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     sums = coll.leave_region(torch.stack([total, count]), ctx.mesh,
                              ctx.batch_axes)
     ce = sums[0] / torch.clamp(sums[1], min=1.0)
-    return ce, {"ce": ce, "load_balance": lb, "router_z": z}
+    total = ce
+    if cfg.moe:
+        total = (total + cfg.moe.load_balance_coef * lb
+                 + cfg.moe.router_z_coef * z)
+    return total, {"ce": ce, "load_balance": lb, "router_z": z}
 
 
 # ---------------------------------------------------------------------------

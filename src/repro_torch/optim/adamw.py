@@ -50,6 +50,14 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, *,
     names: its squares are summed over those axes only, so a leaf held
     whole on several ranks counts once and the norm is the whole
     model's, the same on every rank."""
+    norm, scale = _clip_scale(grads, max_norm, mesh, split_axes)
+    return [g.float() * scale for g in grads], norm
+
+
+def _clip_scale(grads, max_norm: float, mesh, split_axes
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the global norm of ``grads``, the factor that clips it to
+    ``max_norm``): :func:`clip_by_global_norm` without the scaled copy."""
     if mesh is None:
         sq = sum(torch.sum(torch.square(g.float())) for g in grads)
     else:
@@ -61,8 +69,8 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, *,
             groups[key] = groups[key] + part if key in groups else part
         sq = sum(psum(groups[k], mesh, k) for k in sorted(groups))
     norm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return [g.float() * scale for g in grads], norm
+    return norm, torch.clamp(max_norm / torch.clamp(norm, min=1e-9),
+                             max=1.0)
 
 
 @torch.no_grad()
@@ -84,9 +92,10 @@ def adamw_update(
     state, metrics); the inputs are left as they were.  On a ``mesh``
     every list holds this rank's blocks (``split_axes``: each leaf's split
     axes, for the global norm); the update of a block is elementwise, so
-    nothing else crosses ranks."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, mesh=mesh,
-                                       split_axes=split_axes)
+    nothing else crosses ranks.  Each gradient is clipped as its leaf is
+    updated (:func:`clip_by_global_norm`'s values), so no clipped copy of
+    the whole gradient is held beside the old and the new state."""
+    gnorm, scale = _clip_scale(grads, max_grad_norm, mesh, split_axes)
     step = state.step + 1
     t = step.float()
     f32 = dict(dtype=torch.float32, device=t.device)
@@ -96,6 +105,7 @@ def adamw_update(
 
     new_m, new_v, new_w = [], [], []
     for g, m, v, w in zip(grads, state.m, state.v, state.master):
+        g = g.float() * scale
         m = b1 * m + (1.0 - b1) * g
         v = b2 * v + (1.0 - b2) * torch.square(g)
         mhat = m / bc1

@@ -21,9 +21,10 @@ same result:
   the one peer each way: gloo's ``send`` / ``recv`` take no card tensor.
 
 Autograd does not go through the plain ops above; the serving paths use
-them under ``no_grad``.  A training mesh differentiates through three
+them under ``no_grad``.  A training mesh differentiates through
 ``torch.autograd.Function`` pairs built on them, each backward the
-conjugate of its forward (Megatron's ``f`` and ``g``; FSDP's gather):
+conjugate of its forward (Megatron's ``f`` and ``g``; FSDP's gather; the
+MoE's exchanges):
 
 * :func:`fsdp_gather`: ``all_gather`` forward, ``psum_scatter`` of the
   gradient backward (each data rank saw other rows, so their gradients
@@ -33,10 +34,21 @@ conjugate of its forward (Megatron's ``f`` and ``g``; FSDP's gather):
   a region each rank computes a part of;
 * :func:`leave_region`: ``psum`` forward, identity backward, where such a
   region's partial sums leave it (and for a loss's sums over the data
-  axes).
+  axes);
+* :func:`all_to_all_grad`: ``all_to_all`` forward, the reverse exchange
+  (split and concat dims swapped) backward: the MoE's dispatch to the
+  experts' owners and its combine back;
+* :func:`split_model`: the rank's rows of a replicated activation
+  forward, the rows' gradients gathered backward (each member's rows
+  got their gradient on that member alone);
+* :func:`gather_model`: ``all_gather`` forward, the rank's rows of the
+  gradient backward.  Not a reduce-scatter: the gathered activation is
+  replicated, so every member holds the same whole gradient of it.
 
 Every collective of this module adds its wall time to :func:`spent`
-(a trainer's share of a step spent in collectives).
+(a trainer's share of a step spent in collectives), and the time spent
+inside :func:`fsdp_gather` and :func:`all_to_all_grad`, forward and
+backward, also to their own kinds (``"fsdp"``, ``"all_to_all"``).
 
 :func:`compressed_psum` and :func:`hierarchical_psum` are the JAX
 package's (``parallel/collectives.py:41``, ``:82``): the paper's finding
@@ -49,6 +61,7 @@ versions at any block.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -58,16 +71,31 @@ from repro_torch.optim.compression import (dequantize_int8_blockwise,
                                            quantize_int8_blockwise)
 
 
-#: wall seconds and calls of this process's collectives (:func:`spent`)
-_SPENT = {"seconds": 0.0, "calls": 0}
+#: wall seconds and calls of this process's collectives (:func:`spent`),
+#: and the seconds of each kind
+_SPENT = {"seconds": 0.0, "calls": 0, "kinds": {}}
+#: the kind the collectives running now count under (:func:`_kind`)
+_KIND: list[str] = []
 
 
 def spent() -> dict:
-    """{"seconds", "calls"}: the wall time this process has spent inside
-    the collectives of this module so far, and their number.  A gloo
-    collective of card tensors returns once its result is on the card, so
-    its wall time covers the copies through the host."""
-    return dict(_SPENT)
+    """{"seconds", "calls", "kinds"}: the wall time this process has spent
+    inside the collectives of this module so far, their number, and the
+    seconds of each kind (``"fsdp"``: :func:`fsdp_gather`'s gathers and
+    reduce-scatters; ``"all_to_all"``: :func:`all_to_all_grad`'s
+    exchanges), each also counted in ``"seconds"``.  A gloo collective of
+    card tensors returns once its result is on the card, so its wall time
+    covers the copies through the host."""
+    return dict(_SPENT, kinds=dict(_SPENT["kinds"]))
+
+
+def spent_since(before: dict) -> dict:
+    """{"seconds", "kinds"}: what :func:`spent` has added since ``before``
+    (an earlier :func:`spent`)."""
+    now = spent()
+    return {"seconds": now["seconds"] - before["seconds"],
+            "kinds": {k: v - before["kinds"].get(k, 0.0)
+                      for k, v in now["kinds"].items()}}
 
 
 def _timed(collective, *args, **kw):
@@ -75,8 +103,22 @@ def _timed(collective, *args, **kw):
     try:
         return collective(*args, **kw)
     finally:
-        _SPENT["seconds"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        _SPENT["seconds"] += dt
         _SPENT["calls"] += 1
+        if _KIND:
+            kinds = _SPENT["kinds"]
+            kinds[_KIND[-1]] = kinds.get(_KIND[-1], 0.0) + dt
+
+
+@contextlib.contextmanager
+def _kind(name: str):
+    """Counts the collectives run inside it under ``name`` too."""
+    _KIND.append(name)
+    try:
+        yield
+    finally:
+        _KIND.pop()
 
 
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -178,12 +220,15 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
         ctx.args = (mesh, axes, dim)
-        return all_gather(x, mesh, axes, dim)
+        with _kind("fsdp"):
+            return all_gather(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axes, dim = ctx.args
-        return psum_scatter(g.contiguous(), mesh, axes, dim), None, None, None
+        with _kind("fsdp"):
+            g = psum_scatter(g.contiguous(), mesh, axes, dim)
+        return g, None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -205,6 +250,82 @@ class _Leave(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.args = (mesh, axes, split_dim, concat_dim)
+        with _kind("all_to_all"):
+            return all_to_all(x, mesh, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, concat_dim = ctx.args
+        with _kind("all_to_all"):
+            g = all_to_all(g, mesh, axes, concat_dim, split_dim)
+        return g, None, None, None, None
+
+
+class _SplitModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _own_chunk(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return all_gather(g, mesh, axes, dim), None, None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, *ctx.args), None, None, None
+
+
+def _own_chunk(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Chunk ``i`` of ``n`` of ``x`` along ``dim``, where ``i`` is this
+    member's index along ``axes``."""
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} members")
+    return x.chunk(n, dim)[mesh.axis_index(axes)].contiguous()
+
+
+def all_to_all_grad(x: torch.Tensor, mesh, axes, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all` whose gradient takes the reverse exchange: the
+    gradient of what member ``j`` received from this one goes back to
+    this one (split and concat dims swapped)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axes, split_dim, concat_dim)
+
+
+def split_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """This member's chunk of ``x`` along ``dim`` (``x`` the same on every
+    member of ``axes``); the chunks' gradients are gathered, so ``x``'s is
+    whole on every member."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _SplitModel.apply(x, mesh, axes, dim)
+
+
+def gather_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` (:func:`all_gather`);
+    the result is the same on every member, so each takes its own chunk of
+    the gradient, unsummed."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _GatherModel.apply(x, mesh, axes, dim)
 
 
 def fsdp_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

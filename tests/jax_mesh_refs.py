@@ -1,6 +1,6 @@
 """Reference outputs of the JAX package on an emulated 4-device CPU mesh.
 
-    python tests/jax_mesh_refs.py {mesh|gpipe|train} OUT.npz
+    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm} OUT.npz
 
 jax pins the device count at its first import, so the test files that
 compare the port's ranks with the JAX package's mesh run this script in
@@ -24,7 +24,19 @@ metrics and the final weights); the loss and gradients of one batch with
 a ``loss_mask`` that differs row by row (one device: the reference's
 jitted mesh step takes no mask); the JAX ``Trainer`` at (2, 2) saving a
 checkpoint beside OUT.npz (``jax_ckpt/``); and the JAX input pipeline's
-global batches on the (2, 2) mesh.
+global batches on the (2, 2) mesh.  ``moe_train``: the gradients of
+``moe_ep`` and ``moe_tp`` (meshes (1, 4) and (2, 2), capacity factors 8.0
+and 1.25) with respect to x, the router and the expert weights, of
+``sum(y * c)``, of the load-balance term and of the router z term, each
+alone; ``make_train_step`` for the MoE cases of ``MOE_TRAIN_CASES`` as in
+``train`` (the metrics with the aux terms), the final state of two of
+them (the parameters in the model's own dtypes) saved as checkpoints
+beside OUT.npz (``moe_ckpt/<case>/``), and the step each saved state takes
+next on the layout of :data:`MOE_ELASTIC` (the step after an elastic
+restore), in f32 from the saved values.
+``vlm``: the smoke llava served by ``Server(cfg, mesh)`` at (1, 4) and
+(2, 2) (prefill logits) and on one device (prefill and teacher-forced
+decode logits), and ``make_train_step`` at (2, 2) under FSDP + TP.
 """
 
 import dataclasses
@@ -36,7 +48,8 @@ import sys
 # the test run shares the host with wall-clock tests in other workers
 os.nice(10)
 os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
-    {"mesh": -1, "gpipe": -2}.get(sys.argv[1], -3)]})
+    {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
+        sys.argv[1], -3) % len(os.sched_getaffinity(0))]})
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -77,6 +90,30 @@ TRAIN_CASES = {"smollm-2x2-fsdp_tp": ("smollm-360m", "2x2", "fsdp_tp", 1),
 #: checkpoint run: its batches (B, S), pipeline seed and steps
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = (8, 16), 1e-3, 2
 CKPT_RUN = dict(batch=8, seq=16, seed=5, steps=2, every=2)
+#: MoE gradient cases: name -> (mesh, capacity factor), on prefill-shaped
+#: tokens (2, 16) of ``moe_cfg``'s layer (8 experts, top 2)
+MOE_GRAD_CASES = {f"{m}-cf{cf}": (m, cf) for m in ("1x4", "2x2")
+                  for cf in (8.0, 1.25)}
+#: MoE mesh train steps: name -> (arch, mesh, plan sharding,
+#: microbatches, experts): EP + FSDP, TP inside the experts (6 experts do
+#: not split over 4 model ranks), EP over a model axis of 1 with FSDP
+MOE_TRAIN_CASES = {
+    "mixtral-2x2-fsdp_tp": ("mixtral-8x22b", "2x2", "fsdp_tp", 1, 4),
+    "qwen3-1x4-tp-e6": ("qwen3-moe-30b-a3b", "1x4", "tp", 1, 6),
+    "qwen3-4x1-fsdp-mb2": ("qwen3-moe-30b-a3b", "4x1", "fsdp", 2, 4)}
+#: the MoE cases whose final state is saved as a checkpoint (an EP + FSDP
+#: layout and a TP-inside-experts layout)
+MOE_CKPT_CASES = ("mixtral-2x2-fsdp_tp", "qwen3-1x4-tp-e6")
+#: the layout (mesh, plan sharding) on which each saved state takes its
+#: next step: the port restores it there elastically
+MOE_ELASTIC = {"mixtral-2x2-fsdp_tp": ("1x4", "tp"),
+               "qwen3-1x4-tp-e6": ("2x2", "fsdp_tp")}
+#: the train metrics recorded for the MoE and VLM cases
+TRAIN_METRICS = ("loss", "ce", "load_balance", "router_z", "grad_norm", "lr")
+#: the smoke llava served: name -> (mesh, batch, prompt, decode steps)
+VLM_SERVE_CASES = {"1x4": ("1x4", 4, 16, 4), "2x2": ("2x2", 4, 16, 4)}
+#: the smoke llava's mesh train step: (mesh, plan sharding, steps)
+VLM_TRAIN = ("2x2", "fsdp_tp", 2)
 
 
 def mesh_of(name):
@@ -366,6 +403,173 @@ def train_refs(out, path):
     out["feed/labels"] = np.stack([b["labels"] for b in got])
 
 
+def with_experts(cfg, n):
+    """``cfg`` with ``n`` experts."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            n_experts=n))
+
+
+def moe_grad_inputs(x_shape):
+    """The gradient cases' tokens and the cotangent c of ``sum(y * c)``."""
+    rng = np.random.default_rng(31)
+    return (rng.standard_normal(x_shape).astype(F32),
+            rng.standard_normal(x_shape).astype(F32))
+
+
+def moe_grad_refs(out):
+    """Each path's gradients of ``sum(y * c)``, lb and z, each alone, with
+    respect to (x, router, w_gate, w_up, w_down), in one jitted call a
+    case."""
+    from repro.models import ffn
+    w = moe_weights()
+    for k, v in w.items():
+        out[f"moe_grad/{k}"] = v
+    x, c = moe_grad_inputs((2, 16, 32))
+    out["moe_grad/x"], out["moe_grad/c"] = x, c
+    args = [jnp.asarray(a) for a in (x, w["wr"], w["wg"], w["wu"], w["wd"])]
+    for case, (m, cf) in MOE_GRAD_CASES.items():
+        mesh, cfg = mesh_of(m), moe_cfg(cf)
+        for impl, fn in (("ep", ffn.moe_ep), ("tp", ffn.moe_tp)):
+            def terms(*a):
+                y, lb, z = fn(*a, cfg=cfg, mesh=mesh, batch_axes=("data",))
+                return jnp.sum(y * jnp.asarray(c)), lb, z
+
+            def all_grads(*a):
+                return [jax.grad(lambda *b, i=i: terms(*b)[i],
+                                 argnums=(0, 1, 2, 3, 4))(*a)
+                        for i in range(3)]
+            got = jax.jit(all_grads)(*args)
+            for what, grads in zip(("y", "lb", "z"), got):
+                for name, g in zip(("x", "wr", "wg", "wu", "wd"), grads):
+                    out[f"moe_grad/{case}/{impl}/{what}/{name}"] = \
+                        np.asarray(g)
+            out[f"moe_grad/{case}/{impl}/terms"] = np.asarray(
+                jax.jit(terms)(*args), F32)
+
+
+def moe_train_refs(out, path):
+    """The MoE mesh train steps (as :func:`train_refs`), the final state
+    of :data:`MOE_CKPT_CASES` saved by the JAX package's
+    ``save_checkpoint``, and the metrics of that state's next step on the
+    :data:`MOE_ELASTIC` layout, over the next seeded batch, in f32 (the
+    saved bf16 values widened, as f32 as the other cases)."""
+    from repro.checkpoint.manager import save_checkpoint
+    from repro.configs import get_smoke_config
+    from repro.models.api import build
+    root = os.path.join(os.path.dirname(os.path.abspath(path)), "moe_ckpt")
+    for case, (arch, m, sharding, micro, experts) in MOE_TRAIN_CASES.items():
+        cfg = with_experts(get_smoke_config(arch), experts)
+        params, opt = mesh_train(out, f"moe_train/{case}", cfg, m, sharding,
+                                 micro, train_batches(cfg.vocab,
+                                                      TRAIN_STEPS))
+        if case in MOE_CKPT_CASES:
+            # the parameters in the model's own dtypes (bf16 matrices), as
+            # a trainer holds them; the AdamW state is f32 either way
+            native = jax.eval_shape(build(cfg).init, jax.random.PRNGKey(0))
+            params = jax.tree.map(lambda a, n: a.astype(n.dtype), params,
+                                  native)
+            save_checkpoint(os.path.join(root, case), TRAIN_STEPS,
+                            {"params": params, "opt": opt})
+            out[f"moe_ckpt/{case}/next"] = next_step(
+                cfg, jax.tree.map(lambda a: a.astype(jnp.float32), params),
+                opt, *MOE_ELASTIC[case],
+                train_batches(cfg.vocab, TRAIN_STEPS + 1)[-1])
+    out["moe_ckpt/root"] = np.asarray(root)
+
+
+def mesh_train(out, prefix, cfg, m, sharding, micro, batches):
+    """``make_train_step`` on mesh ``m`` from the JAX model's weights in
+    f32 over ``batches``: the initial weights, the metrics of
+    :data:`TRAIN_METRICS` each step and the final weights under
+    ``prefix``.  Returns the final (params, opt state)."""
+    from repro.core.codesign import CodesignPlan
+    from repro.launch import steps as steps_lib
+    from repro.models.api import build
+    from repro.optim.adamw import adamw_init
+    api, mesh = build(cfg), mesh_of(m)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          api.init(jax.random.PRNGKey(0)))
+    _flat(out, f"{prefix}/params", params)
+    plan = CodesignPlan(sharding=sharding, microbatches=micro,
+                        seq_parallel=False)
+    step, p_shard, s_shard, _ = steps_lib.make_train_step(
+        api, mesh, plan, lr_peak=TRAIN_LR, warmup=1, total_steps=10)
+    params = jax.device_put(params, p_shard)
+    opt = jax.jit(adamw_init, out_shardings=s_shard)(params)
+    metrics = []
+    for b in batches:
+        params, opt, mt = step(params, opt, b)
+        metrics.append([float(mt[k]) for k in TRAIN_METRICS])
+    out[f"{prefix}/metrics"] = np.asarray(metrics)
+    _flat(out, f"{prefix}/final", params)
+    return params, opt
+
+
+def next_step(cfg, params, opt, m, sharding, batch):
+    """The metrics of :data:`TRAIN_METRICS` of one ``make_train_step`` on
+    mesh ``m`` under ``sharding`` from the state (params, opt) over
+    ``batch``."""
+    from repro.core.codesign import CodesignPlan
+    from repro.launch import steps as steps_lib
+    from repro.models.api import build
+    plan = CodesignPlan(sharding=sharding, seq_parallel=False)
+    step, p_shard, s_shard, _ = steps_lib.make_train_step(
+        build(cfg), mesh_of(m), plan, lr_peak=TRAIN_LR, warmup=1,
+        total_steps=10)
+    _, _, mt = step(jax.device_put(params, p_shard),
+                    jax.device_put(opt, s_shard), batch)
+    return np.asarray([float(mt[k]) for k in TRAIN_METRICS])
+
+
+def vlm_batches(cfg, n, B, S):
+    """``n`` seeded VLM batches: text tokens and labels (B, S) and the stub
+    patch embeddings (B, frontend_len, D)."""
+    rng = np.random.default_rng(29)
+    return [{"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32),
+             "extra_embeds": rng.standard_normal(
+                 (B, cfg.frontend_len, cfg.d_model)).astype(F32)}
+            for _ in range(n)]
+
+
+def vlm_refs(out):
+    """The smoke llava served on each mesh of :data:`VLM_SERVE_CASES`
+    (prefill logits: the mesh decode is at fault where the KV heads do not
+    divide the model axis, ROADMAP queue 3) and on one device (prefill and
+    teacher-forced decode logits), and its mesh train step."""
+    from repro.configs import get_smoke_config
+    from repro.launch.serve import Server
+    cfg = get_smoke_config("llava-next-mistral-7b")
+    for case, (m, B, prompt, steps) in VLM_SERVE_CASES.items():
+        batch = vlm_batches(cfg, 1, B, prompt)[0]
+        forced = np.random.default_rng(3).integers(
+            0, cfg.vocab, (B, steps), dtype=np.int32)
+        out[f"vlm_serve/{case}/tokens"] = batch["tokens"]
+        out[f"vlm_serve/{case}/extra_embeds"] = batch["extra_embeds"]
+        out[f"vlm_serve/{case}/forced"] = forced
+        max_len = cfg.frontend_len + prompt + steps + 1
+        for run, mesh, n in (("mesh", mesh_of(m), 0), ("one", None, steps)):
+            server = Server(cfg, mesh, max_len=max_len)
+            params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                                  server.api.init(jax.random.PRNGKey(0)))
+            logits, cache = server._prefill(params, {
+                "tokens": batch["tokens"],
+                "extra_embeds": batch["extra_embeds"]})
+            outs = [np.asarray(logits)]
+            for t in range(n):
+                logits, cache = server._decode(
+                    params, cache, jnp.asarray(forced[:, t:t + 1]))
+                outs.append(np.asarray(logits))
+            out[f"vlm_serve/{case}/{run}/logits"] = np.stack(outs)
+        _flat(out, f"vlm_serve/{case}/params", params)
+    m, sharding, n = VLM_TRAIN
+    batches = vlm_batches(cfg, n, *TRAIN_BATCH)
+    for i, b in enumerate(batches):
+        for k, v in b.items():
+            out[f"vlm_train/batches/{i}/{k}"] = v
+    mesh_train(out, "vlm_train", cfg, m, sharding, 1, batches)
+
+
 def main():
     job, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -379,6 +583,11 @@ def main():
         gpipe_refs(out)
     elif job == "train":
         train_refs(out, path)
+    elif job == "moe_train":
+        moe_grad_refs(out)
+        moe_train_refs(out, path)
+    elif job == "vlm":
+        vlm_refs(out)
     else:
         raise SystemExit(f"unknown job {job!r}")
     out["meta"] = np.asarray(json.dumps({
@@ -386,7 +595,11 @@ def main():
         "gpipe": {k: [list(v[0]), list(v[1]), v[2], v[3]]
                   for k, v in GPIPE_CASES.items()},
         "train": TRAIN_CASES, "train_batch": TRAIN_BATCH,
-        "train_lr": TRAIN_LR, "ckpt_run": CKPT_RUN}))
+        "train_lr": TRAIN_LR, "ckpt_run": CKPT_RUN,
+        "moe_grad": MOE_GRAD_CASES, "moe_train": MOE_TRAIN_CASES,
+        "moe_ckpt": MOE_CKPT_CASES, "moe_elastic": MOE_ELASTIC,
+        "train_metrics": TRAIN_METRICS,
+        "vlm_serve": VLM_SERVE_CASES, "vlm_train": VLM_TRAIN}))
     np.savez(path, **out)
     print("MARKER jax-mesh-refs-ok", job, len(out))
 

@@ -240,10 +240,10 @@ def _manifest(root: str, step: int) -> dict:
         return json.load(f)
 
 
-def _train_spec_of(path: str, shape, cfg, mesh) -> tuple:
-    """What a (4, 1) FSDP rank holds of a checkpoint leaf: a parameter's
-    train spec (a stacked leaf leads with None), the AdamW master and
-    moments their parameter's; the step whole."""
+def _train_spec_of(path: str, shape, cfg, mesh, fsdp: bool = True) -> tuple:
+    """What a rank holds of a checkpoint leaf (under FSDP unless told
+    otherwise): a parameter's train spec (a stacked leaf leads with None),
+    the AdamW master and moments their parameter's; the step whole."""
     parts = path.split("/")
     if parts[0] == "opt":
         if parts[1] == ".step":
@@ -254,7 +254,7 @@ def _train_spec_of(path: str, shape, cfg, mesh) -> tuple:
     name = "/".join(parts)
     stacked = parts[0] in sharding.STACKED
     per = tuple(shape[1:]) if stacked else tuple(shape)
-    spec = sharding.rank_spec(name, per, cfg, mesh, fsdp=True)
+    spec = sharding.rank_spec(name, per, cfg, mesh, fsdp=fsdp)
     return ((None,) + spec) if stacked else spec
 
 
@@ -396,11 +396,11 @@ def test_train_spec_is_the_fsdp_table_with_no_head_split():
 
 
 def test_training_mesh_refusals():
-    """The MoE (and every family but the dense) on a training mesh raises,
-    naming its ROADMAP item; the mesh trainer without a card raises unless
-    asked for the CPU; a world whose backend fails to start raises (no
-    other backend is tried); a plan with sequence parallelism is
-    refused."""
+    """The dense, MoE and VLM families train on a mesh; the SSM, the hybrid
+    and the enc-dec on a training mesh raise, naming their ROADMAP item;
+    the mesh trainer without a card raises unless asked for the CPU; a
+    world whose backend fails to start raises (no other backend is
+    tried); a plan with sequence parallelism is refused."""
     import torch.distributed as dist
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import free_port, init_world
@@ -409,11 +409,22 @@ def test_training_mesh_refusals():
     mesh = Mesh({"data": 2, "model": 2}, ("data", "model"), rank=0,
                 coords={"data": 0, "model": 0}, groups={})
     plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
-    for arch in ("qwen3-moe-30b-a3b", "mamba2-1.3b"):
+    for arch in ("smollm-360m", "qwen3-moe-30b-a3b",
+                 "llava-next-mistral-7b"):
         cfg = get_smoke_config(arch)
-        ctx = steps.make_ctx(build(cfg), mesh, plan, "ref", train=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            lm_lib._check_family(cfg, ctx)
+        lm_lib._check_family(cfg, steps.make_ctx(build(cfg), mesh, plan,
+                                                 "ref", train=True))
+    fsdp = Mesh({"data": 4, "model": 1}, ("data", "model"), rank=0,
+                coords={"data": 0, "model": 0}, groups={})
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        cfg = get_smoke_config(arch)
+        for m in (mesh, fsdp):
+            ctx = steps.make_ctx(build(cfg), m, plan, "ref", train=True)
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+                lm_lib._check_family(cfg, ctx)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        build(get_smoke_config("seamless-m4t-large-v2")).init(
+            0, device="cpu", keep=lambda name, t: t)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(get_smoke_config("smollm-360m"), mesh)

@@ -298,13 +298,18 @@ def _check_init_sharded(arch, shape):
 
 
 def test_a_mesh_refuses_the_families_that_wait():
+    """The SSM and the hybrid raise on a model axis of 2; the VLM runs
+    there (its cache holds the rank's heads: the one KV head whole); a
+    data-only mesh runs every family as one device does."""
     from repro_torch.models import lm
-    for arch in ("mamba2-1.3b", "zamba2-1.2b", "llava-next-mistral-7b"):
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
         cfg = get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             lm.init_lm_cache(cfg, 1, 64, _ctx((1, 2), 0), device="cpu")
-        # a data-only mesh runs every family as one device does
         lm._check_family(cfg, _ctx((2, 1), 0))
+    cfg = get_smoke_config("llava-next-mistral-7b")
+    cache = lm.init_lm_cache(cfg, 1, 64, _ctx((1, 2), 0), device="cpu")
+    assert tuple(cache["k"].shape) == (cfg.n_layers, 1, 64, 1, cfg.hd)
 
 
 def test_mesh_steps_on_a_one_member_mesh_are_the_one_device_steps():

@@ -1,6 +1,6 @@
 """One rank of the port's gloo world, for the mesh tests.
 
-    python tests/torch_mesh_ranks.py {mesh|gpipe|train} RANK WORLD PORT REF.npz OUTDIR
+    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm} RANK WORLD PORT REF.npz OUTDIR
 
 The test files call :func:`run_world`: it runs the JAX package's
 reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
@@ -31,7 +31,7 @@ from repro_torch.launch.mesh import init_world, make_mesh  # noqa: E402
 from repro_torch.models import ffn  # noqa: E402
 from repro_torch.models.config import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.parallel import collectives as coll  # noqa: E402
-from repro_torch.parallel.sharding import shard_tensor  # noqa: E402
+from repro_torch.parallel.sharding import shard_tensor, unshard  # noqa: E402
 from repro_torch.tree import flatten_with_paths, host_array  # noqa: E402
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
@@ -124,8 +124,9 @@ def moe_cfg(cf: float) -> ModelConfig:
 
 def moe(out, ref, meta, meshes):
     """``moe_ep`` (its experts' block of the weights; with the D dim also
-    over data and ``fsdp_axis="data"`` where data > 1) and ``moe_tp`` (its
-    slice of d_ff) on the rank's rows, with the pairs it kept."""
+    over data, gathered first as ``ShardCtx.gathered`` gathers it, where
+    data > 1) and ``moe_tp`` (its slice of d_ff) on the rank's rows, with
+    the pairs it kept."""
     w = {k: _t(ref[f"moe/{k}"]) for k in ("wr", "wg", "wu", "wd")}
     for case, (m, cf, _) in meta["moe"].items():
         mesh, cfg = meshes[m], moe_cfg(cf)
@@ -138,13 +139,14 @@ def moe(out, ref, meta, meshes):
         }
         if mesh.shape["data"] > 1:
             variants["ep_fsdp"] = (ffn.moe_ep, ("model", "data", None),
-                                   ("model", None, "data"),
-                                   {"fsdp_axis": "data"})
+                                   ("model", None, "data"), {})
         for impl, (fn, up_spec, down_spec, kw) in variants.items():
             log = ffn.RouteLog()
-            y, lb, z = fn(x, w["wr"], shard_tensor(w["wg"], up_spec, mesh),
-                          shard_tensor(w["wu"], up_spec, mesh),
-                          shard_tensor(w["wd"], down_spec, mesh), cfg=cfg,
+            wg, wu, wd = (unshard(shard_tensor(w[k], spec, mesh), tuple(
+                a if a == "data" else None for a in spec), mesh)
+                for k, spec in (("wg", up_spec), ("wu", up_spec),
+                                ("wd", down_spec)))
+            y, lb, z = fn(x, w["wr"], wg, wu, wd, cfg=cfg,
                           mesh=mesh, batch_axes=("data",), log=log, **kw)
             keep, first, total = log.kept[0]
             out[f"moe/{case}/{impl}/y"] = y.numpy()
@@ -289,38 +291,48 @@ def grad_collectives(out, mesh, rank):
 
 
 def train_steps(out, ref, meta, meshes, rank):
-    """Each case's 2 steps on the rank's shards (``shard_params`` under the
-    plan) and rows; rank 0 writes the gathered final weights."""
+    """Each case's 2 steps (:func:`mesh_steps`)."""
+    B, S = meta["train_batch"]
+    for case, (arch, m, sharding, micro) in meta["train"].items():
+        cfg = get_smoke_config(arch)
+        mesh_steps(out, ref, meta, f"train/{case}", cfg, meshes[m], sharding,
+                   micro, _train_batches(cfg.vocab, len(
+                       ref[f"train/{case}/metrics"]), B, S),
+                   ("loss", "ce", "grad_norm", "lr"), rank)
+
+
+def mesh_steps(out, ref, meta, prefix, cfg, mesh, sharding, micro, batches,
+               keys, rank):
+    """``make_train_step`` on ``mesh`` under the plan over ``batches``,
+    from the JAX run's weights (``<prefix>/params``) on the rank's shards
+    (``shard_params`` under the plan) and rows: the metrics ``keys`` each
+    step and the parameters held; rank 0 writes the gathered final
+    weights."""
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.api import build
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.weights import shard_params
-    B, S = meta["train_batch"]
-    for case, (arch, m, sharding, micro) in meta["train"].items():
-        cfg, mesh = get_smoke_config(arch), meshes[m]
-        plan = CodesignPlan(sharding=sharding, microbatches=micro,
-                            seq_parallel=False)
-        lm = shard_params(_tree(ref, f"train/{case}/params/"), cfg, mesh,
-                          device="cpu", plan=plan, trainable=True)
-        opt = adamw_init(lm.parameters())
-        step, ctx = make_train_step(build(cfg), mesh, plan,
-                                    lr_peak=meta["train_lr"], warmup=1,
-                                    total_steps=10)
-        metrics = []
-        for b in _train_batches(cfg.vocab, len(ref[f"train/{case}/metrics"]),
-                                B, S):
-            lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
-                                         for k, v in b.items()})
-            metrics.append([float(mt[k]) for k in
-                            ("loss", "ce", "grad_norm", "lr")])
-        out[f"train/{case}/metrics"] = np.asarray(metrics)
-        out[f"train/{case}/params_held"] = np.asarray(
-            sum(p.numel() for p in lm.parameters()))
-        whole = _gather_params(lm, cfg, mesh, plan)
-        if rank == 0:
-            for path, v in flatten_with_paths(whole):
-                out[f"train/{case}/final/{path}"] = v
+    plan = CodesignPlan(sharding=sharding, microbatches=micro,
+                        seq_parallel=False)
+    lm = shard_params(_tree(ref, f"{prefix}/params/"), cfg, mesh,
+                      device="cpu", plan=plan, trainable=True)
+    opt = adamw_init(lm.parameters())
+    step, _ = make_train_step(build(cfg), mesh, plan,
+                              lr_peak=meta["train_lr"], warmup=1,
+                              total_steps=10)
+    metrics = []
+    for b in batches:
+        lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
+                                     for k, v in b.items()})
+        metrics.append([float(mt[k]) for k in keys])
+    out[f"{prefix}/metrics"] = np.asarray(metrics)
+    out[f"{prefix}/params_held"] = np.asarray(
+        sum(p.numel() for p in lm.parameters()))
+    whole = _gather_params(lm, cfg, mesh, plan)
+    if rank == 0:
+        for path, v in flatten_with_paths(whole):
+            out[f"{prefix}/final/{path}"] = v
 
 
 def _gather_params(lm, cfg, mesh, plan):
@@ -461,6 +473,243 @@ def failure(out, meshes, rank, out_dir):
     out["fail/resumed_losses"] = np.asarray([r["loss"] for r in again])
 
 
+# ---------------------------------------------------------------------------
+# moe_train: the MoE's gradients and train steps on a training mesh, its
+# checkpoints across layouts
+# ---------------------------------------------------------------------------
+
+#: the weights of the MoE gradient cases, in argument order
+MOE_WEIGHTS = ("wr", "wg", "wu", "wd")
+
+
+def moe_grad_specs(impl: str, fsdp: bool) -> dict:
+    """What a rank holds of each weight of the gradient cases: the train
+    rule table's spec for EP (experts over the model axis) or TP inside
+    the experts (d_ff over it), with FSDP's data entries when ``fsdp``."""
+    d = "data" if fsdp else None
+    if impl == "ep":
+        return {"wr": (d, None), "wg": ("model", d, None),
+                "wu": ("model", d, None), "wd": ("model", None, d)}
+    return {"wr": (d, None), "wg": (None, d, "model"),
+            "wu": (None, d, "model"), "wd": (None, "model", d)}
+
+
+def moe_cfg_of(meta, case: str) -> ModelConfig:
+    """A MoE train case's smoke config with its expert count."""
+    arch, _, _, _, experts = meta["moe_train"][case]
+    cfg = get_smoke_config(arch)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=experts))
+
+
+def moe_grads(out, ref, meta, meshes, rank):
+    """Each path's gradients of ``sum(y * c)``, lb and z, each alone, on a
+    training mesh: the rank's blocks of the weights (FSDP's data split too
+    where data > 1), gathered as ``ShardCtx.gathered`` gathers them, the
+    weights' gradients exchanged as the train step exchanges them (``steps._exchange``) and gathered whole; x's
+    gathered over the data axis on every rank."""
+    from repro_torch.launch.steps import _exchange
+    from repro_torch.models.blocks import ShardCtx
+    for case, (m, cf) in meta["moe_grad"].items():
+        mesh, cfg = meshes[m], moe_cfg(cf)
+        for impl, fn in (("ep", ffn.moe_ep), ("tp", ffn.moe_tp)):
+            specs = moe_grad_specs(impl, mesh.shape["data"] > 1)
+            ctx = ShardCtx(impl="ref", mesh=mesh, specs=specs)
+            for what in ("y", "lb", "z"):
+                x = _t(_rows(ref["moe_grad/x"], mesh)).requires_grad_(True)
+                c = _t(_rows(ref["moe_grad/c"], mesh))
+                ws = [_t(shard_tensor(ref[f"moe_grad/{n}"], specs[n], mesh)
+                         ).requires_grad_(True) for n in MOE_WEIGHTS]
+                y, lb, z = fn(x, *(ctx.gather_weight(w, specs[n])
+                                   for w, n in zip(ws, MOE_WEIGHTS)),
+                              cfg=cfg, mesh=mesh, batch_axes=("data",))
+                yc = coll.leave_region(torch.sum(y * c), mesh, "data")
+                loss = {"y": yc, "lb": lb, "z": z}[what]
+                grads = torch.autograd.grad(loss, [x] + ws,
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                key = f"moe_grad/{case}/{impl}/{what}"
+                out[f"{key}/x"] = coll.all_gather(grads[0], mesh,
+                                                  "data").numpy()
+                gw = _exchange(grads[1:], [specs[n] for n in MOE_WEIGHTS],
+                               ctx)
+                for n, g in zip(MOE_WEIGHTS, gw):
+                    whole = unshard(g, specs[n], mesh).numpy()
+                    if rank == 0:
+                        out[f"{key}/{n}"] = whole
+            out[f"moe_grad/{case}/{impl}/terms"] = np.asarray(
+                [float(t) for t in (yc, lb, z)], np.float32)
+
+
+def moe_train_steps(out, ref, meta, meshes, rank):
+    """Each MoE case's 2 steps (:func:`mesh_steps`)."""
+    B, S = meta["train_batch"]
+    for case, (_, m, sharding, micro, _) in meta["moe_train"].items():
+        cfg = moe_cfg_of(meta, case)
+        mesh_steps(out, ref, meta, f"moe_train/{case}", cfg, meshes[m],
+                   sharding, micro, _train_batches(cfg.vocab, len(
+                       ref[f"moe_train/{case}/metrics"]), B, S),
+                   meta["train_metrics"], rank)
+
+
+def moe_recompute(out, ref, meta, meshes):
+    """One loss and backward of the (2, 2) EP + FSDP case under a
+    ``RouteLog``: the layers are recomputed in the backward pass (their
+    weights gathered over the data axis), so the log holds each layer's
+    routing twice, forward order then backward order."""
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build
+    from repro_torch.weights import shard_params
+    case = meta["moe_ckpt"][0]
+    _, m, sharding, _, _ = meta["moe_train"][case]
+    cfg, mesh = moe_cfg_of(meta, case), meshes[m]
+    plan = CodesignPlan(sharding=sharding, seq_parallel=False)
+    api = build(cfg)
+    lm = shard_params(_tree(ref, f"moe_train/{case}/params/"), cfg, mesh,
+                      device="cpu", plan=plan, trainable=True)
+    log = ffn.RouteLog()
+    ctx = dataclasses.replace(steps.make_ctx(api, mesh, plan, "ref",
+                                             train=True), routes=log)
+    B, S = meta["train_batch"]
+    batch = _train_batches(cfg.vocab, 1, B, S)[0]
+    loss, _ = api.loss(lm, {k: _t(_rows(v, mesh)) for k, v in batch.items()},
+                       ctx)
+    torch.autograd.grad(loss, list(lm.parameters()))
+    L = cfg.n_layers
+    out["recompute/calls"] = np.asarray(len(log.calls))
+    out["recompute/kept"] = np.asarray(len(log.kept))
+    for j in range(L):
+        again = 2 * L - 1 - j             # the backward recomputes L-1 .. 0
+        for what, calls in (("experts", [c[0] for c in log.calls]),
+                            ("probs", [c[1] for c in log.calls]),
+                            ("kept", [k[0] for k in log.kept])):
+            out[f"recompute/{j}/{what}"] = calls[j].numpy()
+            out[f"recompute/{j}/{what}_again"] = calls[again].numpy()
+
+
+def _restored(out, prefix, trainer):
+    """The restored step and each state leaf the rank holds."""
+    out[f"{prefix}/step"] = np.asarray(trainer.step_idx)
+    for path, v in flatten_with_paths(trainer.state_tree()):
+        out[f"{prefix}/state/{path}"] = host_array(v)
+
+
+def moe_checkpoints(out, ref, meta, meshes, out_dir):
+    """The JAX run's EP + FSDP (2, 2) checkpoint restored by the port's
+    ``Trainer`` at (1, 4) (EP, one expert a rank) and saved again from
+    there; its TP-inside-experts (1, 4) checkpoint restored onto its own
+    layout and saved again from it, and that save restored at (2, 2)
+    under EP + FSDP (6 experts split over 2 model ranks).  Rank 0 writes
+    the saves under ``OUTDIR/port_ckpt/<case>``.  Each elastic restore
+    (the layouts of ``meta["moe_elastic"]``) then takes its trainer's
+    next step (:func:`_next_step`)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch.train import Trainer
+    root = str(ref["moe_ckpt/root"])
+    tp = CodesignPlan(sharding="tp", seq_parallel=False)
+    fsdp_tp = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
+
+    def restore(case, mesh, plan, src, prefix):
+        t = Trainer(moe_cfg_of(meta, case), meshes[mesh], plan=plan,
+                    device="cpu", ckpt_dir=src)
+        t.init_state(9)
+        assert t.try_restore(), f"no checkpoint restored from {src}"
+        _restored(out, prefix, t)
+        return t
+
+    for case in meta["moe_ckpt"]:
+        t = restore(case, "1x4", tp, os.path.join(root, case),
+                    f"ckpt/{case}/on_1x4")
+        ck = CheckpointManager(os.path.join(out_dir, "port_ckpt", case),
+                               mesh=t.mesh)
+        ck.maybe_save(t.step_idx, t.state_tree(), force=True,
+                      shardings=t.state_shardings())
+        ck.wait()
+        if meta["moe_elastic"][case][0] == "1x4":
+            _next_step(out, f"ckpt/{case}/on_1x4", t, ref, meta, case)
+    case = meta["moe_ckpt"][1]
+    t = restore(case, "2x2", fsdp_tp, os.path.join(out_dir, "port_ckpt",
+                                                   case),
+                f"ckpt/{case}/on_2x2")
+    _next_step(out, f"ckpt/{case}/on_2x2", t, ref, meta, case)
+
+
+def _next_step(out, prefix, trainer, ref, meta, case):
+    """The restored trainer's next step (its ``train_step``) over the
+    batch after the JAX run's, its restored weights widened to f32 as the
+    reference's are: the metrics ``meta["train_metrics"]``."""
+    B, S = meta["train_batch"]
+    batch = _train_batches(trainer.cfg.vocab, len(
+        ref[f"moe_train/{case}/metrics"]) + 1, B, S)[-1]
+    rows = {k: _t(_rows(v, trainer.mesh)) for k, v in batch.items()}
+    _, _, mt = trainer.train_step(trainer.params.float(), trainer.opt_state,
+                                  rows)
+    out[f"{prefix}/next"] = np.asarray(
+        [float(mt[k]) for k in meta["train_metrics"]])
+
+
+def moe_cli(out, out_dir):
+    """The CLI trains the smoke qwen3 on the (2, 2) mesh (``train.main``,
+    in this world): 3 steps, a checkpoint at step 2."""
+    from repro_torch.launch import train
+    log = train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device",
+                      "cpu", "--mesh", "2x2", "--steps", "3",
+                      "--global-batch", "8", "--seq-len", "16",
+                      "--ckpt-dir", os.path.join(out_dir, "moe_cli"),
+                      "--ckpt-every", "2"])
+    out["cli/steps"] = np.asarray([r["step"] for r in log])
+    out["cli/losses"] = np.asarray([r["loss"] for r in log])
+    out["cli/all_to_all_s"] = np.asarray(
+        [r["collective_kinds_s"].get("all_to_all", 0.0) for r in log])
+
+
+# ---------------------------------------------------------------------------
+# vlm: the smoke llava served and trained on a mesh
+# ---------------------------------------------------------------------------
+
+
+def vlm_serve(out, ref, meta, meshes):
+    """The smoke llava through ``Server(cfg, mesh)`` on the JAX model's
+    weights (f32): prefill and teacher-forced decode logits, the rank's
+    cache, and ``generate``."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.weights import shard_params
+    cfg = get_smoke_config("llava-next-mistral-7b")
+    for case, (m, _, prompt, steps) in meta["vlm_serve"].items():
+        mesh = meshes[m]
+        server = Server(cfg, mesh, device="cpu",
+                        max_len=cfg.frontend_len + prompt + steps + 1)
+        server.params = shard_params(_tree(ref, f"vlm_serve/{case}/params/"),
+                                     cfg, mesh, device="cpu")
+        batch = {k: ref[f"vlm_serve/{case}/{k}"]
+                 for k in ("tokens", "extra_embeds")}
+        forced = server._on_device(ref[f"vlm_serve/{case}/forced"])
+        logits, cache = server.prefill(batch)
+        outs = [logits]
+        for t in range(steps):
+            logits, cache = server.decode(cache, forced[:, t:t + 1])
+            outs.append(logits)
+        out[f"vlm_serve/{case}/logits"] = torch.stack(outs).numpy()
+        out[f"vlm_serve/{case}/cache_k"] = np.asarray(cache["k"].shape)
+        out[f"vlm_serve/{case}/params"] = np.asarray(
+            sum(p.numel() for p in server.params.parameters()))
+        out[f"vlm_serve/{case}/generated"] = server.generate(batch, steps)
+
+
+def vlm_train(out, ref, meta, meshes, rank):
+    """The smoke llava's mesh train step (:func:`mesh_steps`) on the JAX
+    run's batches."""
+    m, sharding, n = meta["vlm_train"]
+    batches = [{k: ref[f"vlm_train/batches/{i}/{k}"]
+                for k in ("tokens", "labels", "extra_embeds")}
+               for i in range(n)]
+    mesh_steps(out, ref, meta, "vlm_train",
+               get_smoke_config("llava-next-mistral-7b"), meshes[m],
+               sharding, 1, batches, meta["train_metrics"], rank)
+
+
 def main() -> None:
     job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -469,7 +718,8 @@ def main() -> None:
     # tests in other workers
     os.nice(10)
     os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
-        {"mesh": -1, "gpipe": -2}.get(job, -3)]})
+        {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
+            job, -3) % len(os.sched_getaffinity(0))]})
     torch.set_num_threads(1)
     init_world("gloo", rank=rank, world_size=world,
                init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
@@ -492,6 +742,19 @@ def main() -> None:
         masked_grads(out, ref, meta, meshes, rank)
         elastic(out, ref, meta, meshes, rank, out_dir)
         failure(out, meshes, rank, out_dir)
+    elif job == "moe_train":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        moe_grads(out, ref, meta, meshes, rank)
+        moe_train_steps(out, ref, meta, meshes, rank)
+        moe_recompute(out, ref, meta, meshes)
+        moe_checkpoints(out, ref, meta, meshes, out_dir)
+        moe_cli(out, out_dir)
+    elif job == "vlm":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        vlm_serve(out, ref, meta, meshes)
+        vlm_train(out, ref, meta, meshes, rank)
     else:
         raise SystemExit(f"unknown job {job!r}")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
