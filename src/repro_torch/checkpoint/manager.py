@@ -118,7 +118,7 @@ def _gather_block(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
     if not any(spec):
         return t if _writes(mesh) else None
     import torch.distributed as dist
-    from repro_torch.parallel.sharding import shard_slices
+    from repro_torch.parallel.sharding import shard_slices, whole_shape
     group = mesh.group(mesh.axis_names)
     block = t if dist.get_backend(group) == "nccl" else t.cpu()
     block = block.contiguous()
@@ -127,8 +127,7 @@ def _gather_block(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
     dist.gather(block, blocks, dst=0, group=group)
     if blocks is None:
         return None
-    shape = tuple(n * mesh.axis_size(a) if a is not None else n
-                  for n, a in zip(t.shape, tuple(spec) + (None,) * t.ndim))
+    shape = whole_shape(tuple(t.shape), spec, mesh)
     whole = torch.empty(shape, dtype=t.dtype)
     for r, b in enumerate(blocks):
         whole[shard_slices(shape, spec, mesh.of_rank(r))] = b.cpu()

@@ -38,8 +38,9 @@ import torch
 from repro_torch.core.codesign import CodesignPlan
 from repro_torch.models.api import ModelApi
 from repro_torch.models.blocks import ShardCtx
-from repro_torch.parallel.sharding import (batch_axes_of, jax_path, plan_fsdp,
-                                           rank_spec, spec_axes)
+from repro_torch.parallel.sharding import (batch_axes_of, jax_path,
+                                           norm_weight, plan_fsdp, rank_spec,
+                                           spec_axes)
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWState, adamw_update, warmup_cosine
 
@@ -94,17 +95,20 @@ def make_train_step(api: ModelApi, mesh=None,
         else:
             loss, aux = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, weights)
-        split = None
+        split = norm_weights = None
         if mesh is not None:
             specs = [ctx.specs[jax_path(n)] for n in names]
             grads = _exchange(grads, specs, ctx)
             split = [spec_axes(s) for s in specs]
+            norm_weights = [norm_weight(s, mesh, g.device)
+                            for s, g in zip(specs, grads)]
         # the step counter is pre-increment: schedule on step + 1 so the
         # very first update trains at a nonzero warmup rate
         lr = warmup_cosine(opt_state.step + 1, peak_lr=lr_peak,
                            warmup=warmup, total=total_steps)
         new, opt_state, om = adamw_update(grads, opt_state, weights, lr=lr,
-                                          mesh=mesh, split_axes=split)
+                                          mesh=mesh, split_axes=split,
+                                          norm_weights=norm_weights)
         with torch.no_grad():
             for w, n in zip(weights, new):
                 w.copy_(n)

@@ -124,10 +124,8 @@ class Trainer:
                                        device=self.device, plan=self.plan,
                                        trainable=True)
         else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            self.params = lm_lib.init_lm(self.cfg, generator=gen,
-                                         device=self.device, trainable=True)
+            self.params = self.api.init(seed, device=self.device,
+                                        trainable=True)
         self.opt_state = adamw_init(self.params.parameters())
 
     def state_tree(self) -> dict:

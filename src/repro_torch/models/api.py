@@ -42,16 +42,14 @@ class ModelApi:
              ) -> lm_lib.LM | encdec_lib.EncDec:
         """Random parameters drawn on ``device`` from a generator seeded
         with ``seed`` (the same seed gives other numbers on another device
-        type); ``trainable`` ones require gradients.  A decoder's ``keep``
-        maps each parameter as it is drawn (``lm.init_lm``)."""
+        type); ``trainable`` ones require gradients.  ``keep`` maps each
+        parameter as it is drawn (``lm.init_lm``, ``encdec.init_encdec``)."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         if self.encdec:
-            if keep is not None:
-                raise NotImplementedError(
-                    "the enc-dec family on a mesh waits (ROADMAP queue 1)")
             return encdec_lib.init_encdec(self.cfg, generator=gen,
-                                          device=device, trainable=trainable)
+                                          device=device, trainable=trainable,
+                                          keep=keep)
         return lm_lib.init_lm(self.cfg, generator=gen, device=device,
                               trainable=trainable, keep=keep)
 

@@ -18,7 +18,9 @@ computes its own part, Megatron-style, by the rule table of
   ``w_down`` summed over the model axis;
 * the embedding vocab-parallel (a masked lookup, summed), the LM head
   column-parallel (the logits gathered over the model axis);
-* the MoE through ``ffn.moe_ep`` or ``ffn.moe_tp`` (``choose_moe``).
+* the MoE through ``ffn.moe_ep`` or ``ffn.moe_tp`` (``choose_moe``);
+* a Mamba2 layer over the rank's share of the SSD heads
+  (:meth:`ShardCtx.ssm_heads`, ``models/ssm.py``).
 
 A head is never split: where the heads do not divide the model axis, the
 rank computes them whole (:class:`HeadPlan`).  Activations hold the
@@ -198,9 +200,17 @@ class ShardCtx:
         model axis (FSDP's data entries), dim by dim."""
         from repro_torch.parallel.collectives import fsdp_gather
         for dim, axis in enumerate(spec):
-            if axis is not None and axis != self.model_axis:
+            # a head-wise (Segments) dim is the model axis's
+            if isinstance(axis, (str, tuple)) and axis != self.model_axis:
                 w = fsdp_gather(w, self.mesh, axis, dim)
         return w
+
+    def ssm_heads(self, cfg: ModelConfig) -> int:
+        """The SSD heads this rank computes: its share where they divide
+        the model axis (``sharding.rank_spec``'s head-wise layout), else
+        every head."""
+        h = cfg.ssm_heads
+        return h // self._model_size() if self.heads_shardable(h) else h
 
 
 def _namespace(tree: dict) -> types.SimpleNamespace:
@@ -369,10 +379,11 @@ def init_mamba_layer(cfg: ModelConfig, *, generator: torch.Generator,
 def self_attention_block(
     x: torch.Tensor, p: AttnParams, cfg: ModelConfig, ctx: ShardCtx, *,
     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0,
+    causal: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """QKV projections + RoPE + causal attention over this step's keys,
-    over the rank's heads (``ctx.heads``).  Returns (out, k_new, v_new),
-    k_new/v_new post-RoPE (the cache's entries)."""
+    """QKV projections + RoPE + attention (causal unless told otherwise)
+    over this step's keys, over the rank's heads (``ctx.heads``).  Returns
+    (out, k_new, v_new), k_new/v_new post-RoPE (the cache's entries)."""
     B, S, D = x.shape
     hp = ctx.heads(cfg)
     x = ctx.enter(x, hp.q_split)
@@ -383,8 +394,8 @@ def self_attention_block(
     v = hp.take_kv((x @ wv).reshape(B, S, -1, cfg.hd))
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)   # new keys carry current positions
-    out = attention(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window,
-                    impl=ctx.impl)
+    out = attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                    window=window, impl=ctx.impl)
     out = out.reshape(B, S, hp.hq * cfg.hd)
     return ctx.model_sum(out @ p.wo, hp.q_split), k, v
 
@@ -400,14 +411,18 @@ def mlp_apply(h: torch.Tensor, p: MlpParams, cfg: ModelConfig,
 
 def dense_layer_apply(
     x: torch.Tensor, p: DenseLayer, cfg: ModelConfig, ctx: ShardCtx, *,
-    positions: torch.Tensor, window: int = 0,
+    positions: torch.Tensor, window: int = 0, causal: bool = True,
+    prefix: str = "layers",
 ) -> torch.Tensor:
-    """Full pre-norm causal transformer layer (no cache); on a training
-    mesh its weights are gathered first (:meth:`ShardCtx.gathered`)."""
-    p = ctx.gathered(p, "layers")
+    """Full pre-norm transformer layer (no cache), causal unless told
+    otherwise; on a training mesh its weights are gathered first
+    (:meth:`ShardCtx.gathered`; ``prefix``: the layer's path in the JAX
+    tree, ``shared_attn`` for the hybrid's shared block)."""
+    p = ctx.gathered(p, prefix)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, _, _ = self_attention_block(
-        h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)
+        h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window,
+        causal=causal)
     x = x + attn_out
     return x + mlp_apply(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg, ctx)
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 PARAM_DTYPE = torch.bfloat16
@@ -109,3 +111,44 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     total, count = cross_entropy_sums(*log_partition_and_gold(logits, labels),
                                       mask, z_loss_coef)
     return total / torch.clamp(count, min=1.0)
+
+
+@contextlib.contextmanager
+def _f32_reductions():
+    """cuBLAS bf16 GEMMs inside reduce their split-K partial sums in f32
+    (PyTorch lets them reduce in bf16 by default,
+    ``allow_bf16_reduced_precision_reduction``); the flag is restored on
+    leaving."""
+    flags = torch.backends.cuda.matmul
+    old = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = old
+
+
+class _F32ReducedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _f32_reductions():
+            return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _f32_reductions():
+            gx = g @ w.T
+            gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw
+
+
+def matmul_f32_reduced(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., K), w (K, N)) whose forward and backward GEMMs
+    reduce their partial sums in f32.  For a vocab-parallel head: its
+    input's gradient sums over the rank's vocab columns (K = 128,103 for
+    seamless at a model axis of 2), where cuBLAS's bf16 split-K
+    reductions moved the final norm's gradient 7.4% off the one-card
+    step's on an H100."""
+    return _F32ReducedMatmul.apply(x, w)

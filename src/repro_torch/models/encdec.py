@@ -20,23 +20,36 @@ cross call passes ``k_pos = 0..S_enc-1`` and ``q_pos = S_enc - 1``: every
 slot kept, the non-causal attention of the JAX package).  The training
 forward's cross attention (query and key lengths differ) runs the plain
 path, as the JAX package's does.
+
+On a mesh (``ShardCtx.mesh``) a rank holds and computes its part as a
+decoder's rank does (``models/blocks.py``, ``models/lm.py``): the self and
+cross attention of its heads, with caches of just those heads (the cross
+K/V over every encoder slot), the ``wo`` and ``w_down`` partial sums
+summed over the model axis, the embedding and the LM head vocab-parallel
+where the vocab divides the model axis (seamless's 256,206 divides 2 but
+not 4: whole on every rank there), and ``frame_proj`` whole.  On a
+training mesh each layer's weights are gathered over the data axis as it
+is reached, the encoder states enter the decoder's region once (every
+layer's cross K/V read the rank's heads of them), and the loss is the
+global token mean (``lm.mesh_ce``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from . import ffn as ffn_lib
 from .attention import attention, cache_positions_full
 from .blocks import (AttnParams, DenseLayer, MlpParams, ShardCtx, _param,
-                     init_attn_params, init_dense_layer, init_mlp_params)
-from .common import (apply_rope, cross_entropy_loss, dense_init, embed_init,
-                     rms_norm, rope_angles)
+                     dense_layer_apply, init_attn_params, init_dense_layer,
+                     init_mlp_params, mlp_apply, self_attention_block)
+from .common import (cross_entropy_loss, dense_init, embed_init, rms_norm,
+                     rope_angles)
 from .config import ModelConfig
-from .lm import _decode_attn_block, _remat
+from .lm import (_decode_attn_block, _embed, _kept, _layer_remat, _logits,
+                 _remat, _weight, mesh_ce)
 
 
 class DecLayer(nn.Module):
@@ -75,104 +88,126 @@ class EncDec(nn.Module):
 
 
 def init_encdec(cfg: ModelConfig, *, generator: torch.Generator,
-                device: torch.device | str,
-                trainable: bool = False) -> EncDec:
+                device: torch.device | str, trainable: bool = False,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+                = None) -> EncDec:
     """Random parameters drawn on ``device`` from ``generator``; with
-    ``trainable`` they require gradients."""
+    ``trainable`` they require gradients.  ``keep(name, tensor)``, given,
+    maps each parameter as it is drawn to what the model holds, e.g. a
+    rank's shard, as ``lm.init_lm``'s does: the same draws, and no more
+    than one layer held whole."""
     cfg.validate()
     D, V = cfg.d_model, cfg.vocab
     kw = dict(generator=generator, device=device)
+    keep = keep or (lambda name, t: t)
     zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=device)
-    enc = [init_dense_layer(cfg, **kw) for _ in range(cfg.enc_layers)]
-    dec = [DecLayer(init_attn_params(cfg, **kw), init_attn_params(cfg, **kw),
-                    init_mlp_params(cfg, **kw), zeros(), zeros(), zeros())
-           for _ in range(cfg.n_layers)]
-    return EncDec(embed_init((V, D), **kw), enc, dec, zeros(), zeros(),
-                  dense_init((D, V), D, **kw),
-                  dense_init((D, D), D, **kw)).requires_grad_(trainable)
-
-
-def _proj_qkv(h: torch.Tensor, p: AttnParams, cfg: ModelConfig,
-              positions: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self attention's q, k, v, RoPE at ``positions`` on q and k."""
-    B, S, _ = h.shape
-    q = (h @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (h @ p.wk).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (h @ p.wv).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    enc = [_kept(init_dense_layer(cfg, **kw), f"enc_layers.{i}", keep)
+           for i in range(cfg.enc_layers)]
+    dec = [_kept(DecLayer(init_attn_params(cfg, **kw),
+                          init_attn_params(cfg, **kw),
+                          init_mlp_params(cfg, **kw), zeros(), zeros(),
+                          zeros()), f"dec_layers.{i}", keep)
+           for i in range(cfg.n_layers)]
+    embed = keep("embed", embed_init((V, D), **kw))
+    enc_norm, final_norm = keep("enc_norm", zeros()), keep("final_norm",
+                                                           zeros())
+    lm_head = keep("lm_head", dense_init((D, V), D, **kw))
+    frame_proj = keep("frame_proj", dense_init((D, D), D, **kw))
+    return EncDec(embed, enc, dec, enc_norm, final_norm, lm_head,
+                  frame_proj).requires_grad_(trainable)
 
 
 def _enc_layer(h, lp: DenseLayer, cfg, ctx, positions):
-    B, S, _ = h.shape
-    q, k, v = _proj_qkv(rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg,
-                        positions)
-    out = attention(q, k, v, q_pos=positions, k_pos=positions, causal=False,
-                    impl=ctx.impl)
-    h = h + out.reshape(B, S, cfg.q_dim) @ lp.attn.wo
-    h2 = rms_norm(h, lp.ln2, cfg.norm_eps)
-    return h + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+    return dense_layer_apply(h, lp, cfg, ctx, positions=positions,
+                             causal=False, prefix="enc_layers")
 
 
 def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
            ctx: ShardCtx) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states (B, S_enc,
     D) bf16."""
-    x = frames.to(torch.bfloat16) @ params.frame_proj
+    w = _weight(params, "frame_proj", ctx)
+    # bf16 frames; with f32 weights promoted to f32, as JAX promotes them
+    x = frames.to(torch.bfloat16).to(w.dtype) @ w
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    body = _remat(_enc_layer, cfg.remat)
+    body = _remat(_enc_layer, _layer_remat(cfg, ctx, "enc_layers/"))
     for lp in params.enc_layers:
         x = body(x, lp, cfg, ctx, positions)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
-def _dec_layer(h, lp: DecLayer, cfg, ctx, positions, enc_out, enc_positions):
-    B, S, _ = h.shape
-    S_enc = enc_out.shape[1]
-    q, k, v = _proj_qkv(rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg,
-                        positions)
-    out = attention(q, k, v, q_pos=positions, k_pos=positions, causal=True,
-                    impl=ctx.impl)
-    h = h + out.reshape(B, S, cfg.q_dim) @ lp.attn.wo
-    # cross attention (no RoPE: the encoder memory is position-agnostic);
-    # query and key lengths differ, so it takes the plain path
-    hc = rms_norm(h, lp.ln2, cfg.norm_eps)
-    qc = (hc @ lp.cross.wq).reshape(B, S, cfg.n_heads, cfg.hd)
-    kc = (enc_out @ lp.cross.wk).reshape(B, S_enc, cfg.n_kv_heads, cfg.hd)
-    vc = (enc_out @ lp.cross.wv).reshape(B, S_enc, cfg.n_kv_heads, cfg.hd)
+def _cross_block(hc: torch.Tensor, enc_out: torch.Tensor, p: AttnParams,
+                 cfg: ModelConfig, ctx: ShardCtx, positions: torch.Tensor,
+                 enc_positions: torch.Tensor) -> torch.Tensor:
+    """Cross attention (no RoPE: the encoder memory is position-agnostic)
+    of the normed decoder states ``hc`` over ``enc_out``, over the rank's
+    heads (``ctx.heads``; ``enc_out`` has entered the region already).
+    Query and key lengths differ, so it takes the plain path."""
+    B, S, _ = hc.shape
+    hp = ctx.heads(cfg)
+    hc = ctx.enter(hc, hp.q_split)
+    wk, wv = (ctx.enter(w, hp.kv is not None) for w in (p.wk, p.wv))
+    qc = (hc @ p.wq).reshape(B, S, hp.hq, cfg.hd)
+    kc = hp.take_kv((enc_out @ wk).reshape(B, enc_out.shape[1], -1, cfg.hd))
+    vc = hp.take_kv((enc_out @ wv).reshape(B, enc_out.shape[1], -1, cfg.hd))
     out = attention(qc, kc, vc, q_pos=positions, k_pos=enc_positions,
                     causal=False, impl="ref")
-    h = h + out.reshape(B, S, cfg.q_dim) @ lp.cross.wo
-    h2 = rms_norm(h, lp.ln3, cfg.norm_eps)
-    return h + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+    return ctx.model_sum(out.reshape(B, S, hp.hq * cfg.hd) @ p.wo,
+                         hp.q_split)
+
+
+def _dec_layer(h, lp: DecLayer, cfg, ctx, positions, enc_out, enc_positions):
+    lp = ctx.gathered(lp, "dec_layers")
+    attn_out, _, _ = self_attention_block(
+        rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg, ctx,
+        q_pos=positions, k_pos=positions)
+    h = h + attn_out
+    h = h + _cross_block(rms_norm(h, lp.ln2, cfg.norm_eps), enc_out,
+                         lp.cross, cfg, ctx, positions, enc_positions)
+    return h + mlp_apply(rms_norm(h, lp.ln3, cfg.norm_eps), lp.mlp, cfg, ctx)
 
 
 def _decoder_stack(params: EncDec, cfg: ModelConfig, x: torch.Tensor,
                    enc_out: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The decoder layers over ``x``; every layer's cross K/V read the
+    rank's heads of ``enc_out``, which enters the region once."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     enc_positions = torch.arange(enc_out.shape[1], dtype=torch.int32,
                                  device=x.device)
-    body = _remat(_dec_layer, cfg.remat)
+    enc_out = ctx.enter(enc_out, ctx.heads(cfg).q_split)
+    body = _remat(_dec_layer, _layer_remat(cfg, ctx, "dec_layers/"))
     for lp in params.dec_layers:
         x = body(x, lp, cfg, ctx, positions, enc_out, enc_positions)
     return x
 
 
+def _dec_hidden(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
+                dec_tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The teacher-forced forward up to the final norm: (B, S_dec, D)."""
+    enc_out = encode(params, cfg, frames, ctx)
+    x = _embed(params, cfg, dec_tokens, ctx)
+    return _decoder_stack(params, cfg, x, enc_out, ctx)
+
+
 def forward_encdec(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
                    dec_tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    """Teacher-forced forward: (B, S_dec, V) logits."""
-    enc_out = encode(params, cfg, frames, ctx)
-    x = params.embed[dec_tokens.long()]
-    x = _decoder_stack(params, cfg, x, enc_out, ctx)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head
+    """Teacher-forced forward: (B, S_dec, V) logits (on a mesh, the whole
+    vocab's on every model rank)."""
+    return _logits(params, cfg,
+                   _dec_hidden(params, cfg, frames, dec_tokens, ctx), ctx)
 
 
 def encdec_loss(params: EncDec, cfg: ModelConfig, batch: dict,
                 ctx: ShardCtx) -> tuple[torch.Tensor, dict]:
     """Token-mean cross entropy of ``labels`` given ``frames`` and the
-    decoder's ``tokens``, and the aux dict ``{"ce": ce}``."""
+    decoder's ``tokens``, and the aux dict ``{"ce": ce}``; on a training
+    mesh the global token mean over the rank's rows and vocab columns
+    (``lm.mesh_ce``)."""
+    if ctx.training:
+        ce = mesh_ce(params, cfg, _dec_hidden(params, cfg, batch["frames"],
+                                              batch["tokens"], ctx),
+                     batch, ctx)
+        return ce, {"ce": ce}
     logits = forward_encdec(params, cfg, batch["frames"], batch["tokens"],
                             ctx)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
@@ -185,17 +220,22 @@ def encdec_loss(params: EncDec, cfg: ModelConfig, batch: dict,
 
 
 @torch.no_grad()
-def cross_kv(params: EncDec, cfg: ModelConfig, enc_out: torch.Tensor
+def cross_kv(params: EncDec, cfg: ModelConfig, enc_out: torch.Tensor,
+             ctx: Optional[ShardCtx] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross K/V from the encoder states, computed
-    once per request: (L, B, S_enc, Hkv, hd) bf16 x 2."""
+    once per request: (L, B, S_enc, Hkv, hd) bf16 x 2, on a mesh (``ctx``)
+    the rank's KV heads (``ctx.heads``)."""
     B, S_enc, _ = enc_out.shape
-    shape = (cfg.n_layers, B, S_enc, cfg.n_kv_heads, cfg.hd)
+    hp = (ctx or ShardCtx()).heads(cfg)
+    shape = (cfg.n_layers, B, S_enc, hp.hkv, cfg.hd)
     kc = torch.empty(shape, dtype=torch.bfloat16, device=enc_out.device)
     vc = torch.empty_like(kc)
     for i, lp in enumerate(params.dec_layers):
-        kc[i] = (enc_out @ lp.cross.wk).reshape(shape[1:])
-        vc[i] = (enc_out @ lp.cross.wv).reshape(shape[1:])
+        kc[i] = hp.take_kv((enc_out @ lp.cross.wk).reshape(
+            B, S_enc, -1, cfg.hd))
+        vc[i] = hp.take_kv((enc_out @ lp.cross.wv).reshape(
+            B, S_enc, -1, cfg.hd))
     return kc, vc
 
 
@@ -203,10 +243,12 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       enc_len: int, ctx: Optional[ShardCtx] = None, *,
                       device: torch.device | str) -> dict:
     """Decode cache: the self K/V (L, B, max_len, Hkv, hd) bf16, the cross
-    K/V (L, B, enc_len, Hkv, hd) bf16 and the host-side clock ``pos``."""
+    K/V (L, B, enc_len, Hkv, hd) bf16 and the host-side clock ``pos``; on
+    a mesh B is the rank's rows and Hkv its KV heads (``ctx.heads``)."""
     L = cfg.n_layers
-    kv = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    ckv = (L, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+    hkv = (ctx or ShardCtx()).heads(cfg).hkv
+    kv = (L, batch, max_len, hkv, cfg.hd)
+    ckv = (L, batch, enc_len, hkv, cfg.hd)
     zeros = lambda shape: torch.zeros(shape, dtype=torch.bfloat16,
                                       device=device)
     return {"pos": 0, "k": zeros(kv), "v": zeros(kv),
@@ -217,10 +259,12 @@ def _cross_decode(h: torch.Tensor, lp: DecLayer, cfg: ModelConfig,
                   ctx: ShardCtx, ck: torch.Tensor, cv: torch.Tensor,
                   q_pos: torch.Tensor, enc_positions: torch.Tensor
                   ) -> torch.Tensor:
-    """One decoder token's cross attention over every encoder slot."""
+    """One decoder token's cross attention over every encoder slot, over
+    the rank's heads (its cross K/V's)."""
     B = h.shape[0]
+    hp = ctx.heads(cfg)
     hc = rms_norm(h, lp.ln2, cfg.norm_eps)
-    qc = (hc @ lp.cross.wq).reshape(B, 1, cfg.n_heads, cfg.hd)
+    qc = (hc @ lp.cross.wq).reshape(B, 1, hp.hq, cfg.hd)
     if ctx.impl == "cuda":
         from repro_torch.kernels import ops as kops
         # the kernel keeps k_pos <= q_pos: a query at the last encoder
@@ -230,7 +274,8 @@ def _cross_decode(h: torch.Tensor, lp: DecLayer, cfg: ModelConfig,
     else:
         out = attention(qc, ck, cv, q_pos=q_pos, k_pos=enc_positions,
                         causal=False, impl="ref")
-    return h + out.reshape(B, 1, cfg.q_dim) @ lp.cross.wo
+    return h + ctx.model_sum(out.reshape(B, 1, hp.hq * cfg.hd) @ lp.cross.wo,
+                             hp.q_split)
 
 
 @torch.no_grad()
@@ -245,7 +290,7 @@ def encdec_decode_step(params: EncDec, cfg: ModelConfig, cache: dict,
     if pos >= s_self:
         raise ValueError(f"decode position {pos} is past the cache "
                          f"({s_self} slots)")
-    x = params.embed[tokens.long()]
+    x = _embed(params, cfg, tokens, ctx)
     dev = x.device
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
     k_pos = cache_positions_full(s_self, pos, dev)
@@ -258,11 +303,10 @@ def encdec_decode_step(params: EncDec, cfg: ModelConfig, cache: dict,
                                      angles)
         x = _cross_decode(x, lp, cfg, ctx, cache["cross_k"][i],
                           cache["cross_v"][i], q_pos, enc_positions)
-        h2 = rms_norm(x, lp.ln3, cfg.norm_eps)
-        x = x + ffn_lib.swiglu(h2, lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down)
+        x = x + mlp_apply(rms_norm(x, lp.ln3, cfg.norm_eps), lp.mlp, cfg,
+                          ctx)
     cache["pos"] = pos + 1
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, cache
+    return _logits(params, cfg, x, ctx), cache
 
 
 @torch.no_grad()
@@ -275,6 +319,6 @@ def prefill_encdec(params: EncDec, cfg: ModelConfig, batch: dict,
     enc_out = encode(params, cfg, batch["frames"], ctx)
     cache = init_encdec_cache(cfg, enc_out.shape[0], max_len, 0, ctx,
                               device=enc_out.device)
-    cache["cross_k"], cache["cross_v"] = cross_kv(params, cfg, enc_out)
+    cache["cross_k"], cache["cross_v"] = cross_kv(params, cfg, enc_out, ctx)
     return encdec_decode_step(params, cfg, cache, batch["tokens"][:, :1],
                               ctx)

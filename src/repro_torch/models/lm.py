@@ -36,13 +36,17 @@ its part of the weights (``models/blocks.py``): the embedding's vocab rows
 columns (the logits gathered over the model axis, so every model rank
 ends with the same whole logits), the attention heads of
 ``ctx.heads(cfg)`` and a cache of just those heads; a VLM's projector
-column- then row-parallel (:func:`_project`).  The dense, MoE and VLM
-families run there; the SSM, hybrid and enc-dec families raise on a mesh
-whose model axis is larger than 1 (ROADMAP queue 1).
+column- then row-parallel (:func:`_project`); a Mamba2 layer's share of
+the SSD heads (``models/ssm.py``: ``sharding.rank_spec``'s head-wise
+layout) and a state of just those heads; the hybrid's shared block at the
+rank's attention heads, its rings holding them.  Every family runs there
+(the enc-dec in ``models/encdec.py``, through this module's embedding,
+logits and loss).
 
-On a training mesh (``ctx.training``) the same three families train: the
+On a training mesh (``ctx.training``) every family trains: the
 forward carries gradients through its collectives (``models/blocks.py``;
-the MoE's exchanges, ``models/ffn.py``),
+the MoE's exchanges, ``models/ffn.py``; the Mamba2 block's, ``models/
+ssm.py``),
 each layer's weights gathered over the data axis as it is reached (the
 layer recomputed in its backward, so the gathered weights are never
 kept, whatever ``cfg.remat`` says), and :func:`lm_loss` is the global
@@ -53,7 +57,8 @@ function as the cross entropy of the gathered logits without gathering
 them.  The masked sum and the token count are each summed over the data
 axes before the division; the MoE's load-balance and router z terms are
 added as ``lm_loss`` adds them, and a VLM scores its text tail alone.
-The other families on a training mesh raise (ROADMAP queue 1).
+The hybrid's shared block is gathered at each of its sites, and its
+gradients from every site add up, as on one device.
 
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
@@ -70,24 +75,20 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from . import ffn as ffn_lib
 from .attention import (attention, cache_positions_full, cache_positions_ring,
                         cache_update_full, cache_update_ring)
 from . import ssm as ssm_lib
 from .blocks import (DenseLayer, MambaLayer, MoeLayer, ShardCtx, _param,
                      dense_layer_apply, ffn_apply, init_dense_layer,
-                     init_mamba_layer, init_moe_layer, moe_layer_apply,
-                     self_attention_block)
+                     init_mamba_layer, init_moe_layer, mlp_apply,
+                     moe_layer_apply, self_attention_block)
 from .common import (cross_entropy_loss, cross_entropy_sums, dense_init,
-                     embed_init, log_partition_and_gold, rms_norm,
-                     rope_angles, rotate)
+                     embed_init, log_partition_and_gold, matmul_f32_reduced,
+                     rms_norm, rope_angles, rotate)
 from .config import ModelConfig
 
 #: families this module runs (the enc-dec family is ``models/encdec.py``)
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-#: families that run on a mesh whose model axis is larger than 1, and
-#: train on a mesh
-MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 class Projector(nn.Module):
@@ -121,25 +122,12 @@ class LM(nn.Module):
         self.projector = projector
 
 
-def _check_family(cfg: ModelConfig, ctx: Optional[ShardCtx] = None) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not a decoder of this "
             f"module (it runs {PORTED_FAMILIES}; the enc-dec family is "
             f"models/encdec.py)")
-    if (ctx is not None and ctx.mesh is not None
-            and ctx.mesh.shape[ctx.model_axis] > 1
-            and cfg.family not in MESH_FAMILIES):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a mesh whose model "
-            f"axis is larger than 1 waits (ROADMAP queue 1); a mesh runs "
-            f"{MESH_FAMILIES}")
-    if (ctx is not None and ctx.training and ctx.mesh.size > 1
-            and cfg.family not in MESH_FAMILIES):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family on a mesh waits "
-            f"(ROADMAP queue 1: the other families on a mesh); a training "
-            f"mesh runs {MESH_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +314,14 @@ def _moe_layer(x, lp, cfg, ctx, positions, window):
 
 
 def _mamba_layer(x, lp, cfg, ctx, positions, window):
+    lp = ctx.gathered(lp, "layers")
     h = rms_norm(x, lp.ln, cfg.norm_eps)
-    return x + ssm_lib.mamba_block_train(h, lp, cfg, impl=ctx.impl)
+    return x + ssm_lib.mamba_block_train(h, lp, cfg, impl=ctx.impl, ctx=ctx)
+
+
+def _shared_layer(x, sp, cfg, ctx, positions, window):
+    return dense_layer_apply(x, sp, cfg, ctx, positions=positions,
+                             window=window, prefix="shared_attn")
 
 
 def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
@@ -341,14 +335,15 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x, ctx), lb, z
 
 
-def _layer_remat(cfg: ModelConfig, ctx: ShardCtx) -> str:
-    """``cfg.remat``, but ``"full"`` where the layers' weights are gathered
-    over the data axis on a training mesh: the gathered weights are then
-    recomputed in the backward pass, never kept."""
+def _layer_remat(cfg: ModelConfig, ctx: ShardCtx,
+                 prefix: str = "layers/") -> str:
+    """``cfg.remat``, but ``"full"`` where the weights under ``prefix`` are
+    gathered over the data axis on a training mesh: the gathered weights
+    are then recomputed in the backward pass, never kept."""
+    from repro_torch.parallel.sharding import spec_axes
     if ctx.training and any(
-            any(a is not None and a != ctx.model_axis for a in spec)
-            for path, spec in ctx.specs.items()
-            if path.startswith("layers/")):
+            set(spec_axes(spec)) - {ctx.model_axis}
+            for path, spec in ctx.specs.items() if path.startswith(prefix)):
         return "full"
     return cfg.remat
 
@@ -358,7 +353,7 @@ def _hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward up to the final norm: (x (B, S, D), load-balance loss,
     router z-loss)."""
-    _check_family(cfg, ctx)
+    _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -383,12 +378,12 @@ def _hybrid_forward(params: LM, cfg: ModelConfig, x: torch.Tensor,
                     ctx: ShardCtx, positions: torch.Tensor) -> torch.Tensor:
     """Zamba2: Mamba segments, the shared attention block (same weights,
     window ``cfg.window``) after each."""
-    body = _remat(_mamba_layer, cfg.remat)
+    body = _remat(_mamba_layer, _layer_remat(cfg, ctx))
+    shared = _remat(_shared_layer, _layer_remat(cfg, ctx, "shared_attn/"))
     for lo, hi in _sites(cfg):
         for lp in params.layers[lo:hi]:
             x = body(x, lp, cfg, ctx, positions, 0)
-        x = dense_layer_apply(x, params.shared_attn, cfg, ctx,
-                              positions=positions, window=cfg.window)
+        x = shared(x, params.shared_attn, cfg, ctx, positions, cfg.window)
     return x
 
 
@@ -424,15 +419,33 @@ def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     data axes before the division; an MoE config adds its load-balance
     and router z terms, already global means (``ffn.moe_ep`` /
     ``moe_tp``)."""
-    from repro_torch.parallel import collectives as coll
     x, lb, z = _hidden(params, cfg, batch["tokens"], ctx,
                        batch.get("extra_embeds"))
     if cfg.frontend:
         x = x[:, -batch["labels"].shape[1]:]
+    ce = mesh_ce(params, cfg, x, batch, ctx)
+    total = ce
+    if cfg.moe:
+        total = (total + cfg.moe.load_balance_coef * lb
+                 + cfg.moe.router_z_coef * z)
+    return total, {"ce": ce, "load_balance": lb, "router_z": z}
+
+
+def mesh_ce(params, cfg: ModelConfig, x: torch.Tensor, batch: dict,
+            ctx: ShardCtx) -> torch.Tensor:
+    """The global token-mean cross entropy of ``batch["labels"]`` (masked
+    by its ``loss_mask``) given the hidden states ``x`` before the final
+    norm, on a training mesh: vocab-parallel where the rank holds a share
+    of the head's vocab columns (its GEMMs reducing in f32:
+    ``common.matmul_f32_reduced``), the masked sum and token count summed
+    over the data axes before the division (module docstring).  ``params``
+    holds ``final_norm`` and the head (a decoder's, or the enc-dec's)."""
+    from repro_torch.parallel import collectives as coll
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = _head(params, cfg, ctx)
     split = head.shape[-1] < cfg.vocab
-    logits = (ctx.enter(x, split) @ head).float()
+    logits = (matmul_f32_reduced(ctx.enter(x, True), head) if split
+              else x @ head).float()
     labels = batch["labels"].long()
     if split:
         mesh, ax = ctx.mesh, ctx.model_axis
@@ -449,12 +462,7 @@ def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     total, count = cross_entropy_sums(lse, gold, batch.get("loss_mask"))
     sums = coll.leave_region(torch.stack([total, count]), ctx.mesh,
                              ctx.batch_axes)
-    ce = sums[0] / torch.clamp(sums[1], min=1.0)
-    total = ce
-    if cfg.moe:
-        total = (total + cfg.moe.load_balance_coef * lb
-                 + cfg.moe.router_z_coef * z)
-    return total, {"ce": ce, "load_balance": lb, "router_z": z}
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +481,7 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     hybrid prompt must be a whole number of SSD chunks long, as the
     reference asks.  A VLM's prompt is its ``frontend_len`` projected
     ``extra_embeds`` and then the tokens: ``max_len`` must hold both."""
-    _check_family(cfg, ctx)
+    _check_family(cfg)
     x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
     B, S, _ = x.shape
     if S > max_len:
@@ -485,6 +493,13 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(
                 f"{cfg.name}: a prompt of {S} tokens is not a multiple of "
                 f"the SSD chunk ({cfg.ssm.chunk}); pad or cut the prompt")
+        # the JAX package's decode appends each step's conv input in the
+        # activations' dtype to the bf16 window, which promotes: an f32
+        # model's window keeps its decode entries in f32 (a bf16 one's
+        # stays bf16)
+        conv = cache["mamba"].conv
+        cache["mamba"] = cache["mamba"]._replace(conv=conv.to(
+            torch.promote_types(conv.dtype, x.dtype)))
         sites = _sites(cfg) if cfg.family == "hybrid" else [
             (0, cfg.n_layers)]
         for site, (lo, hi) in enumerate(sites):
@@ -523,7 +538,7 @@ def _mamba_prefill(x, lp: MambaLayer, cfg, ctx, mamba, i: int):
     state go into the cache."""
     hn = rms_norm(x, lp.ln, cfg.norm_eps)
     y, st = ssm_lib.mamba_block_train(hn, lp, cfg, impl=ctx.impl,
-                                      return_state=True)
+                                      return_state=True, ctx=ctx)
     mamba.conv[i] = st.conv
     mamba.ssm[i] = st.ssm
     return x + y
@@ -540,8 +555,7 @@ def _shared_prefill(x, sp: DenseLayer, cfg, ctx, positions, cache,
         hn, sp.attn, cfg, ctx, q_pos=positions, k_pos=positions,
         window=cfg.window)
     x = x + attn_out
-    h2 = rms_norm(x, sp.ln2, cfg.norm_eps)
-    x = x + ffn_lib.swiglu(h2, sp.mlp.w_gate, sp.mlp.w_up, sp.mlp.w_down)
+    x = x + mlp_apply(rms_norm(x, sp.ln2, cfg.norm_eps), sp.mlp, cfg, ctx)
     slots = cache["shared_k"].shape[2]
     if cfg.window > 0:
         cache["shared_k"][site] = _ring_pack(k_new, slots)
@@ -575,12 +589,16 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache: stacked bf16 K/V (L, B, S_cache, Hkv, hd), or for the
     SSM and hybrid families a ``MambaState`` stacked over layers (and the
     hybrid's shared K/V, (n_sites, B, S_cache, Hkv, hd) bf16), and the
-    host-side clock ``pos``.  On a mesh ``batch`` is the rank's rows and
-    Hkv the KV heads of ``ctx.heads(cfg)``: the rank allocates its share."""
-    _check_family(cfg, ctx)
+    host-side clock ``pos``.  On a mesh ``batch`` is the rank's rows, Hkv
+    the KV heads of ``ctx.heads(cfg)`` and the states those of its SSD
+    heads (``ctx.ssm_heads(cfg)``): the rank allocates its share."""
+    _check_family(cfg)
     cache: dict[str, Any] = {"pos": 0}
+    hkv = ctx.heads(cfg).hkv if ctx is not None else cfg.n_kv_heads
     if cfg.family in ("ssm", "hybrid"):
-        st = ssm_lib.init_mamba_state(cfg, batch, device=device)
+        st = ssm_lib.init_mamba_state(
+            cfg, batch, device=device,
+            heads=ctx.ssm_heads(cfg) if ctx is not None else None)
         L = cfg.n_layers
         cache["mamba"] = ssm_lib.MambaState(
             conv=torch.zeros((L,) + st.conv.shape, dtype=st.conv.dtype,
@@ -589,14 +607,13 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                             device=device))
         if cfg.family == "hybrid":
             s = min(cfg.window, max_len) if cfg.window > 0 else max_len
-            shape = (len(_sites(cfg)), batch, s, cfg.n_kv_heads, cfg.hd)
+            shape = (len(_sites(cfg)), batch, s, hkv, cfg.hd)
             cache["shared_k"] = torch.zeros(shape, dtype=torch.bfloat16,
                                             device=device)
             cache["shared_v"] = torch.zeros(shape, dtype=torch.bfloat16,
                                             device=device)
         return cache
     s = _attn_cache_len(cfg, max_len)
-    hkv = ctx.heads(cfg).hkv if ctx is not None else cfg.n_kv_heads
     shape = (cfg.n_layers, batch, s, hkv, cfg.hd)
     cache["k"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     cache["v"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
@@ -641,11 +658,11 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     (B, 1, V), cache) — the same cache, written in place, its clock
     advanced."""
     pos = cache["pos"]
-    _check_family(cfg, ctx)
+    _check_family(cfg)
     x = _embed(params, cfg, tokens, ctx)   # a VLM's frontend is prefill's only
     if cfg.family == "ssm":
         for i, lp in enumerate(params.layers):
-            x = _mamba_decode(x, lp, cfg, cache["mamba"], i)
+            x = _mamba_decode(x, lp, cfg, cache["mamba"], i, ctx)
         cache["pos"] = pos + 1
         return _logits(params, cfg, x, ctx), cache
     if cfg.family == "hybrid":
@@ -674,11 +691,11 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: dict,
     return _logits(params, cfg, x, ctx), cache
 
 
-def _mamba_decode(x, lp: MambaLayer, cfg, mamba, i: int):
+def _mamba_decode(x, lp: MambaLayer, cfg, mamba, i: int, ctx: ShardCtx):
     """One step through Mamba layer ``i``, its cache entries updated."""
     hn = rms_norm(x, lp.ln, cfg.norm_eps)
     y, st = ssm_lib.mamba_block_decode(
-        hn, lp, cfg, ssm_lib.MambaState(mamba.conv[i], mamba.ssm[i]))
+        hn, lp, cfg, ssm_lib.MambaState(mamba.conv[i], mamba.ssm[i]), ctx)
     mamba.conv[i] = st.conv
     mamba.ssm[i] = st.ssm
     return x + y
@@ -704,10 +721,10 @@ def _hybrid_decode(params: LM, cfg: ModelConfig, cache: dict,
     sp = params.shared_attn
     for site, (lo, hi) in enumerate(_sites(cfg)):
         for i in range(lo, hi):
-            x = _mamba_decode(x, params.layers[i], cfg, cache["mamba"], i)
+            x = _mamba_decode(x, params.layers[i], cfg, cache["mamba"], i,
+                              ctx)
         x, _, _ = _decode_attn_block(x, sp, cfg, ctx, cache["shared_k"][site],
                                      cache["shared_v"][site], pos,
                                      cfg.window, ring, q_pos, k_pos, angles)
-        h2 = rms_norm(x, sp.ln2, cfg.norm_eps)
-        x = x + ffn_lib.swiglu(h2, sp.mlp.w_gate, sp.mlp.w_up, sp.mlp.w_down)
+        x = x + mlp_apply(rms_norm(x, sp.ln2, cfg.norm_eps), sp.mlp, cfg, ctx)
     return x

@@ -17,6 +17,19 @@ launches the kernel or raises.
 
 Decode is O(1) in sequence length: one multiply-accumulate against the
 (H, P, N) state, plain PyTorch.
+
+On a mesh (``ctx``, a ``ShardCtx``) a rank computes its share of the SSD
+heads, the ones its weights hold (``sharding.rank_spec``'s head-wise
+layout: its heads' columns of z, x and dt and all of B and C in
+``in_proj``, its x channels and all of B and C in the conv, its heads of
+``A_log``, ``D``, ``dt_bias`` and ``norm_w`` and its rows of
+``out_proj``), against the whole B and C.  The gated norm's mean of
+squares spans all of d_inner, so the rank's sum of squares is summed over
+the model axis first, and the ``out_proj`` partial sums leave the region
+summed.  On a training mesh two more gradients are partial on each model
+rank and are summed over it: the sum of squares' (it enters the region
+before the sum leaves it), and that of the B and C columns of ``in_proj``
+and channels of the conv, which every rank's heads read.
 """
 
 from __future__ import annotations
@@ -34,18 +47,20 @@ class MambaState(NamedTuple):
     ssm: torch.Tensor       # (B, H, P, N) recurrent state (f32)
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, H: int):
+    """(z, x, B, C, dt) of the projection's columns, for ``H`` heads."""
     s = cfg.ssm
-    d_in = cfg.d_inner
+    d_in = H * s.head_dim
     gn = s.n_groups * s.d_state
-    return torch.split(zxbcdt, [d_in, d_in, gn, gn, cfg.ssm_heads], dim=-1)
+    return torch.split(zxbcdt, [d_in, d_in, gn, gn, H], dim=-1)
 
 
-def _xbc(cfg: ModelConfig, zxbcdt: torch.Tensor) -> torch.Tensor:
-    """The conv input (x, B, C): one contiguous run of the projection's
-    columns, so no concatenation is needed."""
-    d_in = cfg.d_inner
-    return zxbcdt[..., d_in:d_in + cfg.conv_dim]
+def _xbc(cfg: ModelConfig, zxbcdt: torch.Tensor, H: int) -> torch.Tensor:
+    """The conv input (x, B, C) of ``H`` heads: one contiguous run of the
+    projection's columns, so no concatenation is needed."""
+    s = cfg.ssm
+    d_in = H * s.head_dim
+    return zxbcdt[..., d_in:2 * d_in + 2 * s.n_groups * s.d_state]
 
 
 def _dt_activation(dt: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
@@ -53,11 +68,35 @@ def _dt_activation(dt: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    """Mamba2's gated RMSNorm: norm(y * silu(z)) * w."""
+                eps: float, d_inner: int, ctx=None) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(y * silu(z)) * w, the mean of squares
+    over all ``d_inner`` channels: where ``y`` holds a rank's share of
+    them, its sum of squares summed over the model axis (on a training
+    mesh its gradient too)."""
     y32 = y.float() * F.silu(z.float())
-    var = torch.mean(y32 * y32, dim=-1, keepdim=True)
+    if y.shape[-1] == d_inner:
+        var = torch.mean(y32 * y32, dim=-1, keepdim=True)
+    else:
+        sq = torch.sum(y32 * y32, dim=-1, keepdim=True)
+        var = ctx.model_sum(ctx.enter(sq, True), True) / d_inner
     return (y32 * torch.rsqrt(var + eps) * w.float()).to(y.dtype)
+
+
+def _rank_weights(p, cfg: ModelConfig, ctx, H: int):
+    """(in_proj, conv_w, conv_b) as the block uses them: on a training mesh
+    where ``p`` holds a share of the heads, the B and C columns (channels)
+    enter the model region, so their gradients, partial on each rank, are
+    summed over the model axis."""
+    w, cw, cb = p.in_proj, p.conv_w, p.conv_b
+    if ctx is None or not ctx.training or H == cfg.ssm_heads:
+        return w, cw, cb
+    d_in = H * cfg.ssm.head_dim
+    gn2 = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+
+    def enter(t, lo):
+        return torch.cat([t[..., :lo], ctx.enter(t[..., lo:lo + gn2], True),
+                          t[..., lo + gn2:]], dim=-1)
+    return enter(w, 2 * d_in), enter(cw, d_in), enter(cb, d_in)
 
 
 # ---------------------------------------------------------------------------
@@ -160,31 +199,39 @@ def ssd_decode_step(
 # ---------------------------------------------------------------------------
 
 
-def _conv(windows: torch.Tensor, p) -> torch.Tensor:
+def _conv(windows: torch.Tensor, conv_w: torch.Tensor,
+          conv_b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over the last conv_width steps, in f32.
     ``windows``: (..., W, C) -> silu(sum_w windows * conv_w + conv_b)."""
-    acc = (windows.float() * p.conv_w.float()).sum(dim=-2)
-    return F.silu(acc + p.conv_b.float())
+    acc = (windows.float() * conv_w.float()).sum(dim=-2)
+    return F.silu(acc + conv_b.float())
 
 
 def mamba_block_train(x: torch.Tensor, p, cfg: ModelConfig, *,
-                      impl: str = "ref", return_state: bool = False):
+                      impl: str = "ref", return_state: bool = False,
+                      ctx=None):
     """(B, S, D) -> (B, S, D)  [or (y, MambaState) with return_state].
     ``impl="cuda"`` runs the SSD scan through the hand-written kernel
-    (its plain version when the tensors lie on the CPU)."""
+    (its plain version when the tensors lie on the CPU).  On a mesh
+    (``ctx``) over the heads ``p`` holds (module docstring); the state
+    returned is the rank's."""
     s = cfg.ssm
     Bsz, S, D = x.shape
-    H, Pd, N, G, W = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups, \
+    H, Pd, N, G, W = p.A_log.shape[0], s.head_dim, s.d_state, s.n_groups, \
         s.conv_width
-    zxbcdt = x @ p.in_proj
-    z, _, _, _, dt = _split_proj(cfg, zxbcdt)
+    d_in, partial = H * Pd, H < cfg.ssm_heads
+    w_in, conv_w, conv_b = _rank_weights(p, cfg, ctx, H)
+    if partial:
+        x = ctx.enter(x, True)
+    zxbcdt = x @ w_in
+    z, _, _, _, dt = _split_proj(cfg, zxbcdt, H)
 
     # causal depthwise conv over (x, B, C)
-    xbc_raw = _xbc(cfg, zxbcdt)                               # (B,S,conv_dim)
+    xbc_raw = _xbc(cfg, zxbcdt, H)                            # (B,S,conv_dim)
     pad = F.pad(xbc_raw, (0, 0, W - 1, 0))
     windows = torch.stack([pad[:, i:i + S] for i in range(W)], dim=2)
-    xbc = _conv(windows, p).to(x.dtype)
-    xin, Bm, Cm = torch.split(xbc, [cfg.d_inner, G * N, G * N], dim=-1)
+    xbc = _conv(windows, conv_w, conv_b).to(x.dtype)
+    xin, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
 
     xh = xin.reshape(Bsz, S, H, Pd)
     Bg = Bm.reshape(Bsz, S, G, N)
@@ -198,9 +245,11 @@ def mamba_block_train(x: torch.Tensor, p, cfg: ModelConfig, *,
     else:
         y, final_state = ssd_chunked(xh, dtf, A, Bg, Cg, s.chunk)
     y = y + xh * p.D.to(x.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = _gated_norm(y, z, p.norm_w, cfg.norm_eps)
+    y = y.reshape(Bsz, S, d_in)
+    y = _gated_norm(y, z, p.norm_w, cfg.norm_eps, cfg.d_inner, ctx)
     out = y @ p.out_proj
+    if partial:
+        out = ctx.model_sum(out, True)
     if return_state:
         conv_state = xbc_raw[:, S - (W - 1):, :].to(torch.bfloat16)
         return out, MambaState(conv=conv_state, ssm=final_state)
@@ -208,20 +257,23 @@ def mamba_block_train(x: torch.Tensor, p, cfg: ModelConfig, *,
 
 
 def mamba_block_decode(x: torch.Tensor, p, cfg: ModelConfig,
-                       state: MambaState) -> tuple[torch.Tensor, MambaState]:
-    """(B, 1, D) one-token step with rolling conv + SSM state."""
+                       state: MambaState, ctx=None
+                       ) -> tuple[torch.Tensor, MambaState]:
+    """(B, 1, D) one-token step with rolling conv + SSM state; on a mesh
+    (``ctx``) over the heads ``p`` holds, against the rank's state."""
     s = cfg.ssm
     Bsz = x.shape[0]
-    H, Pd, N, G = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups
+    H, Pd, N, G = p.A_log.shape[0], s.head_dim, s.d_state, s.n_groups
+    d_in = H * Pd
     zxbcdt = (x @ p.in_proj)[:, 0]
-    z, _, _, _, dt = _split_proj(cfg, zxbcdt)
+    z, _, _, _, dt = _split_proj(cfg, zxbcdt, H)
 
-    xbc_new = _xbc(cfg, zxbcdt)                               # (B, conv_dim)
+    xbc_new = _xbc(cfg, zxbcdt, H)                            # (B, conv_dim)
     conv_in = torch.cat([state.conv, xbc_new[:, None, :]], dim=1)
-    xbc = _conv(conv_in, p).to(x.dtype)
+    xbc = _conv(conv_in, p.conv_w, p.conv_b).to(x.dtype)
     new_conv = conv_in[:, 1:, :]
 
-    xin, Bm, Cm = torch.split(xbc, [cfg.d_inner, G * N, G * N], dim=-1)
+    xin, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
     xh = xin.reshape(Bsz, H, Pd)
     Bg = Bm.reshape(Bsz, G, N)
     Cg = Cm.reshape(Bsz, G, N)
@@ -229,18 +281,26 @@ def mamba_block_decode(x: torch.Tensor, p, cfg: ModelConfig,
     A = -torch.exp(p.A_log.float())
     y, new_ssm = ssd_decode_step(xh, dtf, A, Bg, Cg, state.ssm)
     y = y + xh * p.D.to(x.dtype)[None, :, None]
-    y = y.reshape(Bsz, cfg.d_inner)
-    y = _gated_norm(y, z, p.norm_w, cfg.norm_eps)
+    y = y.reshape(Bsz, d_in)
+    y = _gated_norm(y, z, p.norm_w, cfg.norm_eps, cfg.d_inner, ctx)
     out = (y @ p.out_proj)[:, None, :]
+    if H < cfg.ssm_heads:
+        out = ctx.model_sum(out, True)
     return out, MambaState(conv=new_conv, ssm=new_ssm)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, *,
-                     device: torch.device | str) -> MambaState:
+                     device: torch.device | str, heads: Optional[int] = None
+                     ) -> MambaState:
+    """Zero states of ``heads`` SSD heads (default every head; on a mesh
+    the rank's, ``ShardCtx.ssm_heads``): the conv window (B, W - 1,
+    heads * P + 2 G N) and the SSM state (B, heads, P, N)."""
     s = cfg.ssm
+    H = cfg.ssm_heads if heads is None else heads
+    gn2 = 2 * s.n_groups * s.d_state
     return MambaState(
-        conv=torch.zeros((batch, s.conv_width - 1, cfg.conv_dim),
+        conv=torch.zeros((batch, s.conv_width - 1, H * s.head_dim + gn2),
                          dtype=torch.bfloat16, device=device),
-        ssm=torch.zeros((batch, cfg.ssm_heads, s.head_dim, s.d_state),
+        ssm=torch.zeros((batch, H, s.head_dim, s.d_state),
                         dtype=torch.float32, device=device),
     )

@@ -42,19 +42,23 @@ def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, *,
-                        mesh=None, split_axes=None
+                        mesh=None, split_axes=None, norm_weights=None
                         ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Grads in f32, scaled so their global norm is at most ``max_norm``;
     returns (grads, the norm before scaling).  On a ``mesh`` each grad is
     this rank's block of a leaf split over the axes ``split_axes[i]``
     names: its squares are summed over those axes only, so a leaf held
     whole on several ranks counts once and the norm is the whole
-    model's, the same on every rank."""
-    norm, scale = _clip_scale(grads, max_norm, mesh, split_axes)
+    model's, the same on every rank.  ``norm_weights[i]``, where not None,
+    weighs the leaf's squares elementwise before they are summed: a block
+    part of which every rank of its axes holds (a Mamba2 projection's B
+    and C columns) counts once at a weight of one over their number."""
+    norm, scale = _clip_scale(grads, max_norm, mesh, split_axes,
+                              norm_weights)
     return [g.float() * scale for g in grads], norm
 
 
-def _clip_scale(grads, max_norm: float, mesh, split_axes
+def _clip_scale(grads, max_norm: float, mesh, split_axes, norm_weights=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(the global norm of ``grads``, the factor that clips it to
     ``max_norm``): :func:`clip_by_global_norm` without the scaled copy."""
@@ -63,9 +67,11 @@ def _clip_scale(grads, max_norm: float, mesh, split_axes
     else:
         from repro_torch.parallel.collectives import psum
         groups: dict[tuple[str, ...], torch.Tensor] = {}
-        for g, axes in zip(grads, split_axes, strict=True):
+        weights = norm_weights or [None] * len(grads)
+        for g, axes, w in zip(grads, split_axes, weights, strict=True):
             key = tuple(a for a in mesh.axis_names if a in axes)
-            part = torch.sum(torch.square(g.float()))
+            sq_g = torch.square(g.float())
+            part = torch.sum(sq_g if w is None else sq_g * w)
             groups[key] = groups[key] + part if key in groups else part
         sq = sum(psum(groups[k], mesh, k) for k in sorted(groups))
     norm = torch.sqrt(sq)
@@ -87,15 +93,18 @@ def adamw_update(
     max_grad_norm: float = 1.0,
     mesh=None,
     split_axes=None,
+    norm_weights=None,
 ) -> tuple[list[torch.Tensor], AdamWState, dict]:
     """One AdamW step.  Returns (new params in the params' dtypes, new
     state, metrics); the inputs are left as they were.  On a ``mesh``
     every list holds this rank's blocks (``split_axes``: each leaf's split
-    axes, for the global norm); the update of a block is elementwise, so
+    axes, and ``norm_weights``, for the global norm:
+    :func:`clip_by_global_norm`); the update of a block is elementwise, so
     nothing else crosses ranks.  Each gradient is clipped as its leaf is
     updated (:func:`clip_by_global_norm`'s values), so no clipped copy of
     the whole gradient is held beside the old and the new state."""
-    gnorm, scale = _clip_scale(grads, max_grad_norm, mesh, split_axes)
+    gnorm, scale = _clip_scale(grads, max_grad_norm, mesh, split_axes,
+                               norm_weights)
     step = state.step + 1
     t = step.float()
     f32 = dict(dtype=torch.float32, device=t.device)

@@ -27,8 +27,11 @@ way (the JAX package's ``param_shardings(..., fsdp=)``), and with one
 change: a head is never split.  Where the table would cut the heads'
 ``H * hd`` dim at a point inside a head (``_fit`` checks only that
 ``H * hd`` divides), the rank holds that weight whole over the model axis
-and computes it whole, with the same values.  The AdamW master and
-moments take their parameter's spec.  A :class:`NamedSharding` (a mesh
+and computes it whole, with the same values.  A Mamba2 layer's weights
+take a head-wise layout (:class:`Segments`, :func:`rank_spec`) in place of
+the table's contiguous cuts, and an enc-dec's ``frame_proj`` is held whole
+over the model axis.  The AdamW master and moments take their parameter's
+spec.  A :class:`NamedSharding` (a mesh
 and a spec) is one leaf of a tree of shardings, as the JAX class of that
 name is (``load_checkpoint``'s ``shardings=``).
 """
@@ -45,6 +48,53 @@ from repro_torch.models.config import ModelConfig
 STACKED = ("layers", "enc_layers", "dec_layers")
 
 Spec = tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry for a dim made of consecutive segments (whole sizes
+    ``sizes``): the segments with ``split`` set are cut over ``axis``, rank
+    ``i`` holding block ``i`` of each, and the others are held whole on
+    every rank.  A rank's block of the dim is its share of each segment,
+    in segment order.  The head-wise layout of a Mamba2 projection: the
+    rank holds its heads' columns of z, x and dt, and all of B and C."""
+
+    axis: str
+    sizes: tuple[int, ...]
+    split: tuple[bool, ...]
+
+    def whole(self) -> int:
+        return sum(self.sizes)
+
+    def widths(self, n: int) -> list[int]:
+        """Each segment's width in one rank's block, over ``n`` ranks."""
+        for size, cut in zip(self.sizes, self.split):
+            if cut and size % n:
+                raise ValueError(f"segment {size} does not split over "
+                                 f"{self.axis} ({n})")
+        return [size // n if cut else size
+                for size, cut in zip(self.sizes, self.split)]
+
+    def index(self, i: int, n: int) -> list[int]:
+        """The positions in the whole dim of rank ``i``'s block."""
+        out, lo = [], 0
+        for size, cut, w in zip(self.sizes, self.split, self.widths(n)):
+            start = lo + (i * w if cut else 0)
+            out += range(start, start + w)
+            lo += size
+        return out
+
+    def join(self, blocks, dim: int):
+        """The whole dim from the ranks' blocks (in rank order) along
+        ``dim``: each split segment's blocks in rank order, each whole
+        segment rank 0's copy."""
+        import torch
+        pieces, lo = [], 0
+        for cut, w in zip(self.split, self.widths(len(blocks))):
+            pieces += [b.narrow(dim, lo, w) for b in
+                       (blocks if cut else blocks[:1])]
+            lo += w
+        return torch.cat(pieces, dim)
 
 
 def batch_axes_of(mesh) -> tuple[str, ...]:
@@ -209,9 +259,44 @@ def rank_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig, mesh,
     path = jax_path(name)
     spec = _spec_for(path, tuple(shape), cfg, mesh, fsdp=fsdp,
                      ep=_ep(cfg, mesh))
-    if _heads_whole(path, cfg, mesh):
+    leaf = path.split("/")[-1]
+    if _heads_whole(path, cfg, mesh) or leaf == "frame_proj":
         spec = tuple(None if a == "model" else a for a in spec)
+    if cfg.ssm is not None and leaf in _MAMBA_HEAD_LEAVES:
+        spec = _head_wise(leaf, spec, cfg, mesh)
     return spec
+
+
+#: a Mamba2 layer's weights that follow its SSD heads
+_MAMBA_HEAD_LEAVES = ("in_proj", "conv_w", "conv_b", "A_log", "D",
+                      "dt_bias", "norm_w", "out_proj")
+
+
+def _head_wise(leaf: str, spec: Spec, cfg: ModelConfig, mesh) -> Spec:
+    """A Mamba2 leaf's spec under the head-wise layout: the table's
+    ``"model"`` entries give way to the rank's heads.  ``in_proj``'s
+    columns are [z | x | B | C | dt] and ``conv_w`` / ``conv_b``'s channels
+    [x | B | C]: the rank holds its heads' columns of z, x and dt and all
+    of B and C (:class:`Segments`); ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_w`` split by head, ``out_proj``'s rows too.  Where the heads do
+    not divide the model axis the rank holds every head.  Data entries
+    stand."""
+    spec = [None if a == "model" else a for a in spec]
+    m = mesh.shape["model"]
+    if m == 1 or cfg.ssm_heads % m:
+        return tuple(spec)
+    di, gn, H = cfg.d_inner, 2 * cfg.ssm.n_groups * cfg.ssm.d_state, \
+        cfg.ssm_heads
+    if leaf == "in_proj":
+        spec[-1] = Segments("model", (di, di, gn, H),
+                            (True, True, False, True))
+    elif leaf in ("conv_w", "conv_b"):
+        spec[-1] = Segments("model", (di, gn), (True, False))
+    elif leaf == "out_proj":
+        spec[-2] = "model"
+    else:
+        spec[-1] = "model"
+    return tuple(spec)
 
 
 def spec_axes(spec: Spec) -> tuple[str, ...]:
@@ -219,6 +304,8 @@ def spec_axes(spec: Spec) -> tuple[str, ...]:
     them."""
     out: list[str] = []
     for a in spec:
+        if isinstance(a, Segments):
+            a = a.axis
         out += [] if a is None else [a] if isinstance(a, str) else list(a)
     return tuple(out)
 
@@ -236,13 +323,20 @@ class NamedSharding:
         return shard_slices(tuple(shape), self.spec, self.mesh)
 
 
-def shard_slices(shape: tuple[int, ...], spec: Spec, mesh
-                 ) -> tuple[slice, ...]:
-    """This rank's block of a tensor of ``shape`` under ``spec``."""
-    out = []
+def shard_slices(shape: tuple[int, ...], spec: Spec, mesh) -> tuple:
+    """This rank's block of a tensor of ``shape`` under ``spec``: a slice
+    per dim, or for a :class:`Segments` dim the list of its positions."""
+    out: list = []
     for dim, axis in zip(shape, tuple(spec) + (None,) * len(shape)):
         if axis is None:
             out.append(slice(None))
+            continue
+        if isinstance(axis, Segments):
+            if dim != axis.whole():
+                raise ValueError(f"dim {dim} is not the segments' "
+                                 f"{axis.whole()}")
+            out.append(axis.index(mesh.axis_index(axis.axis),
+                                  mesh.axis_size(axis.axis)))
             continue
         n = mesh.axis_size(axis)
         if dim % n:
@@ -259,13 +353,44 @@ def unshard(t, spec: Spec, mesh):
     split dim's axes.  Every rank of ``mesh`` calls it (collectives)."""
     from repro_torch.parallel.collectives import all_gather
     for dim, axis in enumerate(spec):
-        if axis is not None:
+        if isinstance(axis, Segments):
+            n = mesh.axis_size(axis.axis)
+            t = axis.join(all_gather(t, mesh, axis.axis, dim).chunk(n, dim),
+                          dim)
+        elif axis is not None:
             t = all_gather(t, mesh, axis, dim)
     return t
 
 
+def norm_weight(spec: Spec, mesh, device=None):
+    """The weights of a block's squared entries in the global gradient
+    norm (``optim.adamw.clip_by_global_norm``'s ``norm_weights``): None
+    unless a dim is a :class:`Segments` one, whose whole segments, held
+    alike by every rank of its axis, weigh one over that axis's size
+    there, so that their sum over the axis counts them once."""
+    import torch
+    for dim, a in enumerate(spec):
+        if isinstance(a, Segments):
+            n = mesh.axis_size(a.axis)
+            w = torch.cat([torch.full((width,), 1.0 if cut else 1.0 / n,
+                                      device=device)
+                           for cut, width in zip(a.split, a.widths(n))])
+            return w.reshape((-1,) + (1,) * (len(spec) - 1 - dim))
+    return None
+
+
+def whole_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple:
+    """The whole tensor's shape of which a block of ``shape`` is a rank's
+    under ``spec``."""
+    return tuple(a.whole() if isinstance(a, Segments) else
+                 n * mesh.axis_size(a) if a is not None else n
+                 for n, a in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
 def shard_tensor(full, spec: Spec, mesh):
-    """This rank's contiguous block of ``full`` (a tensor or an array) under
-    ``spec``: along each sharded dim, block ``i`` of ``n``, where ``i`` is
-    the rank's index along the dim's axes.  A view where ``full`` allows."""
+    """This rank's block of ``full`` (a tensor or an array) under ``spec``:
+    along each sharded dim, block ``i`` of ``n``, where ``i`` is the rank's
+    index along the dim's axes (of each split segment of a
+    :class:`Segments` dim).  A view where ``full`` allows: not with
+    segments, which copy."""
     return full[shard_slices(tuple(full.shape), spec, mesh)]

@@ -16,8 +16,9 @@ encdec.EncDec`) stacks two layer lists, ``enc_layers`` (dense layers) and
 ``embed``, ``enc_norm``, ``final_norm``, ``lm_head`` and ``frame_proj``.
 
 :func:`shard_params` gives one rank of a serving mesh its shards, from
-such a tree or from a whole ``LM``; :func:`init_sharded` draws them from a
-seed as ``ModelApi.init`` does, holding no more than one layer whole.
+such a tree or from a whole ``LM`` or ``EncDec``; :func:`init_sharded`
+draws them from a seed as ``ModelApi.init`` does, holding no more than one
+layer whole.
 Given a ``CodesignPlan`` both cut a training mesh's blocks instead
 (``sharding.rank_spec``: FSDP's data entries where the plan asks for
 them).
@@ -180,18 +181,18 @@ def _shard_leaf(name: str, a, cfg: ModelConfig, mesh, plan=None):
 
 def shard_params(src: Any, cfg: ModelConfig, mesh, *,
                  device: torch.device | str | None = None, plan=None,
-                 trainable: bool = False) -> LM:
-    """This rank's ``LM``: every parameter cut to the block
+                 trainable: bool = False) -> LM | EncDec:
+    """This rank's ``LM`` (or ``EncDec``): every parameter cut to the block
     :func:`param_spec` gives the rank (a serving mesh's without a plan, a
     training mesh's under ``plan``).  ``src`` is the JAX model's parameter
     tree (numpy leaves: each leaf is cut first, then built on ``device``
-    by :func:`from_jax_params`), or a whole ``LM``, whose tensors the
-    result views (no copy).  ``trainable`` shards require gradients."""
-    if isinstance(src, LM):
+    by :func:`from_jax_params`), or a whole model, whose tensors the
+    result views (no copy; a head-wise Mamba2 leaf is copied,
+    ``sharding.shard_tensor``).  ``trainable`` shards require gradients."""
+    if isinstance(src, (LM, EncDec)):
         memo = {id(p): _param(_shard_leaf(n, p.data, cfg, mesh, plan))
                 for n, p in src.named_parameters()}
         return copy.deepcopy(src, memo).requires_grad_(trainable)
-    _check_family(cfg)
     return from_jax_params(unflatten(src, [
         _shard_leaf(path, np.asarray(a), cfg, mesh, plan)
         for path, a in flatten_with_paths(src)]), cfg, device=device,
@@ -200,12 +201,12 @@ def shard_params(src: Any, cfg: ModelConfig, mesh, *,
 
 def init_sharded(cfg: ModelConfig, seed: int, mesh, *,
                  device: torch.device | str | None = None, plan=None,
-                 trainable: bool = False) -> LM:
+                 trainable: bool = False) -> LM | EncDec:
     """This rank's shards (:func:`param_spec`) of the parameters
     ``ModelApi.init(seed)`` draws on ``device`` (the same generator, the
     same draws): each parameter is cut to its block as it is drawn
-    (``init_lm(keep=...)``), so the rank holds its shards and at most one
-    layer whole, never the model."""
+    (``init_lm(keep=...)``, ``init_encdec(keep=...)``), so the rank holds
+    its shards and at most one layer whole, never the model."""
     from .models.api import build
     dev = resolve_device(device)
 
@@ -218,8 +219,10 @@ def init_sharded(cfg: ModelConfig, seed: int, mesh, *,
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Every parameter's whole shape by port name, from an init on the
     ``meta`` device (no memory)."""
+    from .models.encdec import init_encdec
     from .models.lm import init_lm
-    lm = init_lm(cfg, generator=torch.Generator(), device="meta")
+    init = init_encdec if cfg.family == "encdec" else init_lm
+    lm = init(cfg, generator=torch.Generator(), device="meta")
     return {n: tuple(p.shape) for n, p in lm.named_parameters()}
 
 

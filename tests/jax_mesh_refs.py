@@ -1,6 +1,6 @@
 """Reference outputs of the JAX package on an emulated 4-device CPU mesh.
 
-    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm} OUT.npz
+    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm|family|family_train} OUT.npz
 
 jax pins the device count at its first import, so the test files that
 compare the port's ranks with the JAX package's mesh run this script in
@@ -37,6 +37,15 @@ restore), in f32 from the saved values.
 ``vlm``: the smoke llava served by ``Server(cfg, mesh)`` at (1, 4) and
 (2, 2) (prefill logits) and on one device (prefill and teacher-forced
 decode logits), and ``make_train_step`` at (2, 2) under FSDP + TP.
+``family``: the smoke seamless (at a vocab of 258, which divides a model
+axis of 2 but not 4), mamba2 and zamba2 served by ``Server(cfg, mesh)``
+at (1, 4) and (2, 2): prefill logits and teacher-forced decode
+logits, in f32.  ``family_train``: ``make_train_step`` for the cases of
+:data:`FAMILY_TRAIN_CASES` as in ``moe_train`` (each family's metrics),
+the final state of :data:`FAMILY_CKPT_CASE` saved as a checkpoint beside
+OUT.npz (``family_ckpt/``) and its next step on :data:`FAMILY_ELASTIC`;
+and ``jax.grad`` of one smoke Mamba2 block (``sum(y * c)`` with respect
+to x and each of its parameters).
 """
 
 import dataclasses
@@ -49,9 +58,18 @@ import sys
 os.nice(10)
 os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
     {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
-        sys.argv[1], -3) % len(os.sched_getaffinity(0))]})
+        sys.argv[1], -3) % len(os.sched_getaffinity(0))]}
+    if sys.argv[1] not in ("family", "family_train") else
+    {sorted(os.sched_getaffinity(0))[
+        {"family": -6, "family_train": -7}[sys.argv[1]]
+        % len(os.sched_getaffinity(0))]})
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
+if sys.argv[1] in ("family", "family_train"):
+    # these jobs compile many small programs: LLVM's backend passes take
+    # half their time and change no result beyond f32 rounding
+    os.environ["XLA_FLAGS"] += (" --xla_backend_optimization_level=0"
+                                " --xla_llvm_disable_expensive_passes=true")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax  # noqa: E402
@@ -114,6 +132,34 @@ TRAIN_METRICS = ("loss", "ce", "load_balance", "router_z", "grad_norm", "lr")
 VLM_SERVE_CASES = {"1x4": ("1x4", 4, 16, 4), "2x2": ("2x2", 4, 16, 4)}
 #: the smoke llava's mesh train step: (mesh, plan sharding, steps)
 VLM_TRAIN = ("2x2", "fsdp_tp", 2)
+#: the smoke enc-dec, SSM and hybrid served: name -> (arch, vocab (None:
+#: the smoke config's), mesh, batch, prompt, decode steps, max_len).  The
+#: enc-dec at a vocab of 258, which divides a model axis of 2 but not 4
+#: (its head whole at (1, 4), split at (2, 2)); its prompt is its stub
+#: frames (its decoder reads one token).  The SSM and hybrid prompts are
+#: whole SSD chunks (16), zamba2's past its 32-slot window into a cache
+#: at least as long
+FAMILY_SERVE_CASES = {
+    f"{name}-{m}": (arch, vocab, m, 4, prompt, 3, max_len)
+    for name, arch, vocab, prompt, max_len in (
+        ("seamless_v258", "seamless-m4t-large-v2", 258, 16, 16),
+        ("mamba2", "mamba2-1.3b", None, 32, 40),
+        ("zamba2", "zamba2-1.2b", None, 48, 56))
+    for m in ("1x4", "2x2")}
+#: the families' mesh train steps: name -> (arch, vocab, mesh, plan
+#: sharding); the enc-dec at a vocab that splits at (2, 2) only
+FAMILY_TRAIN_CASES = {
+    f"{name}-{m}-{sh}": (arch, vocab, m, sh)
+    for name, arch, vocab in (("seamless_v258", "seamless-m4t-large-v2", 258),
+                              ("mamba2", "mamba2-1.3b", None),
+                              ("zamba2", "zamba2-1.2b", None))
+    for m, sh in (("2x2", "fsdp_tp"), ("1x4", "tp"))}
+#: the case whose final state is saved, and the layout of its next step
+FAMILY_CKPT_CASE = "mamba2-2x2-fsdp_tp"
+FAMILY_ELASTIC = ("1x4", "tp")
+#: the enc-dec's stub frames in a train batch, and the Mamba2 block
+#: gradient case's input (B, S)
+FAMILY_FRAMES, MAMBA_GRAD_X = 16, (4, 32)
 
 
 def mesh_of(name):
@@ -477,11 +523,12 @@ def moe_train_refs(out, path):
     out["moe_ckpt/root"] = np.asarray(root)
 
 
-def mesh_train(out, prefix, cfg, m, sharding, micro, batches):
+def mesh_train(out, prefix, cfg, m, sharding, micro, batches,
+               metrics=TRAIN_METRICS):
     """``make_train_step`` on mesh ``m`` from the JAX model's weights in
-    f32 over ``batches``: the initial weights, the metrics of
-    :data:`TRAIN_METRICS` each step and the final weights under
-    ``prefix``.  Returns the final (params, opt state)."""
+    f32 over ``batches``: the initial weights, the ``metrics`` each step
+    and the final weights under ``prefix``.  Returns the final (params,
+    opt state)."""
     from repro.core.codesign import CodesignPlan
     from repro.launch import steps as steps_lib
     from repro.models.api import build
@@ -496,19 +543,18 @@ def mesh_train(out, prefix, cfg, m, sharding, micro, batches):
         api, mesh, plan, lr_peak=TRAIN_LR, warmup=1, total_steps=10)
     params = jax.device_put(params, p_shard)
     opt = jax.jit(adamw_init, out_shardings=s_shard)(params)
-    metrics = []
+    got = []
     for b in batches:
         params, opt, mt = step(params, opt, b)
-        metrics.append([float(mt[k]) for k in TRAIN_METRICS])
-    out[f"{prefix}/metrics"] = np.asarray(metrics)
+        got.append([float(mt[k]) for k in metrics])
+    out[f"{prefix}/metrics"] = np.asarray(got)
     _flat(out, f"{prefix}/final", params)
     return params, opt
 
 
-def next_step(cfg, params, opt, m, sharding, batch):
-    """The metrics of :data:`TRAIN_METRICS` of one ``make_train_step`` on
-    mesh ``m`` under ``sharding`` from the state (params, opt) over
-    ``batch``."""
+def next_step(cfg, params, opt, m, sharding, batch, metrics=TRAIN_METRICS):
+    """The ``metrics`` of one ``make_train_step`` on mesh ``m`` under
+    ``sharding`` from the state (params, opt) over ``batch``."""
     from repro.core.codesign import CodesignPlan
     from repro.launch import steps as steps_lib
     from repro.models.api import build
@@ -518,7 +564,7 @@ def next_step(cfg, params, opt, m, sharding, batch):
         total_steps=10)
     _, _, mt = step(jax.device_put(params, p_shard),
                     jax.device_put(opt, s_shard), batch)
-    return np.asarray([float(mt[k]) for k in TRAIN_METRICS])
+    return np.asarray([float(mt[k]) for k in metrics])
 
 
 def vlm_batches(cfg, n, B, S):
@@ -570,6 +616,119 @@ def vlm_refs(out):
     mesh_train(out, "vlm_train", cfg, m, sharding, 1, batches)
 
 
+def family_cfg(arch, vocab):
+    """The smoke config of ``arch``, at ``vocab`` where given."""
+    from repro.configs import get_smoke_config
+    from repro.models.config import smoke_variant
+    from repro.configs import get_config
+    if vocab is None:
+        return get_smoke_config(arch)
+    return smoke_variant(get_config(arch), vocab=vocab)
+
+
+def family_inputs(cfg, B: int, prompt: int, steps: int):
+    """A served case's seeded prompt batch and forced decode tokens: an
+    enc-dec's ``prompt`` stub frames and decoder tokens of that length."""
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, prompt),
+                                    dtype=np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, prompt, cfg.d_model)).astype(F32)
+    forced = rng.integers(0, cfg.vocab, (B, steps), dtype=np.int32)
+    return batch, forced
+
+
+def family_refs(out):
+    """Each case of :data:`FAMILY_SERVE_CASES` served on its mesh: prefill
+    logits, then teacher-forced decode logits, and its weights (f32)."""
+    from repro.launch.serve import Server
+    for case, (arch, vocab, m, B, prompt, steps, max_len) in \
+            FAMILY_SERVE_CASES.items():
+        cfg = family_cfg(arch, vocab)
+        batch, forced = family_inputs(cfg, B, prompt, steps)
+        for k, v in dict(batch, forced=forced).items():
+            out[f"family/{case}/{k}"] = v
+        server = Server(cfg, mesh_of(m), max_len=max_len)
+        params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                              server.api.init(jax.random.PRNGKey(0)))
+        logits, cache = server._prefill(params, batch)
+        outs = [np.asarray(logits)]
+        for t in range(steps):
+            logits, cache = server._decode(params, cache,
+                                           jnp.asarray(forced[:, t:t + 1]))
+            outs.append(np.asarray(logits))
+        out[f"family/{case}/logits"] = np.stack(outs)
+        _flat(out, f"family/{case}/params", params)
+
+
+def family_batches(cfg, n):
+    """``n`` seeded train batches of :data:`TRAIN_BATCH`; an enc-dec's
+    carry :data:`FAMILY_FRAMES` stub frames a row."""
+    batches = train_batches(cfg.vocab, n)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(37)
+        for b in batches:
+            b["frames"] = rng.standard_normal(
+                (TRAIN_BATCH[0], FAMILY_FRAMES, cfg.d_model)).astype(F32)
+    return batches
+
+
+def family_metrics(cfg):
+    """The train metrics a family's step reports (the enc-dec has no
+    load-balance or router z term)."""
+    return (("loss", "ce", "grad_norm", "lr") if cfg.family == "encdec"
+            else TRAIN_METRICS)
+
+
+def family_train_refs(out, path):
+    """The families' mesh train steps (:func:`mesh_train`), the saved
+    state of :data:`FAMILY_CKPT_CASE` and its next step on
+    :data:`FAMILY_ELASTIC`, and one Mamba2 block's gradients."""
+    from repro.checkpoint.manager import save_checkpoint
+    from repro.models import ssm
+    from repro.models.api import build
+    root = os.path.join(os.path.dirname(os.path.abspath(path)),
+                        "family_ckpt")
+    for case, (arch, vocab, m, sharding) in FAMILY_TRAIN_CASES.items():
+        cfg = family_cfg(arch, vocab)
+        batches = family_batches(cfg, TRAIN_STEPS)
+        for i, b in enumerate(batches):
+            for k, v in b.items():
+                out[f"family_train/{case}/batches/{i}/{k}"] = v
+        params, opt = mesh_train(out, f"family_train/{case}", cfg, m,
+                                 sharding, 1, batches, family_metrics(cfg))
+        if case == FAMILY_CKPT_CASE:
+            native = jax.eval_shape(build(cfg).init, jax.random.PRNGKey(0))
+            params = jax.tree.map(lambda a, n: a.astype(n.dtype), params,
+                                  native)
+            save_checkpoint(root, TRAIN_STEPS, {"params": params,
+                                                "opt": opt})
+            batch = family_batches(cfg, TRAIN_STEPS + 1)[-1]
+            for k, v in batch.items():
+                out[f"family_ckpt/batch/{k}"] = v
+            out["family_ckpt/next"] = next_step(
+                cfg, jax.tree.map(lambda a: a.astype(jnp.float32), params),
+                opt, *FAMILY_ELASTIC, batch, family_metrics(cfg))
+    out["family_ckpt/root"] = np.asarray(root)
+
+    cfg = family_cfg("mamba2-1.3b", None)
+    params = jax.tree.map(lambda a: a[0].astype(jnp.float32),
+                          build(cfg).init(jax.random.PRNGKey(2))["layers"])
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal(MAMBA_GRAD_X + (cfg.d_model,)).astype(F32)
+    c = rng.standard_normal(MAMBA_GRAD_X + (cfg.d_model,)).astype(F32)
+    _flat(out, "mamba_grad/params", params)
+    out["mamba_grad/x"], out["mamba_grad/c"] = x, c
+
+    def loss(xx, p):
+        return jnp.sum(ssm.mamba_block_train(xx, p, cfg) * jnp.asarray(c))
+    gx, gp = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x), params)
+    out["mamba_grad/grads/x"] = np.asarray(gx)
+    _flat(out, "mamba_grad/grads/p", gp)
+    out["mamba_grad/loss"] = np.asarray(float(jax.jit(loss)(x, params)))
+
+
 def main():
     job, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -588,6 +747,10 @@ def main():
         moe_train_refs(out, path)
     elif job == "vlm":
         vlm_refs(out)
+    elif job == "family":
+        family_refs(out)
+    elif job == "family_train":
+        family_train_refs(out, path)
     else:
         raise SystemExit(f"unknown job {job!r}")
     out["meta"] = np.asarray(json.dumps({
@@ -599,7 +762,11 @@ def main():
         "moe_grad": MOE_GRAD_CASES, "moe_train": MOE_TRAIN_CASES,
         "moe_ckpt": MOE_CKPT_CASES, "moe_elastic": MOE_ELASTIC,
         "train_metrics": TRAIN_METRICS,
-        "vlm_serve": VLM_SERVE_CASES, "vlm_train": VLM_TRAIN}))
+        "vlm_serve": VLM_SERVE_CASES, "vlm_train": VLM_TRAIN,
+        "family_serve": FAMILY_SERVE_CASES,
+        "family_train": FAMILY_TRAIN_CASES,
+        "family_ckpt": FAMILY_CKPT_CASE, "family_elastic": FAMILY_ELASTIC,
+        "family_frames": FAMILY_FRAMES}))
     np.savez(path, **out)
     print("MARKER jax-mesh-refs-ok", job, len(out))
 

@@ -181,18 +181,18 @@ def test_encode_matches_reference(impl):
 
 def test_encoder_attention_is_not_causal():
     """A causal encoder would give other states (the test above would not
-    see the mask)."""
+    see the mask): the encoder's layer is the transformer layer without
+    the causal mask, which moves its output."""
+    from repro_torch.models.blocks import dense_layer_apply
     cfg, params, ref = _port()
     x = torch.from_numpy(ref["frames"]).to(torch.bfloat16) @ params.frame_proj
     pos = torch.arange(S_ENC, dtype=torch.int32)
-    lp = params.enc_layers[0]
-    from repro_torch.models.attention import attention
-    from repro_torch.models.common import rms_norm
-    q, k, v = tencdec._proj_qkv(rms_norm(x, lp.ln1, cfg.norm_eps), lp.attn,
-                                cfg, pos)
-    full = attention(q, k, v, q_pos=pos, k_pos=pos, causal=False)
-    causal = attention(q, k, v, q_pos=pos, k_pos=pos, causal=True)
-    assert (full - causal).abs().max() > 0.1
+    lp, ctx = params.enc_layers[0], ShardCtx(impl="ref")
+    full = tencdec._enc_layer(x, lp, cfg, ctx, pos)
+    torch.testing.assert_close(full, dense_layer_apply(
+        x, lp, cfg, ctx, positions=pos, causal=False), rtol=0, atol=0)
+    causal = dense_layer_apply(x, lp, cfg, ctx, positions=pos)
+    assert (full.float() - causal.float()).abs().max() > 0.1
 
 
 def test_cross_kv_matches_reference():

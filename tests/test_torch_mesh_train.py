@@ -396,35 +396,36 @@ def test_train_spec_is_the_fsdp_table_with_no_head_split():
 
 
 def test_training_mesh_refusals():
-    """The dense, MoE and VLM families train on a mesh; the SSM, the hybrid
-    and the enc-dec on a training mesh raise, naming their ROADMAP item;
-    the mesh trainer without a card raises unless asked for the CPU; a
-    world whose backend fails to start raises (no other backend is
+    """No family is refused a mesh any more: every config makes its
+    training and serving contexts on (1, 4), (2, 2) and (4, 1) and its
+    rank's decode cache under them, and the enc-dec draws through
+    ``keep``; the mesh trainer without a card raises unless asked for the
+    CPU; a world whose backend fails to start raises (no other backend is
     tried); a plan with sequence parallelism is refused."""
     import torch.distributed as dist
+    from repro_torch.configs import list_archs
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import free_port, init_world
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import lm as lm_lib
+    plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
     mesh = Mesh({"data": 2, "model": 2}, ("data", "model"), rank=0,
                 coords={"data": 0, "model": 0}, groups={})
-    plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=False)
-    for arch in ("smollm-360m", "qwen3-moe-30b-a3b",
-                 "llava-next-mistral-7b"):
-        cfg = get_smoke_config(arch)
-        lm_lib._check_family(cfg, steps.make_ctx(build(cfg), mesh, plan,
-                                                 "ref", train=True))
-    fsdp = Mesh({"data": 4, "model": 1}, ("data", "model"), rank=0,
-                coords={"data": 0, "model": 0}, groups={})
-    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
-        cfg = get_smoke_config(arch)
-        for m in (mesh, fsdp):
-            ctx = steps.make_ctx(build(cfg), m, plan, "ref", train=True)
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-                lm_lib._check_family(cfg, ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build(get_smoke_config("seamless-m4t-large-v2")).init(
-            0, device="cpu", keep=lambda name, t: t)
+    for arch in list_archs():
+        api = build(get_smoke_config(arch))
+        for shape in ((1, 4), (2, 2), (4, 1)):
+            m = Mesh({"data": shape[0], "model": shape[1]},
+                     ("data", "model"), rank=0,
+                     coords={"data": 0, "model": 0}, groups={})
+            for train in (True, False):
+                ctx = steps.make_ctx(api, m, plan, "ref", train=train)
+                cache = api.init_cache(1, 32, ctx, device="cpu", enc_len=16)
+                assert cache["pos"] == 0, (arch, shape, train)
+    seamless = get_smoke_config("seamless-m4t-large-v2")
+    kept = []
+    build(seamless).init(0, device="cpu",
+                         keep=lambda name, t: kept.append(name) or t)
+    assert sorted(kept) == sorted(n for n, _ in build(seamless).init(
+        0, device="cpu").named_parameters())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(get_smoke_config("smollm-360m"), mesh)

@@ -298,15 +298,27 @@ def _check_init_sharded(arch, shape):
 
 
 def test_a_mesh_refuses_the_families_that_wait():
-    """The SSM and the hybrid raise on a model axis of 2; the VLM runs
-    there (its cache holds the rank's heads: the one KV head whole); a
-    data-only mesh runs every family as one device does."""
+    """No family waits any more: the SSM and the hybrid run on a model
+    axis of 2, their states holding the rank's half of the SSD heads (the
+    conv window its x channels and all of B and C) and the hybrid's shared
+    cache its half of the attention heads; a data-only mesh holds every
+    head; the VLM's cache holds the rank's heads (the one KV head
+    whole)."""
     from repro_torch.models import lm
     for arch in ("mamba2-1.3b", "zamba2-1.2b"):
         cfg = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            lm.init_lm_cache(cfg, 1, 64, _ctx((1, 2), 0), device="cpu")
-        lm._check_family(cfg, _ctx((2, 1), 0))
+        s, H = cfg.ssm, cfg.ssm_heads
+        for shape, h in (((1, 2), H // 2), ((2, 1), H)):
+            cache = lm.init_lm_cache(cfg, 1, 64, _ctx(shape, 0),
+                                     device="cpu")
+            assert tuple(cache["mamba"].conv.shape) == (
+                cfg.n_layers, 1, s.conv_width - 1,
+                h * s.head_dim + 2 * s.n_groups * s.d_state)
+            assert tuple(cache["mamba"].ssm.shape) == (
+                cfg.n_layers, 1, h, s.head_dim, s.d_state)
+            if cfg.family == "hybrid":
+                assert cache["shared_k"].shape[3] == cfg.n_kv_heads // (
+                    shape[1])
     cfg = get_smoke_config("llava-next-mistral-7b")
     cache = lm.init_lm_cache(cfg, 1, 64, _ctx((1, 2), 0), device="cpu")
     assert tuple(cache["k"].shape) == (cfg.n_layers, 1, 64, 1, cfg.hd)

@@ -1,6 +1,6 @@
 """One rank of the port's gloo world, for the mesh tests.
 
-    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm} RANK WORLD PORT REF.npz OUTDIR
+    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm|family|family_train} RANK WORLD PORT REF.npz OUTDIR
 
 The test files call :func:`run_world`: it runs the JAX package's
 reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
@@ -710,6 +710,182 @@ def vlm_train(out, ref, meta, meshes, rank):
                sharding, 1, batches, meta["train_metrics"], rank)
 
 
+# ---------------------------------------------------------------------------
+# family, family_train: the enc-dec, SSM and hybrid on a mesh
+# ---------------------------------------------------------------------------
+
+
+def family_cfg(arch: str, vocab) -> ModelConfig:
+    """A family case's smoke config, at ``vocab`` where given (the JAX
+    run's ``family_cfg``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_variant
+    if vocab is None:
+        return get_smoke_config(arch)
+    return smoke_variant(get_config(arch), vocab=vocab)
+
+
+def _cache_shapes(cache: dict) -> dict:
+    """Each cache leaf's shape by name (a ``MambaState``'s fields by
+    theirs)."""
+    out = {}
+    for k, v in cache.items():
+        if hasattr(v, "_fields"):
+            out.update({f: tuple(getattr(v, f).shape) for f in v._fields})
+        elif isinstance(v, torch.Tensor):
+            out[k] = tuple(v.shape)
+    return out
+
+
+def family_serve(out, ref, meta, meshes):
+    """Each case of ``meta["family_serve"]`` through ``Server(cfg, mesh)``
+    on the JAX model's weights (f32): prefill and teacher-forced decode
+    logits, the rank's cache shapes and the parameters it holds."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.weights import shard_params
+    for case, (arch, vocab, m, _, _, steps, max_len) in \
+            meta["family_serve"].items():
+        cfg, mesh = family_cfg(arch, vocab), meshes[m]
+        server = Server(cfg, mesh, device="cpu", max_len=max_len)
+        server.params = shard_params(_tree(ref, f"family/{case}/params/"),
+                                     cfg, mesh, device="cpu")
+        batch = {k: ref[f"family/{case}/{k}"] for k in ("tokens", "frames")
+                 if f"family/{case}/{k}" in ref.files}
+        forced = server._on_device(ref[f"family/{case}/forced"])
+        logits, cache = server.prefill(batch)
+        outs = [logits]
+        for t in range(steps):
+            logits, cache = server.decode(cache, forced[:, t:t + 1])
+            outs.append(logits)
+        out[f"family/{case}/logits"] = torch.stack(outs).numpy()
+        out[f"family/{case}/cache"] = np.asarray(json.dumps(
+            _cache_shapes(cache)))
+        out[f"family/{case}/params"] = np.asarray(
+            sum(p.numel() for p in server.params.parameters()))
+
+
+def roundtrip(out, meshes):
+    """``unshard(shard_tensor(p))`` of every parameter of every smoke
+    config, on each mesh, under the serving and the FSDP training specs:
+    the leaves that do not come back whole, and the head-wise ones."""
+    from repro_torch.configs import list_archs
+    from repro_torch.models.api import build
+    from repro_torch.parallel.sharding import Segments, rank_spec
+    bad, segmented = [], 0
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        whole = build(cfg).init(0, device="cpu")
+        for m, mesh in meshes.items():
+            for fsdp in (False, True):
+                for n, p in whole.named_parameters():
+                    spec = rank_spec(n, tuple(p.shape), cfg, mesh, fsdp=fsdp)
+                    segmented += any(isinstance(a, Segments) for a in spec)
+                    back = unshard(shard_tensor(p.data, spec, mesh), spec,
+                                   mesh)
+                    if not torch.equal(back, p.data):
+                        bad.append(f"{arch} {m} {fsdp} {n}")
+    out["roundtrip/bad"] = np.asarray(json.dumps(bad))
+    out["roundtrip/segmented"] = np.asarray(segmented)
+
+
+def family_train_steps(out, ref, meta, meshes, rank):
+    """Each family case's 2 steps (:func:`mesh_steps`) on the JAX run's
+    batches, with that family's metrics."""
+    for case, (arch, vocab, m, sharding) in meta["family_train"].items():
+        cfg = family_cfg(arch, vocab)
+        prefix = f"family_train/{case}"
+        n = len(ref[f"{prefix}/metrics"])
+        batches = [_tree(ref, f"{prefix}/batches/{i}/") for i in range(n)]
+        keys = (("loss", "ce", "grad_norm", "lr") if cfg.family == "encdec"
+                else meta["train_metrics"])
+        mesh_steps(out, ref, meta, prefix, cfg, meshes[m], sharding, 1,
+                   batches, keys, rank)
+
+
+def mamba_grads(out, ref, meta, meshes, rank):
+    """One smoke Mamba2 block on a training mesh, (1, 4) under TP and
+    (2, 2) under FSDP + TP: the rank's blocks of the JAX run's weights
+    (gathered over the data axis as ``ShardCtx.gathered`` gathers them)
+    on its rows of x, the gradients of ``sum(y * c)`` exchanged as the
+    train step exchanges them and gathered whole (rank 0 writes them), x's
+    gathered over the data axis."""
+    import types
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm
+    from repro_torch.models.api import build
+    from repro_torch.models.blocks import MAMBA_PARAMS
+    cfg = get_smoke_config("mamba2-1.3b")
+    names = [n for n in MAMBA_PARAMS if n != "ln"]    # the block's own
+    whole = _tree(ref, "mamba_grad/params/")
+    for m, sharding in (("1x4", "tp"), ("2x2", "fsdp_tp")):
+        mesh = meshes[m]
+        ctx = steps.make_ctx(build(cfg), mesh, CodesignPlan(
+            sharding=sharding, seq_parallel=False), "ref", train=True)
+        specs = {n: ctx.specs[f"layers/{n}"] for n in names}
+        ws = [_t(shard_tensor(whole[n], specs[n], mesh)).requires_grad_(True)
+              for n in names]
+        layer = types.SimpleNamespace(**{
+            n: ctx.gather_weight(w, specs[n]) for n, w in zip(names, ws)})
+        x = _t(_rows(ref["mamba_grad/x"], mesh)).requires_grad_(True)
+        c = _t(_rows(ref["mamba_grad/c"], mesh))
+        y = ssm.mamba_block_train(x, layer, cfg, ctx=ctx)
+        loss = coll.leave_region(torch.sum(y * c), mesh, "data")
+        grads = torch.autograd.grad(loss, [x] + ws)
+        gw = steps._exchange(grads[1:], [specs[n] for n in names], ctx)
+        out[f"mamba_grad/{m}/loss"] = np.asarray(float(loss.detach()))
+        out[f"mamba_grad/{m}/x"] = coll.all_gather(grads[0], mesh,
+                                                   "data").numpy()
+        for n, g in zip(names, gw):
+            w = unshard(g, specs[n], mesh).numpy()
+            if rank == 0:
+                out[f"mamba_grad/{m}/{n}"] = w
+
+
+def family_checkpoints(out, ref, meta, meshes, out_dir):
+    """The JAX run's (2, 2) FSDP + TP mamba2 checkpoint restored by the
+    port's ``Trainer`` at (1, 4) under TP (the head-wise blocks of each
+    leaf), and its next step on the batch after the JAX run's; and a mesh
+    save of a (2, 2) trainer's fresh state (rank 0 writes the gathered
+    leaves under ``OUTDIR/mamba_save``)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.launch.train import Trainer
+    case = meta["family_ckpt"]
+    arch, vocab, _, _ = meta["family_train"][case]
+    cfg = family_cfg(arch, vocab)
+    m, sharding = meta["family_elastic"]
+    t = Trainer(cfg, meshes[m], plan=CodesignPlan(sharding=sharding,
+                                                  seq_parallel=False),
+                device="cpu", ckpt_dir=str(ref["family_ckpt/root"]))
+    t.init_state(9)
+    assert t.try_restore(), "no checkpoint restored"
+    _restored(out, "family_ckpt/restored", t)
+    rows = {k: _t(_rows(v, t.mesh))
+            for k, v in _tree(ref, "family_ckpt/batch/").items()}
+    _, _, mt = t.train_step(t.params.float(), t.opt_state, rows)
+    out["family_ckpt/next"] = np.asarray([float(mt[k])
+                                          for k in meta["train_metrics"]])
+    s = Trainer(cfg, meshes["2x2"], device="cpu")
+    s.init_state(5)
+    ck = CheckpointManager(os.path.join(out_dir, "mamba_save"), mesh=s.mesh)
+    ck.maybe_save(1, s.state_tree(), force=True,
+                  shardings=s.state_shardings())
+    ck.wait()
+
+
+def family_cli(out, out_dir):
+    """The CLI trains the smoke seamless on the (2, 2) mesh (``train.main``,
+    in this world): 2 steps, its frames split over the data axis."""
+    from repro_torch.launch import train
+    log = train.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                      "--device", "cpu", "--mesh", "2x2", "--backend",
+                      "gloo", "--steps", "2", "--global-batch", "8",
+                      "--seq-len", "16"])
+    out["cli/steps"] = np.asarray([r["step"] for r in log])
+    out["cli/losses"] = np.asarray([r["loss"] for r in log])
+
+
 def main() -> None:
     job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -718,8 +894,8 @@ def main() -> None:
     # tests in other workers
     os.nice(10)
     os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
-        {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
-            job, -3) % len(os.sched_getaffinity(0))]})
+        {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5, "family": -6,
+         "family_train": -7}.get(job, -3) % len(os.sched_getaffinity(0))]})
     torch.set_num_threads(1)
     init_world("gloo", rank=rank, world_size=world,
                init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
@@ -755,6 +931,18 @@ def main() -> None:
                   for n, s in MESHES.items()}
         vlm_serve(out, ref, meta, meshes)
         vlm_train(out, ref, meta, meshes, rank)
+    elif job == "family":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        family_serve(out, ref, meta, meshes)
+        roundtrip(out, meshes)
+    elif job == "family_train":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        family_train_steps(out, ref, meta, meshes, rank)
+        mamba_grads(out, ref, meta, meshes, rank)
+        family_checkpoints(out, ref, meta, meshes, out_dir)
+        family_cli(out, out_dir)
     else:
         raise SystemExit(f"unknown job {job!r}")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
