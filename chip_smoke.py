@@ -27,6 +27,12 @@ Phases, one JSON line each:
    record with its bytes, TB/s and launches per call; one more record
    gives the host time of one ``StreamDigest.add`` of a KV item and
    whether a slab folded under ``set_sync_debug_mode("error")`` raised.
+   The int8 pair is checked one item a call (1,000,003 values, a mamba2
+   and a zamba2 state item, ``compressed_psum``'s 16 Mi values) and as
+   slabs (mamba2's 48 state items, 384 MiB, and zamba2's 38, 76 MiB, one
+   ``quantize_items`` / ``dequantize_items`` call each), every slab record
+   with its launches, its bound and ``singles_ms``, the same items by
+   single-item calls.
 4. ``serve`` (smollm-360m): ``Server(get_config("smollm-360m"),
    device="cuda")`` (full width, 32 layers, random weights from a seed)
    serves 4 x 128-token prompts for 32 tokens through the mover, and the
@@ -871,6 +877,62 @@ def check_quantize(torch, n):
             ms=device_ms(kernel), call_ms=call_ms(kernel),
             plain_ms=device_ms(plain, iters=5), library_ms=None,
             bound_ms=bms, bound_by=by))
+    return recs
+
+
+def check_quantize_slab(torch, label, count, shape):
+    """One ``quantize_items`` and one ``dequantize_items`` call over
+    ``count`` state items of ``shape`` (a staging's items as one slab)
+    against the plain versions, bit for bit; returns the two records.  Each
+    has its launches a call (one), device ms beside its bound (the items'
+    bytes in and out at the memory rate, summed) and ``singles_ms``: the
+    same items by ``count`` single-item calls, timed the same way.  The
+    slabs outgrow the 50 MB L2, so the repeated calls find them cold."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.quantize import (dequantize_int8,
+                                              dequantize_items,
+                                              quantize_int8, quantize_items)
+    n = math.prod(shape)
+    xs = [_quant_values(torch, n, 1000 + i).reshape(shape)
+          for i in range(count)]
+    n0 = build.launch_counts()
+    wire = quantize_items(xs)
+    n1 = build.launch_counts()
+    slab = [(q, s, shape) for q, s in wire]
+    backs = dequantize_items(slab)
+    n2 = build.launch_counts()
+    launches = {"quantize_int8": n1["quantize_int8"] - n0["quantize_int8"],
+                "dequantize_int8": n2["dequantize_int8"]
+                - n1["dequantize_int8"]}
+    qbad = dbad = 0
+    for x, (q, s), back in zip(xs, wire, backs):
+        rq, rs = ref.quantize_int8_ref(x)
+        qbad += _bits_differ(torch, q, rq) + _bits_differ(torch, s, rs)
+        dbad += _bits_differ(torch, back,
+                             ref.dequantize_int8_ref(q, s, shape))
+    del backs
+    nb = wire[0][0].shape[0]
+    nbytes = count * (n * 4 + nb * 256 + nb * 4)
+    recs = []
+    for name, bad, kernel, singles, plain, ops in (
+            ("quantize_int8", qbad, lambda: quantize_items(xs),
+             lambda: [quantize_int8(x) for x in xs],
+             lambda: ref.quantize_items_ref(xs), 5.0 * n * count),
+            ("dequantize_int8", dbad, lambda: dequantize_items(slab),
+             lambda: [dequantize_int8(q, s, shape) for q, s, _ in slab],
+             lambda: ref.dequantize_items_ref(slab), 1.0 * n * count)):
+        bms, by = bound_ms(nbytes, ops, PEAK_F32)
+        ms = device_ms(kernel, iters=10)
+        recs.append(emit(
+            "check", kernel=name, of=label, items=count, shape=list(shape),
+            values=n * count, bytes=nbytes,
+            launches_per_call=launches[name], mismatches=bad,
+            max_abs_err=float(bad), tol="bit-exact",
+            ok=bad == 0 and launches[name] == 1, ms=ms,
+            call_ms=call_ms(kernel, iters=10),
+            singles_ms=device_ms(singles, iters=3),
+            plain_ms=device_ms(plain, iters=2), library_ms=None,
+            bound_ms=bms, bound_by=by, share_of_bound=bms / ms))
     return recs
 
 
@@ -1744,6 +1806,20 @@ def main() -> int:
     main_shapes["digest_items"] = digests["kv_item"]
     checks += list(main_shapes.values())
     checks += [r for k, r in digests.items() if k != "kv_item"]
+    # the int8 pair over whole stagings' state items, one slab a call
+    zcfg = get_config("zamba2-1.2b")
+    slabs = {}
+    for label, count, shape in (
+            ("mamba2 state slab", mcfg.n_layers,
+             (BATCH, mcfg.ssm_heads, mcfg.ssm.head_dim, mcfg.ssm.d_state)),
+            ("zamba2 state slab", zcfg.n_layers,
+             (ZAMBA_BATCH, zcfg.ssm_heads, zcfg.ssm.head_dim,
+              zcfg.ssm.d_state))):
+        for rec in check_quantize_slab(torch, label, count, shape):
+            slabs[f"{rec['kernel']} {label}"] = rec
+    checks += list(slabs.values())
+    gc.collect()
+    torch.cuda.empty_cache()
     records += checks
     records.append(emit("phase_time", of="check",
                         seconds=time.monotonic() - t_phase))
@@ -1879,7 +1955,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- gemma3-1b and zamba2-1.2b: serve at full width ------------------
-    shapes = {}
+    shapes = {"slabs": slabs}
     for name, phase in (("gemma3", gemma3_phase), ("zamba2", zamba2_phase),
                         ("llava", llava_phase),
                         ("seamless", seamless_phase)):
@@ -1987,8 +2063,9 @@ def main() -> int:
             # the same kernel at the later phases' shapes
             "shapes": [
                 {"of": f"{phase} {label}", **{key: r.get(key) for key in (
-                    "shape", "window", "values", "bytes", "max_abs_err",
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "shape", "window", "values", "bytes", "items",
+                    "launches_per_call", "max_abs_err", "ms", "singles_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "call_ms")}}
                 for phase, recs in shapes.items()
                 for label, r in recs.items() if r["kernel"] == name]})

@@ -279,29 +279,36 @@ def compress_transform() -> _BatchTransform:
     through the blockwise-int8 quantize kernel (blocks of 256 values), on
     the device the item lies on (its plain version on the CPU) — the
     budgeted pass that puts about 4x fewer bytes on the wire (oracle:
-    :func:`repro_torch.optim.compression.quantize_int8_blockwise`)."""
+    :func:`repro_torch.optim.compression.quantize_int8_blockwise`).  A
+    slab (``.many``) goes through one ``quantize_items`` call, one launch
+    per table of items and device; a single item is a slab of one.  On the
+    card a slab's codes and scales are views of one output each, so a
+    consumer that keeps one wire item keeps the slab's whole output."""
     from ..kernels import ops
 
-    def one(x):
-        q, s = ops.quantize(x)
-        return q, s, tuple(x.shape)
+    def many(items):
+        items = list(items)
+        return [(q, s, tuple(x.shape))
+                for x, (q, s) in zip(items, ops.quantize_items(items))]
 
-    return _BatchTransform(one, lambda items: [one(x) for x in items],
-                           encodes_wire=True)
+    return _BatchTransform(lambda x: many([x])[0], many, encodes_wire=True)
 
 
 def decompress_transform(*, device: Optional[torch.device | str] = None
                          ) -> _BatchTransform:
     """Inverse stage transform: ``(q, scales, shape)`` -> f32 tensor,
-    through the dequantize kernel.  With ``device``, the codes and scales
-    move there first (host items restored onto the card)."""
+    through the dequantize kernel.  With ``device``, each item's codes and
+    scales move there first (host items restored onto the card).  A slab
+    (``.many``) goes through one ``dequantize_items`` call (one launch per
+    table of items and device); a single item is a slab of one.  On the
+    card a slab's items are views of one f32 output."""
     from ..kernels import ops
     dev = torch.device(device) if device is not None else None
 
-    def one(t):
-        q, s, shape = t
+    def many(items):
+        items = list(items)
         if dev is not None:
-            q, s = q.to(dev), s.to(dev)
-        return ops.dequantize(q, s, shape)
+            items = [(q.to(dev), s.to(dev), shape) for q, s, shape in items]
+        return ops.dequantize_items(items)
 
-    return _BatchTransform(one, lambda items: [one(t) for t in items])
+    return _BatchTransform(lambda t: many([t])[0], many)

@@ -13,5 +13,6 @@ package):
 * digest — lattice digest for accelerator-placed integrity: per row, and
   whole items or slabs to their fingerprints in one launch
 * ssd_scan — chunked Mamba2 SSD scan (prefill), returning the final state
-* quantize — blockwise int8 quantize / dequantize for the compressed wire
+* quantize — blockwise int8 quantize / dequantize for the compressed wire,
+  a slab of items in one launch
 """

@@ -214,12 +214,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_smem_bytes.argtypes = [i]
         lib.ssd_scan_smem_bytes.restype = i64
     elif name == "quantize_int8":
-        fn = lib.quantize_int8_f32
-        fn.argtypes = [p, i64, p, p, i64, p]
+        fn = lib.quantize_items
+        fn.argtypes = [p, i, p, p, p]
         fn.restype = i
     elif name == "dequantize_int8":
-        fn = lib.dequantize_int8_f32
-        fn.argtypes = [p, p, p, i64, i64, p]
+        fn = lib.dequantize_items
+        fn.argtypes = [p, i, p, p]
         fn.restype = i
     else:
         raise KeyError(name)

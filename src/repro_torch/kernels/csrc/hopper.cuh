@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the m64n64k16 bf16 wgmma
-// with A from shared memory or from registers, and ldmatrix for register
-// operands.  No CuTe: these few instructions are all the attention and SSD
-// kernels need, and CuTe's headers would multiply the build time.
+// tile and 1-D bulk loads, wgmma shared-memory descriptors and the
+// m64n64k16 bf16 wgmma with A from shared memory or from registers, and
+// ldmatrix for register operands.  No CuTe: these few instructions are all
+// the attention, SSD and dequantize kernels need, and CuTe's headers would
+// multiply the build time.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; no libcuda link
@@ -97,6 +98,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+// one plain arrival (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // wait until the phase of parity `parity` has completed; a copy that never
 // lands (a bad descriptor) traps after about 2^28 tries, seconds, so it
 // surfaces as a launch error instead of a hung card
@@ -126,6 +134,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 1-D bulk copy (TMA without a tensor map) of `bytes` from global to
+// shared memory; both addresses and `bytes` are multiples of 16, and
+// completion counts the bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

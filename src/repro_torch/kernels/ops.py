@@ -7,8 +7,8 @@ kernel on a CUDA tensor, its plain version on a CPU tensor).  The kernels
 have no backward pass: on the card, the attention and SSD wrappers raise
 when autograd is on and an input requires gradients, rather than return an
 output that carries none (training runs the plain path, ``impl="ref"``).
-The wire transforms (:mod:`repro_torch.core.integrity`) call ``quantize``
-and ``dequantize``.
+The wire transforms (:mod:`repro_torch.core.integrity`) call
+``quantize_items`` and ``dequantize_items``, a slab of items a call.
 """
 
 from __future__ import annotations
@@ -19,11 +19,12 @@ from .decode_attention import decode_attention_bhd
 from .digest import block_digest
 from .flash_attention import flash_attention_bhsd
 from .quantize import BLOCK as QUANT_BLOCK
-from .quantize import dequantize_int8, quantize_int8
+from .quantize import (dequantize_int8, dequantize_items, quantize_int8,
+                       quantize_items)
 from .ssd_scan import ssd_scan_bhsd
 
 __all__ = ["flash_attention", "decode_attention", "block_digest", "ssd_scan",
-           "quantize", "dequantize"]
+           "quantize", "dequantize", "quantize_items", "dequantize_items"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

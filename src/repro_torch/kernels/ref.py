@@ -193,6 +193,18 @@ def dequantize_int8_ref(q: torch.Tensor, s: torch.Tensor,
     return dequantize_int8_blockwise(q, s, shape)
 
 
+def quantize_items_ref(items, *, block: int = 256, tile: int = 8
+                       ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """A slab of items -> :func:`quantize_int8_ref` of each."""
+    return [quantize_int8_ref(x, block=block, tile=tile) for x in items]
+
+
+def dequantize_items_ref(items) -> list[torch.Tensor]:
+    """A slab of ``(q, scales, shape)`` -> :func:`dequantize_int8_ref` of
+    each."""
+    return [dequantize_int8_ref(q, s, shape) for q, s, shape in items]
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,6 +16,8 @@ order), the final state (f32) within atol 1e-4 of its scale + rtol 1e-3
 relative where |cum| reaches about 1e3).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import decode_attention_bhd
 from repro_torch.kernels.digest import block_digest, digest_items
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
-from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+from repro_torch.kernels.quantize import (dequantize_int8, dequantize_items,
+                                          quantize_int8, quantize_items)
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsd
 
 torch.set_num_threads(1)
@@ -799,6 +802,127 @@ def test_quantize_kernel_on_an_unaligned_view(card):
     q, s = quantize_int8(x)
     rq, rs = ref.quantize_int8_ref(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# -- the slab kernels (quantize_items, dequantize_items) ----------------------
+
+
+def _slab_bit_exact(card, items):
+    """One quantize_items and one dequantize_items launch for the slab;
+    every item's codes, scales and values bit for bit its plain version's,
+    and its padding blocks zero."""
+    n0 = build.launch_counts()
+    wire = quantize_items(items)
+    backs = dequantize_items([(q, s, tuple(x.shape))
+                              for x, (q, s) in zip(items, wire)])
+    counts = build.launch_counts()
+    assert counts["quantize_int8"] == n0["quantize_int8"] + 1
+    assert counts["dequantize_int8"] == n0["dequantize_int8"] + 1
+    for x, (q, s), back, (rq, rs), want in zip(
+            items, wire, backs, ref.quantize_items_ref(items),
+            ref.dequantize_items_ref([(q, s, tuple(x.shape))
+                                      for x, (q, s) in zip(items, wire)])):
+        assert torch.equal(q, rq)
+        assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+        used = -(-x.numel() // 256)
+        assert not q[used:].any() and not s[used:].any()
+        assert back.shape == x.shape and back.is_cuda
+        assert torch.equal(back.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,count", [((2, 64, 64, 64), 38),
+                                         ((4, 64, 64, 128), 12)])
+def test_quantize_items_kernels_at_the_state_shapes(card, shape, count):
+    """zamba2's and mamba2's state items (2 MiB and 8 MiB of f32) as one
+    slab, bit-exact."""
+    _slab_bit_exact(card, [_quant_values(card, math.prod(shape), 40 + i)
+                           .reshape(shape) for i in range(count)])
+
+
+@pytest.mark.cuda
+def test_quantize_items_kernels_on_ragged_items(card):
+    """Lengths that are not multiples of 4, 256 or 2048, an empty item,
+    all-zero blocks and the special blocks, in one slab."""
+    items = [_quant_values(card, n, n) for n in
+             (1, 3, 255, 257, 2047, 2049, 1_000_003)]
+    items[5][256:512] = 0.0
+    items += [torch.zeros(0, device=card), _special_blocks(card),
+              torch.zeros(3000, device=card)]
+    _slab_bit_exact(card, items)
+
+
+@pytest.mark.cuda
+def test_quantize_items_kernels_walk_ragged_items_across_ctas(card):
+    """More tiles than the card holds CTAs, so each CTA walks several, and
+    its range crosses items whose ends are ragged."""
+    items = [_quant_values(card, 70_001 + 3 * i, 60 + i) for i in range(150)]
+    _slab_bit_exact(card, items)
+
+
+@pytest.mark.cuda
+def test_quantize_items_copies_only_an_unaligned_item(card):
+    from repro_torch.kernels import quantize
+    base = _quant_values(card, 3 * 4096, 9)
+    items = [base[1:4097], base[4096:8192], base[8196:]]   # +4, +0, +16 B
+    c0 = quantize.copies
+    _slab_bit_exact(card, items)
+    assert quantize.copies == c0 + 1
+    q, s = quantize_int8(base[4096:8192])
+    raw = torch.zeros(q.numel() + 16, dtype=torch.int8, device=card)
+    odd = raw[1:q.numel() + 1].view(q.shape)
+    odd.copy_(q)
+    c0 = quantize.copies
+    back, = dequantize_items([(odd, s, (4096,))])
+    assert quantize.copies == c0 + 1
+    assert torch.equal(back, dequantize_int8(q, s, (4096,)))
+
+
+@pytest.mark.cuda
+def test_quantize_items_one_launch_per_table(card):
+    """A slab longer than a launch's table splits into launches of
+    MAX_ITEMS items; a single-item call is a slab of one, one launch."""
+    from repro_torch.kernels import quantize
+    k = quantize.MAX_ITEMS + 5
+    items = [_quant_values(card, 300 + i, i) for i in range(k)]
+    n0 = build.launch_counts()
+    wire = quantize_items(items)
+    backs = dequantize_items([(q, s, (x.numel(),))
+                              for x, (q, s) in zip(items, wire)])
+    n1 = build.launch_counts()
+    assert n1["quantize_int8"] - n0["quantize_int8"] == 2
+    assert n1["dequantize_int8"] - n0["dequantize_int8"] == 2
+    for x, (q, s), back in zip(items, wire, backs):
+        rq, rs = ref.quantize_int8_ref(x)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+        assert torch.equal(back, ref.dequantize_int8_ref(rq, rs,
+                                                         (x.numel(),)))
+    x = items[7]
+    n0 = build.launch_counts()
+    q, s = quantize_int8(x)
+    back = dequantize_int8(q, s, (x.numel(),))
+    n1 = build.launch_counts()
+    assert n1["quantize_int8"] == n0["quantize_int8"] + 1
+    assert n1["dequantize_int8"] == n0["dequantize_int8"] + 1
+    assert torch.equal(q, wire[7][0]) and torch.equal(back, backs[7])
+
+
+@pytest.mark.cuda
+def test_decompress_many_restores_host_items_in_one_launch(card):
+    """The restore path: host wire items copied to the card, one launch
+    for the slab, equal to the per-item path."""
+    from repro_torch.core.integrity import (compress_transform,
+                                            decompress_transform)
+    items = [_quant_values(card, 524_288, 60 + i).reshape(2, 64, 64, 64)
+             for i in range(5)]
+    wire = [(q.cpu(), s.cpu(), shape)
+            for q, s, shape in compress_transform().many(items)]
+    decomp = decompress_transform(device=card)
+    n0 = build.launch_counts()["dequantize_int8"]
+    backs = decomp.many(wire)
+    assert build.launch_counts()["dequantize_int8"] == n0 + 1
+    for w, back in zip(wire, backs):
+        assert back.is_cuda and torch.equal(back, decomp(w))
 
 
 # -- whole-item digest (digest_items) and the accel stream digest -----------
