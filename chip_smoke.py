@@ -232,7 +232,14 @@ Phases, one JSON line each:
    zamba2-1.2b at TP 4, full width and depth (``MESH_FAMILY_SERVE``: 4 x
    1024 stub frames, 4 x 512 tokens, 2 x 4608 tokens; each rank its
    heads, a Mamba2 layer's head-wise share of the SSD heads, its caches
-   and states of those heads) served and held as llava is; then
+   and states of those heads) served and held as llava is; phi3 and
+   mamba2 again under Megatron sequence parallelism
+   (``Server(cfg, mesh, plan=CodesignPlan(sharding="tp",
+   seq_parallel=True))``: each rank's chunk of the prompt between the
+   layers), a prefill and ``MESH_SP_STEPS`` teacher-forced steps held to
+   the same ranks' server without it (phi3 within ``LOGIT_SHARE``, mamba2
+   within twice its bf16 noise floor), the prefill timed with its
+   collectives by kind; then
    smollm-360m trained at full width (``MESH_TRAIN``):
    ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP on the train phase's
    8 x 512 batches, a checkpoint every 2 steps (rank 0 writes the
@@ -256,7 +263,15 @@ Phases, one JSON line each:
    seamless (4 + 4 of 24 + 24 layers, (2, 2) FSDP + TP, its vocab split
    over 2), mamba2 (8 of 48 layers, (2, 2) FSDP + TP) and zamba2 (12 of
    38 layers, 2 sites, (1, 4) TP) trained the same way on 8 x 512
-   (``MESH_FAMILY_TRAIN``: no checkpoint); and last
+   (``MESH_FAMILY_TRAIN``: no checkpoint); smollm-360m again at (2, 2)
+   under ``CodesignPlan(sharding="fsdp_tp", seq_parallel=True)``
+   (``MESH_SP_TRAIN``: 2 steps, no checkpoint), its step 1 held to the
+   (2, 2) trainer's step 1 without the split (``MESH_LOSS_RTOL``,
+   ``MESH_NORM_RTOL``, ``MESH_LEAF_RTOL``), and the values the
+   checkpointed layer bodies keep for the backward pass at step 1
+   (``lm.kept_values``, a ``saved_tensors_hooks`` count) in both: the
+   layer inputs, 4 x 512 x 960 x 32 without the split, exactly half with
+   it; and last
    qwen3-moe-30b-a3b trained at published widths, 2 of 48 layers
    (``MESH_MOE_TRAIN``; it fails first unless the disk holds twice its
    26 GB state): ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + EP (64
@@ -3079,6 +3094,17 @@ MESH_FAMILY_TRAIN = {
                    plan="fsdp_tp", noise=True),
     "zamba2": dict(arch="zamba2-1.2b", layers=12, steps=2, mesh="tp",
                    plan="tp", noise=True)}
+#: Megatron sequence parallelism on the ranks (``CodesignPlan(seq_parallel=
+#: True)``): smollm-360m trained at full width at (2, 2) under FSDP + TP,
+#: ``steps`` steps of the train phase's first batches, no checkpoint (the
+#: disk budget, above :data:`MESH_MOE_TRAIN`), its step 1 held to the
+#: :data:`MESH_TRAIN` trainer's step 1 without the split (the same weights
+#: and batch on the same layout); phi3 (:data:`MESH_PHI3`'s layers) and
+#: mamba2-1.3b served at TP 4 with and without the split, a prefill and
+#: :data:`MESH_SP_STEPS` teacher-forced decode steps
+MESH_SP_TRAIN = dict(arch="smollm-360m", steps=2, mesh="hier",
+                     plan="fsdp_tp", sp=True)
+MESH_SP_STEPS = 4
 #: the mesh's step-1 loss, gradient norm and worst leaf's gradient norm
 #: against the one-card step's on the same weights and batch, relative:
 #: the same bf16 model, its partial sums added in f32 in another order and
@@ -3255,6 +3281,58 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
             launches=build.launch_counts(),
             **kv_staged_ok(items, received, report))
     del server, cache, logits
+    return out
+
+
+def _rank_sp_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
+                   ref_path):
+    """One rank of ``Server(cfg, mesh, plan=CodesignPlan(sharding="tp",
+    seq_parallel=...))`` on its views of the parent's weights, without and
+    with sequence parallelism: each one's logits over a prefill and
+    ``steps`` decode steps teacher-forced with the parent's tokens (the
+    launch counts set to 0 just before, read just after), then one
+    prefill timed with its collectives by kind and the peak memory; the
+    largest difference of the two runs' logits, and of each from the
+    parent's one-process logits, step by step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codesign import CodesignPlan
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Server
+    from repro_torch.parallel import collectives
+    from repro_torch.weights import shard_params
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    mesh = meshes["tp"]
+    saved = torch.load(ref_path)
+    ref = saved["logits"][:steps + 1].to("cuda")
+    out, logits = {}, {}
+    for sp in (False, True):
+        server = Server(cfg, mesh, device="cuda",
+                        max_len=batch["tokens"].shape[1] + GEN + 1,
+                        plan=CodesignPlan(sharding="tp", seq_parallel=sp))
+        server.params = shard_params(lm, cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        logits[sp], _ = _forced_run(torch, server, batch, saved["tokens"],
+                                    steps)
+        torch.cuda.synchronize()
+        run = {"launches": build.launch_counts()}
+        c0 = collectives.spent()
+        _, run["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
+        coll = collectives.spent_since(c0)
+        run["prefill_collective_share"] = {
+            "all": coll["seconds"] * 1e3 / run["prefill"]["wall_ms"],
+            **{k: v * 1e3 / run["prefill"]["wall_ms"]
+               for k, v in coll["kinds"].items()}}
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        run["vs_one_process_max_abs_err"] = (logits[sp] - ref).abs().amax(
+            dim=(1, 2)).tolist()
+        run["logits_digest"] = _digest(torch, logits[sp])
+        out["sp" if sp else "nosp"] = run
+        del server
+    out["sp_vs_nosp_max_abs_err"] = (logits[True] - logits[False]).abs(
+        ).amax(dim=(1, 2)).tolist()
+    out["logits_scale"] = logits[False].abs().max().item()
     return out
 
 
@@ -3447,6 +3525,7 @@ def _rank_train(torch, rank, meshes, root, spec):
     from repro_torch.kernels import build
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import ffn
+    from repro_torch.models import lm as lm_lib
     cfg = _train_cfg(spec)
     total = spec["steps"] + spec["more"] + 1
     saves, restores = [], []
@@ -3466,9 +3545,9 @@ def _rank_train(torch, rank, meshes, root, spec):
             def __iter__(self):
                 return itertools.islice(iter(src), skip, None)
         return From()
-    out = {"leaf_norms": [], "card_free_gib_at_start":
+    out = {"leaf_norms": [], "kept": [], "card_free_gib_at_start":
            torch.cuda.mem_get_info()[0] / 2**30}
-    _record_leaf_norms(torch, out["leaf_norms"])
+    _record_leaf_norms(torch, out["leaf_norms"], out["kept"])
     routes = ffn.RouteLog() if spec.get("routes") else None
     make_ctx = steps_lib.make_ctx
     with torch.enable_grad():
@@ -3487,6 +3566,7 @@ def _rank_train(torch, rank, meshes, root, spec):
             steps_lib.make_ctx = make_ctx
         a.init_state(SEED)
         out["params_held"] = sum(p.numel() for p in a.params.parameters())
+        lm_lib.reset_kept()
         out["log"] = _step_log(a.run(source(), spec["steps"],
                                      inject_failure_at=spec["fail_at"]))
         torch.cuda.synchronize()
@@ -3520,29 +3600,34 @@ def _rank_train(torch, rank, meshes, root, spec):
 
 def _rank_steps(torch, rank, meshes, spec, batches):
     """The rank's part of training ``spec``'s model on the ranks
-    (:data:`MESH_VLM_TRAIN`, :data:`MESH_FAMILY_TRAIN`):
-    ``make_train_step`` on ``spec["mesh"]`` under ``spec["plan"]`` on its
+    (:data:`MESH_VLM_TRAIN`, :data:`MESH_FAMILY_TRAIN`,
+    :data:`MESH_SP_TRAIN`): ``make_train_step`` on ``spec["mesh"]`` under
+    ``spec["plan"]`` (with ``spec["sp"]``, sequence parallelism) on its
     rows of ``batches`` (a VLM's carry patch embeddings, which the
     trainer's input feed does not make; an enc-dec's stub frames), each
-    step timed; the launch counts (set to 0 just before)."""
+    step timed; the values the checkpointed layer bodies keep at step 1;
+    the launch counts (set to 0 just before)."""
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.kernels import build
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm as lm_lib
     from repro_torch.models.api import build as build_api
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.parallel import collectives
     from repro_torch.weights import init_sharded
     cfg = _train_cfg(spec)
     mesh = meshes[spec["mesh"]]
-    plan = CodesignPlan(sharding=spec["plan"], seq_parallel=False)
-    out = {"leaf_norms": [], "log": []}
-    _record_leaf_norms(torch, out["leaf_norms"])
+    plan = CodesignPlan(sharding=spec["plan"],
+                        seq_parallel=spec.get("sp", False))
+    out = {"leaf_norms": [], "kept": [], "log": []}
+    _record_leaf_norms(torch, out["leaf_norms"], out["kept"])
     n = len(batches[0]["tokens"]) // mesh.axis_size(("data",))
     lo = mesh.axis_index(("data",)) * n
     with torch.enable_grad():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
+        lm_lib.reset_kept()
         lm = init_sharded(cfg, SEED, mesh, device="cuda", plan=plan,
                           trainable=True)
         out["params_held"] = sum(p.numel() for p in lm.parameters())
@@ -3569,19 +3654,23 @@ def _rank_steps(torch, rank, meshes, spec, batches):
     return out
 
 
-def _record_leaf_norms(torch, into: list) -> None:
+def _record_leaf_norms(torch, into: list, kept: list) -> None:
     """Wraps the train step's AdamW update in this rank so that its first
     call appends to ``into`` the whole norm of each gradient leaf (its
     squares summed over the axes the leaf is split over, each leaf held
     whole on several ranks counted once, a head-wise leaf's B and C columns
-    too: ``norm_weights``), in parameter order."""
+    too: ``norm_weights``), in parameter order, and to ``kept`` the values
+    the checkpointed layer bodies have kept since ``lm.reset_kept``: the
+    first step's, where it was reset just before."""
     from repro_torch.launch import steps
+    from repro_torch.models import lm as lm_lib
     from repro_torch.parallel.collectives import psum
     update = steps.adamw_update
 
     def first_call(grads, state, params, *, mesh=None, split_axes=None,
                    norm_weights=None, **kw):
         if not into:
+            kept.append(lm_lib.kept_values())
             groups: dict = {}
             for i, axes in enumerate(split_axes):
                 key = tuple(a for a in mesh.axis_names if a in axes)
@@ -3604,7 +3693,8 @@ def _record_leaf_norms(torch, into: list) -> None:
 
 MESH_PARTS = {"collectives": _rank_collectives, "serve": _rank_serve,
               "moe_layer": _rank_moe_layer, "pipeline": _rank_pipeline,
-              "train": _rank_train, "steps": _rank_steps}
+              "train": _rank_train, "steps": _rank_steps,
+              "sp_serve": _rank_sp_serve}
 
 
 def mesh_rank(rank, world, port, cmds, results):
@@ -3935,14 +4025,17 @@ def _restart_checks(outs, spec, root) -> dict:
         verify_ok=saved == [every] and verify_checkpoint(root, every))
 
 
-def mesh_train(torch, world, tmp, paths) -> dict:
+def mesh_train(torch, world, tmp, paths, nosp: dict) -> dict:
     """smollm-360m trained at full width on the ranks (``_rank_train``),
     checked against this process: the step-1 loss and gradient norm of a
     one-card step on the same weights and batch; every rank restored step
     ``every`` after the failure, then the same checkpoint at (4, 1); the
     one-card trainer restores it with the manifest's hashes (of each
     leaf's bytes, what a one-card save of that state would write).  The
-    record of the part, checks included (``*_ok``)."""
+    record of the part, checks included (``*_ok``); ``nosp`` gets its
+    (2, 2) trainer's step 1 (without sequence parallelism: loss, gradient
+    norm, leaf norms, kept values) and step walls, for
+    :func:`mesh_sp_train`."""
     from repro_torch.launch.train import Trainer
     spec = MESH_TRAIN
     cfg = _train_cfg(spec)
@@ -3956,6 +4049,12 @@ def mesh_train(torch, world, tmp, paths) -> dict:
     outs = world.run("train", root=root, spec=spec)
     paths["mesh_train"] = _summed(outs)
     logs = [o["log"] + o["elastic_log"] for o in outs]
+    nosp.update(loss=outs[0]["log"][0]["loss"],
+                grad_norm=outs[0]["log"][0]["grad_norm"],
+                leaves=outs[0]["leaf_norms"], names=step1["names"],
+                kept=[o["kept"][0] for o in outs],
+                wall_ms=[[r["wall_s"] * 1e3 for r in o["log"]]
+                         for o in outs])
 
     t0 = time.monotonic()
     restored = one.try_restore()
@@ -3978,6 +4077,7 @@ def mesh_train(torch, world, tmp, paths) -> dict:
                                                              step1),
         one_card_restore_s=one_restore_s, restored_step=step,
         peak_gib_2x2=[o["peak_gib_train"] for o in outs],
+        kept_values_step1=nosp["kept"],
         launches=paths["mesh_train"], hashes_ok=hashes_ok,
         no_kernel_ok=not any(paths["mesh_train"].values()))
 
@@ -4144,8 +4244,92 @@ def mesh_steps_train(torch, world, paths, spec, path, part, seed) -> dict:
         launches=paths[path], no_kernel_ok=not any(paths[path].values()))
 
 
+def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
+    """smollm-360m trained at (2, 2) under FSDP + TP with Megatron sequence
+    parallelism on the ranks (:data:`MESH_SP_TRAIN`, ``_rank_steps``) on
+    the train phase's first batches, held to the :data:`MESH_TRAIN`
+    trainer's step 1 without it (``nosp``, :func:`mesh_train`: the same
+    weights and batch on the same layout): the step-1 loss, gradient norm
+    and each gradient leaf's norm (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``,
+    ``MESH_LEAF_RTOL``), and the values the checkpointed layer bodies
+    kept at step 1, exactly 1 / m of those without the split (m = 2).
+    Per rank and step the wall ms and the collective share by kind, the
+    peak memory; no kernel launches.  The record, checks included."""
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenSource)
+    spec = MESH_SP_TRAIN
+    cfg = _train_cfg(spec)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in SyntheticTokenSource(cfg, PipelineConfig(
+                   TRAIN_BATCH, TRAIN_SEQ, seed=SEED),
+                   n_batches=spec["steps"])]
+    t0 = time.monotonic()
+    outs = world.run("steps", spec=spec, batches=batches)
+    ranks_s = time.monotonic() - t0
+    paths["mesh_sp_train"] = _summed(outs)
+    logs = [o["log"] for o in outs]
+    loss, norm = logs[0][0]["loss"], logs[0][0]["grad_norm"]
+    leaf_err = [abs(a - b) / b for a, b in zip(outs[0]["leaf_norms"],
+                                                nosp["leaves"])]
+    worst = max(range(len(leaf_err)), key=leaf_err.__getitem__)
+    m = MESH_RANKS // 2
+    kept = [o["kept"][0] for o in outs]
+    want_kept = (TRAIN_BATCH // 2) * TRAIN_SEQ * cfg.d_model * cfg.n_layers
+    wall = [[r["wall_s"] * 1e3 for r in lg] for lg in logs]
+    mean = lambda rows: sum(map(sum, rows)) / sum(map(len, rows))
+
+    def share(key):
+        return [[(r["collective_s"] if key is None else
+                  r["collective_kinds_s"].get(key, 0.0)) / r["wall_s"]
+                 for r in lg] for lg in logs]
+    return emit(
+        "mesh", part="smollm-360m training, sequence parallel",
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, label=MESH_LABEL,
+        mesh=[2, m], plan=spec["plan"], seq_parallel=True,
+        params_per_rank=[o["params_held"] for o in outs],
+        steps_logged=[r["step"] for r in logs[0]],
+        losses=[r["loss"] for r in logs[0]],
+        grad_norms=[r["grad_norm"] for r in logs[0]],
+        nosp_step1_loss=nosp["loss"], sp_step1_loss=loss,
+        nosp_step1_grad_norm=nosp["grad_norm"], sp_step1_grad_norm=norm,
+        step1_loss_rel=abs(loss - nosp["loss"]) / abs(nosp["loss"]),
+        step1_grad_norm_rel=abs(norm - nosp["grad_norm"])
+        / abs(nosp["grad_norm"]),
+        step1_leaves=len(leaf_err), step1_worst_leaf=nosp["names"][worst],
+        step1_worst_leaf_rel=leaf_err[worst],
+        step1_worst_leaf_norms=[outs[0]["leaf_norms"][worst],
+                                nosp["leaves"][worst]],
+        kept_values_step1=kept, nosp_kept_values_step1=nosp["kept"],
+        kept_values_expected_nosp=want_kept,
+        kept_ratio=[a / b for a, b in zip(kept, nosp["kept"])],
+        step_wall_ms=wall, nosp_step_wall_ms=nosp["wall_ms"],
+        step_ms_ratio_to_nosp=mean(wall) / mean(nosp["wall_ms"]),
+        step_collective_share=share(None), step_fsdp_share=share("fsdp"),
+        step_seq_share=share("seq"),
+        peak_gib=[o["peak_gib"] for o in outs], ranks_s=ranks_s,
+        launches=paths["mesh_sp_train"],
+        loss_ok=abs(loss - nosp["loss"])
+        <= MESH_LOSS_RTOL * abs(nosp["loss"]),
+        grad_norm_ok=abs(norm - nosp["grad_norm"])
+        <= MESH_NORM_RTOL * abs(nosp["grad_norm"]),
+        leaf_norms_ok=len(leaf_err) == len(nosp["leaves"])
+        and all(o["leaf_norms"] == outs[0]["leaf_norms"] for o in outs)
+        and leaf_err[worst] <= MESH_LEAF_RTOL,
+        kept_ok=all(k * m == n == want_kept
+                    for k, n in zip(kept, nosp["kept"])),
+        seq_ok=all(r["collective_kinds_s"].get("seq", 0.0) > 0
+                   for lg in logs for r in lg),
+        losses_ok=all(math.isfinite(r["loss"]) for lg in logs for r in lg),
+        same_ok=all([(r["step"], r["loss"]) for r in lg]
+                    == [(r["step"], r["loss"]) for r in logs[0]]
+                    for lg in logs),
+        no_kernel_ok=not any(paths["mesh_sp_train"].values()))
+
+
 def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
-                  path, kv_digest=None, launches=None, gen=GEN) -> dict:
+                  path, kv_digest=None, launches=None, gen=GEN,
+                  sp_steps=0) -> dict:
     """``cfg`` served at TP 4 (mesh (1, 4)) by the ranks on views of this
     process's weights (a Mamba2 layer's head-wise leaves copied):
     ``Server(cfg, mesh).generate`` (rank 0 streams through the mover),
@@ -4155,7 +4339,10 @@ def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
     items under the accel digest.  ``launches``: each kernel's launches
     over the 4 ranks' ``generate`` of ``gen`` tokens (default a decoder's:
     flash once per layer per rank per prefill, decode once per layer per
-    rank per step).  An SSM or hybrid is held, as its one-card phase is,
+    rank per step).  With ``sp_steps``, the ranks then serve a prefill and
+    ``sp_steps`` teacher-forced steps with and without Megatron sequence
+    parallelism (``_rank_sp_serve``), held to each other as the ranks are
+    held to this process (the second record).  An SSM or hybrid is held, as its one-card phase is,
     to twice the bf16 noise floor (``NOISE_FACTOR``: the plain path against
     the same path in f32) instead: its 38-48 layers of bf16 put the
     one-card kernel path 3.6-3.8% of the scale off the plain path on an
@@ -4239,12 +4426,61 @@ def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
         need(paths, f"{path}_stage_kv", ("digest_items",))
         _launches_per_layer(paths, f"{path}_stage_kv", "digest_items",
                             stage["folds"])
+    if sp_steps:
+        records.append(_mesh_sp_serve(torch, world, paths, cfg,
+                                      server.params, batch, sp_steps, path,
+                                      ref_path, tol, m))
     del server, one
     gc.collect()
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     records.append(emit("phase_time", of=f"mesh {cfg.name}",
                         seconds=time.monotonic() - t_part))
+    return rec
+
+
+def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
+                   ref_path, tol, m) -> dict:
+    """``cfg`` served at TP ``m`` with and without Megatron sequence
+    parallelism (``_rank_sp_serve`` on the weights the ranks viewed for
+    ``path``): the split run's logits held to the unsplit run's within
+    ``tol`` (the tolerance the ranks were held to against this process),
+    every rank the same, both runs through the kernels (flash, or the SSD
+    scan, once per layer per rank per prefill); the record."""
+    outs = world.run("sp_serve", lm=lm, arch=cfg.name,
+                     layers=cfg.n_layers, batch=batch, steps=steps,
+                     ref_path=ref_path)
+    for run in ("nosp", "sp"):
+        paths[f"{path}_{run}"] = _summed([o[run] for o in outs])
+    err = max(max(o["sp_vs_nosp_max_abs_err"]) for o in outs)
+    prefill = ("ssd_scan" if cfg.family in ("ssm", "hybrid")
+               else "flash_attention")
+    rec = emit(
+        "mesh", part=f"{cfg.name} TP {m}, sequence parallel",
+        arch=cfg.name, mesh=[1, m], layers=cfg.n_layers,
+        batch=len(batch["tokens"]), prompt=batch["tokens"].shape[1],
+        teacher_forced_steps=steps, label=MESH_LABEL, seq_parallel=True,
+        prefill={r: [o[r]["prefill"] for o in outs] for r in ("nosp", "sp")},
+        prefill_collective_share={
+            r: [o[r]["prefill_collective_share"] for o in outs]
+            for r in ("nosp", "sp")},
+        peak_gib={r: [o[r]["peak_gib"] for o in outs]
+                  for r in ("nosp", "sp")},
+        launches={r: paths[f"{path}_{r}"] for r in ("nosp", "sp")},
+        sp_vs_nosp_max_abs_err=[o["sp_vs_nosp_max_abs_err"] for o in outs],
+        vs_one_process_max_abs_err={
+            r: [o[r]["vs_one_process_max_abs_err"] for o in outs]
+            for r in ("nosp", "sp")},
+        logits_scale=outs[0]["logits_scale"], logits_tol=tol,
+        logits_ok=err <= tol,
+        same_ok=len({o["sp"]["logits_digest"] for o in outs}) == 1,
+        seq_ok=all(o["sp"]["prefill_collective_share"].get("seq", 0) > 0
+                   and o["nosp"]["prefill_collective_share"].get("seq", 0)
+                   == 0 for o in outs),
+        kernels_ok=all(paths[f"{path}_{r}"][prefill] == m * cfg.n_layers
+                       for r in ("nosp", "sp")))
+    checked(rec, f"{cfg.name} under sequence parallelism",
+            ("logits_ok", "same_ok", "seq_ok", "kernels_ok"))
     return rec
 
 
@@ -4427,7 +4663,8 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         # ---- phi3-mini at TP 4 -------------------------------------------
         batch = _prompts(torch, phi3, pB, pS, rng)
         mesh_tp_serve(torch, world, tmp, paths, records, phi3, batch,
-                      MESH_PHI3["steps"], "mesh_phi3", kv_digest=kv_digest)
+                      MESH_PHI3["steps"], "mesh_phi3", kv_digest=kv_digest,
+                      sp_steps=MESH_SP_STEPS)
 
         # ---- mixtral at EP 4 ---------------------------------------------
         t_part = time.monotonic()
@@ -4561,7 +4798,8 @@ def mesh_phase(torch, paths, rng, records) -> dict:
             mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch,
                           spec["steps"], f"mesh_{name}",
                           launches=_family_launches(cfg, m, spec["gen"]),
-                          gen=spec["gen"])
+                          gen=spec["gen"],
+                          sp_steps=MESH_SP_STEPS if name == "mamba2" else 0)
 
         # ---- smollm-360m trained on the mesh, the elastic restore ----------
         train_checks = ("loss_ok", "grad_norm_ok", "leaf_norms_ok",
@@ -4569,7 +4807,8 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         restart_checks = ("failure_ok", "elastic_ok", "elastic_step_ok",
                           "verify_ok")
         t_part = time.monotonic()
-        rec = mesh_train(torch, world, tmp, paths)
+        nosp: dict = {}
+        rec = mesh_train(torch, world, tmp, paths, nosp)
         records.append(rec)
         checked(rec, "training on the mesh", train_checks + restart_checks
                 + ("hashes_ok",))
@@ -4589,6 +4828,16 @@ def mesh_phase(torch, paths, rng, records) -> dict:
             checked(rec, f"{name}'s training on the mesh", train_checks)
             records.append(emit("phase_time", of=f"mesh {name} train",
                                 seconds=time.monotonic() - t_part))
+
+        # ---- smollm-360m trained under sequence parallelism ---------------
+        t_part = time.monotonic()
+        rec = mesh_sp_train(torch, world, paths, nosp)
+        records.append(rec)
+        checked(rec, "training under sequence parallelism on the mesh",
+                ("loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
+                 "seq_ok", "losses_ok", "same_ok", "no_kernel_ok"))
+        records.append(emit("phase_time", of="mesh sp train",
+                            seconds=time.monotonic() - t_part))
 
         # ---- qwen3-moe trained on the mesh, the elastic restore ------------
         t_part = time.monotonic()

@@ -81,7 +81,12 @@ divide over them); the dense and MoE families run there (tensor-parallel
 attention and MLP, expert- or tensor-parallel experts).  Every model rank
 ends a step with the same logits and tokens; the step's tokens of the
 whole batch are gathered over the data axes, and global rank 0 alone
-streams them through the mover.  On N cards, one rank per card over NCCL:
+streams them through the mover.  ``plan=`` takes a ``CodesignPlan``, the
+reference's ``CodesignPlan(sharding="tp", seq_parallel=False)`` by
+default; with ``seq_parallel=True`` a prefill holds each model rank's
+chunk of the prompt between the layers (Megatron sequence parallelism,
+``models/blocks.py``; not for a config with MoE layers), and decode is
+the same.  On N cards, one rank per card over NCCL:
 
   torchrun --nproc-per-node N prog.py     # prog.py: init_world("nccl",
       # rank=RANK, world_size=WORLD_SIZE, init_method="env://"...),
@@ -109,6 +114,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.codesign import CodesignPlan
 from repro_torch.core.basin import decode_fanout_basin, decode_stream_basin
 from repro_torch.core.mover import MoverConfig, UnifiedDataMover
 from repro_torch.core.planner import plan_transfer
@@ -201,6 +207,7 @@ class Server:
     def __init__(self, cfg, mesh=None, *,
                  device: Optional[torch.device | str] = None,
                  max_len: int = 512,
+                 plan: Optional[CodesignPlan] = None,
                  telemetry: Optional[TelemetryRegistry] = None,
                  replan_every_tokens: int = 0):
         self.device = resolve_device(device)
@@ -208,7 +215,8 @@ class Server:
         self.api = build(cfg)
         self.mesh = mesh
         self.max_len = max_len
-        self.ctx = steps_lib.make_ctx(self.api, mesh, impl="cuda")
+        self.plan = plan or CodesignPlan(sharding="tp", seq_parallel=False)
+        self.ctx = steps_lib.make_ctx(self.api, mesh, self.plan, impl="cuda")
         self.telemetry = telemetry if telemetry is not None else get_registry()
         self.replan_every_tokens = replan_every_tokens
         self.params = None

@@ -11,7 +11,12 @@ After the backward pass the gradient exchange completes what the
 collectives' backward left: a leaf split over the data axis already has
 its gradient summed over it (``fsdp_gather``'s reduce-scatter); a leaf
 that is not is summed over the data axes here (one f32 ``psum`` for all
-of them).  The exchange is exact, in f32: the JAX package's step never
+of them).  Under a plan's sequence parallelism (``seq_parallel``,
+``models/blocks.py``) the norm scales are applied to each model rank's
+chunk of the sequence, so their gradients are partial on each model rank
+and are summed over the model axis too (:func:`chunked_leaves`); the
+global norm then counts each of them once, as any leaf held alike by the
+model ranks.  The exchange is exact, in f32: the JAX package's step never
 calls ``compressed_psum``, so neither does this one.  The AdamW update
 of a block is elementwise; only the global norm crosses ranks.  Without
 a mesh the same step runs on one card.  It runs the model's plain path
@@ -98,7 +103,8 @@ def make_train_step(api: ModelApi, mesh=None,
         split = norm_weights = None
         if mesh is not None:
             specs = [ctx.specs[jax_path(n)] for n in names]
-            grads = _exchange(grads, specs, ctx)
+            grads = _exchange(grads, specs, ctx,
+                              chunked_leaves(names, api.cfg, ctx, batch))
             split = [spec_axes(s) for s in specs]
             norm_weights = [norm_weight(s, mesh, g.device)
                             for s, g in zip(specs, grads)]
@@ -119,15 +125,45 @@ def make_train_step(api: ModelApi, mesh=None,
     return step, ctx
 
 
-def _exchange(grads, specs, ctx: ShardCtx) -> list[torch.Tensor]:
+#: the norm scales' leaf names: each is applied to the layer-boundary
+#: activation, the rank's chunk of the sequence under sequence parallelism
+NORM_LEAVES = ("ln", "ln1", "ln2", "ln3", "final_norm", "enc_norm")
+
+
+def chunked_leaves(names: list[str], cfg, ctx: ShardCtx,
+                   batch: dict) -> list[bool]:
+    """For each parameter (by its ``named_parameters`` name), whether the
+    step applied it to the rank's chunk of a sequence (sequence
+    parallelism, ``ShardCtx.shards_act``), so that its gradient is
+    partial on each model rank: the norm scales of a stack whose sequence
+    the context split.  An enc-dec's encoder (``enc_layers``,
+    ``enc_norm``) runs over its ``frames``, its decoder over its
+    ``tokens``; a decoder's sequence is its tokens after a VLM's
+    patches."""
+    s_dec = batch["tokens"].shape[1] + (
+        cfg.frontend_len if cfg.frontend and cfg.family != "encdec" else 0)
+    sp_dec = ctx.shards_act(s_dec)
+    sp_enc = "frames" in batch and ctx.shards_act(batch["frames"].shape[1])
+    return [n.split(".")[-1] in NORM_LEAVES
+            and (sp_enc if n.split(".")[0] in ("enc_layers", "enc_norm")
+                 else sp_dec) for n in names]
+
+
+def _exchange(grads, specs, ctx: ShardCtx,
+              chunked: Optional[list[bool]] = None) -> list[torch.Tensor]:
     """Each gradient summed over the data axes its leaf is not split over
-    (a split leaf's was summed by its gather's backward), in f32: the
+    (a split leaf's was summed by its gather's backward), and over the
+    model axis too where ``chunked`` (:func:`chunked_leaves`), in f32: the
     leaves that need the same axes travel as one flat f32 ``psum``."""
     from repro_torch.parallel.collectives import psum
     out = [g.float() for g in grads]
+    chunked = chunked or [False] * len(out)
     groups: dict[tuple[str, ...], list[int]] = {}
     for i, spec in enumerate(specs):
-        rest = tuple(a for a in ctx.batch_axes if a not in spec_axes(spec))
+        rest = {a for a in ctx.batch_axes if a not in spec_axes(spec)}
+        if chunked[i]:
+            rest.add(ctx.model_axis)
+        rest = tuple(a for a in ctx.mesh.axis_names if a in rest)
         if ctx.mesh.axis_size(rest) > 1:
             groups.setdefault(rest, []).append(i)
     for axes in sorted(groups):
@@ -196,11 +232,15 @@ def make_ctx(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
     """The model context of ``mesh`` (None: one device); with ``train``,
     a training mesh's under ``plan``: ``specs`` maps each parameter's JAX
     path to what the rank holds of it (``sharding.rank_spec``).  A plan's
-    sequence parallelism is a memory layout that is not ported."""
-    if plan is not None and plan.seq_parallel:
+    ``seq_parallel`` is recorded on the context (Megatron sequence
+    parallelism, ``models/blocks.py``); it is refused for a config with
+    MoE layers, whose sequence-parallel layout is not ported."""
+    seq_parallel = plan is not None and plan.seq_parallel
+    if seq_parallel and api.cfg.moe:
         raise NotImplementedError(
-            "seq_parallel is a memory layout that is not ported (ROADMAP "
-            "queue 1: sequence parallelism)")
+            f"{api.cfg.name}: seq_parallel with MoE layers is not ported "
+            "(ROADMAP.md queue 1: the MoE family under sequence "
+            "parallelism)")
     axes = batch_axes_of(mesh) if mesh is not None else ("data",)
     specs = None
     if train:
@@ -209,7 +249,8 @@ def make_ctx(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
         specs = {jax_path(n): rank_spec(n, s, api.cfg, mesh, fsdp=fsdp)
                  for n, s in param_shapes(api.cfg).items()}
     return ShardCtx(impl=impl, mesh=mesh, batch_axes=axes,
-                    model_axis="model", specs=specs)
+                    model_axis="model", specs=specs,
+                    seq_parallel=seq_parallel)
 
 
 def make_serve_step(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,

@@ -25,9 +25,22 @@ computes its own part, Megatron-style, by the rule table of
 A head is never split: where the heads do not divide the model axis, the
 rank computes them whole (:class:`HeadPlan`).  Activations hold the
 rank's rows of the batch (split over the data axes) and are whole over
-the model axis.  The JAX package's sequence-parallel layouts
-(``seq_parallel``, ``seq_parallel_attn``) are memory layouts and are not
-ported.
+the model axis, but under Megatron sequence parallelism
+(``ShardCtx.seq_parallel``, a plan's ``seq_parallel``): there a
+layer-boundary activation (B, S, D) holds the rank's chunk of the
+sequence, rows ``[i S/m, (i + 1) S/m)`` for model index i of m, wherever
+the JAX package's ``shard_act`` shards it (:meth:`ShardCtx.shards_act`:
+m > 1, S > 1 and m divides S; a decode step's S = 1 never).  The norms
+run on the chunk; a region (attention, the MLP, a Mamba2 block, the
+head) is entered by gathering the sequence over the model axis and left
+by reducing its partial sums and scattering the chunks back
+(:meth:`ShardCtx.seq_enter`, :meth:`ShardCtx.seq_leave`; where the rank
+computes the region whole, it gathers and keeps its own chunk).
+Attention and RoPE see the gathered sequence at positions ``0..S-1``, so
+the kernels run at the shapes they run without it.  The residuals a
+layer keeps for the backward pass then cost 1/m of the memory.  The
+JAX package's query-sequence split of attention (``seq_parallel_attn``)
+is not ported: where the heads divide nothing they are computed whole.
 
 On a training mesh (``ShardCtx.specs``: what the rank holds of each
 parameter, ``sharding.rank_spec``) the same forward carries gradients
@@ -38,7 +51,12 @@ never the whole model at once; the MoE's exchanges carry gradients
 (``ffn.moe_ep`` / ``moe_tp``);
 every region whose weights are split over the model axis is entered with
 ``enter_region`` (its input's gradient summed over the model axis) and
-left with ``leave_region``; a weight held whole while the rank computes
+left with ``leave_region`` (under sequence parallelism, ``gather_seq``
+and ``scatter_seq`` in their place: the gradient of the gathered input
+reduce-scattered, that of the chunk gathered; the norm scales, applied
+to each rank's chunk, then have a gradient that is partial on each model
+rank, which the train step sums over the model axis,
+``launch/steps.py``); a weight held whole while the rank computes
 only its heads' share of its use (``wk`` / ``wv`` where the query heads
 divide the model axis and the KV heads do not) enters too, so its
 gradient is summed over the model axis.  Where the heads divide nothing,
@@ -105,6 +123,9 @@ class ShardCtx:
     #: path (a layer's entry without the stacked layer axis); None serves
     specs: Optional[Mapping[str, tuple]] = dataclasses.field(
         default=None, compare=False, repr=False)
+    #: Megatron-SP: layer-boundary activations hold the rank's chunk of
+    #: the sequence (:meth:`shards_act`)
+    seq_parallel: bool = False
 
     def __post_init__(self):
         if self.impl not in ("cuda", "ref"):
@@ -176,6 +197,39 @@ class ShardCtx:
             return x
         from repro_torch.parallel.collectives import enter_region
         return enter_region(x, self.mesh, self.model_axis)
+
+    def shards_act(self, s: int) -> bool:
+        """Whether a layer-boundary activation of ``s`` positions holds
+        this rank's chunk of the sequence: the JAX package's ``shard_act``
+        test, under ``seq_parallel`` on a model axis m > 1 where s > 1 and
+        m divides s."""
+        m = self._model_size()
+        return self.seq_parallel and m > 1 and s > 1 and s % m == 0
+
+    def seq_enter(self, x: torch.Tensor, partial: bool,
+                  sp: bool) -> torch.Tensor:
+        """``x`` (B, S', D) as it enters a region (:meth:`enter`).  Under
+        sequence parallelism (``sp``, :meth:`shards_act` of the whole
+        sequence) ``x`` is the rank's chunk and the whole sequence is
+        gathered over the model axis (``collectives.gather_seq``: where
+        the ranks share the work, ``partial``, its gradient is summed and
+        scattered back; else the rank keeps its own chunk of it)."""
+        if not sp:
+            return self.enter(x, partial)
+        from repro_torch.parallel.collectives import gather_seq
+        return gather_seq(x, self.mesh, self.model_axis, 1, partial=partial)
+
+    def seq_leave(self, y: torch.Tensor, partial: bool,
+                  sp: bool) -> torch.Tensor:
+        """A region's output ``y`` (B, S, D) as it leaves (:meth:`model_sum`).
+        Under sequence parallelism (``sp``) the rank's chunk of the
+        sequence: of the sum over the model axis where ``y`` is a
+        ``partial`` sum (``collectives.scatter_seq``: a reduce-scatter,
+        its gradient gathered), else of ``y`` itself."""
+        if not sp:
+            return self.model_sum(y, partial)
+        from repro_torch.parallel.collectives import scatter_seq
+        return scatter_seq(y, self.mesh, self.model_axis, 1, partial=partial)
 
     def gathered(self, module: Any, prefix: str) -> Any:
         """``module``'s parameters as the layer uses them: on a training
@@ -383,10 +437,14 @@ def self_attention_block(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """QKV projections + RoPE + attention (causal unless told otherwise)
     over this step's keys, over the rank's heads (``ctx.heads``).  Returns
-    (out, k_new, v_new), k_new/v_new post-RoPE (the cache's entries)."""
-    B, S, D = x.shape
+    (out, k_new, v_new), k_new/v_new post-RoPE (the cache's entries).
+    Under sequence parallelism (``ctx.shards_act`` of the ``q_pos``
+    positions) ``x`` and ``out`` are the rank's chunk of the sequence,
+    k_new/v_new the whole sequence's (of the rank's heads)."""
     hp = ctx.heads(cfg)
-    x = ctx.enter(x, hp.q_split)
+    sp = ctx.shards_act(q_pos.shape[0])
+    x = ctx.seq_enter(x, hp.q_split, sp)
+    B, S, D = x.shape
     # wk / wv held whole, used for this rank's heads only
     wk, wv = (ctx.enter(w, hp.kv is not None) for w in (p.wk, p.wv))
     q = (x @ p.wq).reshape(B, S, hp.hq, cfg.hd)
@@ -397,16 +455,19 @@ def self_attention_block(
     out = attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
                     window=window, impl=ctx.impl)
     out = out.reshape(B, S, hp.hq * cfg.hd)
-    return ctx.model_sum(out @ p.wo, hp.q_split), k, v
+    return ctx.seq_leave(out @ p.wo, hp.q_split, sp), k, v
 
 
 def mlp_apply(h: torch.Tensor, p: MlpParams, cfg: ModelConfig,
-              ctx: ShardCtx) -> torch.Tensor:
+              ctx: ShardCtx, sp: bool = False) -> torch.Tensor:
     """SwiGLU over the ``d_ff`` columns the rank holds, summed over the
-    model axis where they are a share of ``cfg.d_ff``."""
+    model axis where they are a share of ``cfg.d_ff``; with ``sp``
+    (sequence parallelism) on the rank's chunk of the sequence, gathered
+    before ``w_gate`` / ``w_up`` and scattered after ``w_down``."""
     partial = p.w_gate.shape[-1] < cfg.d_ff
-    y = ffn_lib.swiglu(ctx.enter(h, partial), p.w_gate, p.w_up, p.w_down)
-    return ctx.model_sum(y, partial)
+    y = ffn_lib.swiglu(ctx.seq_enter(h, partial, sp), p.w_gate, p.w_up,
+                       p.w_down)
+    return ctx.seq_leave(y, partial, sp)
 
 
 def dense_layer_apply(
@@ -417,25 +478,32 @@ def dense_layer_apply(
     """Full pre-norm transformer layer (no cache), causal unless told
     otherwise; on a training mesh its weights are gathered first
     (:meth:`ShardCtx.gathered`; ``prefix``: the layer's path in the JAX
-    tree, ``shared_attn`` for the hybrid's shared block)."""
+    tree, ``shared_attn`` for the hybrid's shared block).  Under sequence
+    parallelism (``ctx.shards_act`` of the ``positions``) ``x`` and the
+    result are the rank's chunk of the sequence."""
     p = ctx.gathered(p, prefix)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, _, _ = self_attention_block(
         h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window,
         causal=causal)
     x = x + attn_out
-    return x + mlp_apply(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg, ctx)
+    return x + mlp_apply(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg, ctx,
+                         ctx.shards_act(positions.shape[0]))
 
 
 def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
-              ctx: ShardCtx) -> tuple[torch.Tensor, Optional[torch.Tensor],
-                                      Optional[torch.Tensor]]:
+              ctx: ShardCtx, sp: bool = False
+              ) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                         Optional[torch.Tensor]]:
     """The layer's feed-forward on its normed input: (y, load-balance loss,
     router z-loss), the losses None for a dense layer's SwiGLU.  ``p`` is
-    the layer (or, on a training mesh, its gathered namespace)."""
+    the layer (or, on a training mesh, its gathered namespace); ``sp``: a
+    dense layer's input is the rank's chunk of the sequence
+    (:func:`mlp_apply`; ``launch.steps.make_ctx`` refuses sequence
+    parallelism for MoE layers)."""
     m = getattr(p, "moe", None)
     if m is None:
-        return mlp_apply(h, p.mlp, cfg, ctx), None, None
+        return mlp_apply(h, p.mlp, cfg, ctx, sp), None, None
     impl = ctx.choose_moe(cfg)
     if impl in ("ep", "tp"):
         fn = ffn_lib.moe_ep if impl == "ep" else ffn_lib.moe_tp

@@ -32,6 +32,16 @@ training mesh each layer's weights are gathered over the data axis as it
 is reached, the encoder states enter the decoder's region once (every
 layer's cross K/V read the rank's heads of them), and the loss is the
 global token mean (``lm.mesh_ce``).
+
+Under Megatron sequence parallelism (``ctx.seq_parallel``) the encoder's
+and the decoder's layer-boundary activations each hold the rank's chunk
+of their own sequence where ``ctx.shards_act`` of its length holds (the
+two lengths may differ): ``frame_proj`` runs on the whole frames and the
+rank keeps its chunk; the encoder states, normed on the chunk, are
+gathered once as they enter the decoder's cross attention
+(:func:`encoder_states`), so every layer's cross K/V and a prefill's
+cross cache cover every encoder slot.  The enc-dec prefill decodes one
+token and is untouched.
 """
 
 from __future__ import annotations
@@ -125,56 +135,77 @@ def _enc_layer(h, lp: DenseLayer, cfg, ctx, positions):
 def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
            ctx: ShardCtx) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states (B, S_enc,
-    D) bf16."""
+    D) bf16; under sequence parallelism (``ctx.shards_act(S_enc)``) the
+    rank's chunk of them (:func:`encoder_states` gathers them)."""
     w = _weight(params, "frame_proj", ctx)
     # bf16 frames; with f32 weights promoted to f32, as JAX promotes them
     x = frames.to(torch.bfloat16).to(w.dtype) @ w
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    S = x.shape[1]
+    x = ctx.seq_leave(x, False, ctx.shards_act(S))
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     body = _remat(_enc_layer, _layer_remat(cfg, ctx, "enc_layers/"))
     for lp in params.enc_layers:
         x = body(x, lp, cfg, ctx, positions)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
+def encoder_states(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
+                   ctx: ShardCtx) -> torch.Tensor:
+    """The encoder states (B, S_enc, D) as they enter the decoder's cross
+    attention, whole on every rank: every layer's cross K/V read the
+    rank's heads of them (on a training mesh their gradient is summed
+    over the model axis where the heads split it); under sequence
+    parallelism the chunks :func:`encode` leaves, gathered once."""
+    enc_out = encode(params, cfg, frames, ctx)
+    return ctx.seq_enter(enc_out, ctx.heads(cfg).q_split,
+                         ctx.shards_act(frames.shape[1]))
+
+
 def _cross_block(hc: torch.Tensor, enc_out: torch.Tensor, p: AttnParams,
                  cfg: ModelConfig, ctx: ShardCtx, positions: torch.Tensor,
-                 enc_positions: torch.Tensor) -> torch.Tensor:
+                 enc_positions: torch.Tensor, sp: bool = False
+                 ) -> torch.Tensor:
     """Cross attention (no RoPE: the encoder memory is position-agnostic)
     of the normed decoder states ``hc`` over ``enc_out``, over the rank's
     heads (``ctx.heads``; ``enc_out`` has entered the region already).
-    Query and key lengths differ, so it takes the plain path."""
-    B, S, _ = hc.shape
+    Query and key lengths differ, so it takes the plain path.  With
+    ``sp`` (sequence parallelism) ``hc`` and the output are the rank's
+    chunk of the decoder's sequence."""
     hp = ctx.heads(cfg)
-    hc = ctx.enter(hc, hp.q_split)
+    hc = ctx.seq_enter(hc, hp.q_split, sp)
+    B, S, _ = hc.shape
     wk, wv = (ctx.enter(w, hp.kv is not None) for w in (p.wk, p.wv))
     qc = (hc @ p.wq).reshape(B, S, hp.hq, cfg.hd)
     kc = hp.take_kv((enc_out @ wk).reshape(B, enc_out.shape[1], -1, cfg.hd))
     vc = hp.take_kv((enc_out @ wv).reshape(B, enc_out.shape[1], -1, cfg.hd))
     out = attention(qc, kc, vc, q_pos=positions, k_pos=enc_positions,
                     causal=False, impl="ref")
-    return ctx.model_sum(out.reshape(B, S, hp.hq * cfg.hd) @ p.wo,
-                         hp.q_split)
+    return ctx.seq_leave(out.reshape(B, S, hp.hq * cfg.hd) @ p.wo,
+                         hp.q_split, sp)
 
 
 def _dec_layer(h, lp: DecLayer, cfg, ctx, positions, enc_out, enc_positions):
     lp = ctx.gathered(lp, "dec_layers")
+    sp = ctx.shards_act(positions.shape[0])
     attn_out, _, _ = self_attention_block(
         rms_norm(h, lp.ln1, cfg.norm_eps), lp.attn, cfg, ctx,
         q_pos=positions, k_pos=positions)
     h = h + attn_out
     h = h + _cross_block(rms_norm(h, lp.ln2, cfg.norm_eps), enc_out,
-                         lp.cross, cfg, ctx, positions, enc_positions)
-    return h + mlp_apply(rms_norm(h, lp.ln3, cfg.norm_eps), lp.mlp, cfg, ctx)
+                         lp.cross, cfg, ctx, positions, enc_positions, sp)
+    return h + mlp_apply(rms_norm(h, lp.ln3, cfg.norm_eps), lp.mlp, cfg, ctx,
+                         sp)
 
 
 def _decoder_stack(params: EncDec, cfg: ModelConfig, x: torch.Tensor,
-                   enc_out: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    """The decoder layers over ``x``; every layer's cross K/V read the
-    rank's heads of ``enc_out``, which enters the region once."""
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+                   enc_out: torch.Tensor, ctx: ShardCtx,
+                   S: int) -> torch.Tensor:
+    """The decoder layers over ``x`` (a sequence of ``S`` positions: under
+    sequence parallelism ``x`` is the rank's chunk); every layer's cross
+    K/V read the rank's heads of ``enc_out`` (:func:`encoder_states`)."""
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     enc_positions = torch.arange(enc_out.shape[1], dtype=torch.int32,
                                  device=x.device)
-    enc_out = ctx.enter(enc_out, ctx.heads(cfg).q_split)
     body = _remat(_dec_layer, _layer_remat(cfg, ctx, "dec_layers/"))
     for lp in params.dec_layers:
         x = body(x, lp, cfg, ctx, positions, enc_out, enc_positions)
@@ -183,18 +214,21 @@ def _decoder_stack(params: EncDec, cfg: ModelConfig, x: torch.Tensor,
 
 def _dec_hidden(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
                 dec_tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    """The teacher-forced forward up to the final norm: (B, S_dec, D)."""
-    enc_out = encode(params, cfg, frames, ctx)
-    x = _embed(params, cfg, dec_tokens, ctx)
-    return _decoder_stack(params, cfg, x, enc_out, ctx)
+    """The teacher-forced forward up to the final norm: (B, S_dec, D), under
+    sequence parallelism the rank's chunk of it."""
+    enc_out = encoder_states(params, cfg, frames, ctx)
+    S = dec_tokens.shape[1]
+    x = _embed(params, cfg, dec_tokens, ctx, ctx.shards_act(S))
+    return _decoder_stack(params, cfg, x, enc_out, ctx, S)
 
 
 def forward_encdec(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
                    dec_tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """Teacher-forced forward: (B, S_dec, V) logits (on a mesh, the whole
     vocab's on every model rank)."""
-    return _logits(params, cfg,
-                   _dec_hidden(params, cfg, frames, dec_tokens, ctx), ctx)
+    x = _dec_hidden(params, cfg, frames, dec_tokens, ctx)
+    x = ctx.seq_enter(x, False, ctx.shards_act(dec_tokens.shape[1]))
+    return _logits(params, cfg, x, ctx)
 
 
 def encdec_loss(params: EncDec, cfg: ModelConfig, batch: dict,
@@ -206,7 +240,7 @@ def encdec_loss(params: EncDec, cfg: ModelConfig, batch: dict,
     if ctx.training:
         ce = mesh_ce(params, cfg, _dec_hidden(params, cfg, batch["frames"],
                                               batch["tokens"], ctx),
-                     batch, ctx)
+                     batch, ctx, ctx.shards_act(batch["tokens"].shape[1]))
         return ce, {"ce": ce}
     logits = forward_encdec(params, cfg, batch["frames"], batch["tokens"],
                             ctx)
@@ -316,7 +350,7 @@ def prefill_encdec(params: EncDec, cfg: ModelConfig, batch: dict,
     cross K/V, and decode the first decoder token ``tokens[:, :1]`` (the
     rest of the decoder prompt is not read, as there).  Returns (logits
     (B, 1, V), cache at position 1)."""
-    enc_out = encode(params, cfg, batch["frames"], ctx)
+    enc_out = encoder_states(params, cfg, batch["frames"], ctx)
     cache = init_encdec_cache(cfg, enc_out.shape[0], max_len, 0, ctx,
                               device=enc_out.device)
     cache["cross_k"], cache["cross_v"] = cross_kv(params, cfg, enc_out, ctx)

@@ -60,11 +60,27 @@ added as ``lm_loss`` adds them, and a VLM scores its text tail alone.
 The hybrid's shared block is gathered at each of its sites, and its
 gradients from every site add up, as on one device.
 
+Under Megatron sequence parallelism (``ctx.seq_parallel``, where
+``ctx.shards_act`` of the whole sequence holds) each rank's activations
+between the layers are its chunk of the sequence (``models/blocks.py``):
+the embedding's masked lookup is reduce-scattered instead of summed (a
+VLM's patches and text are concatenated whole, then split); each layer
+gathers the sequence as it enters attention, the MLP or a Mamba2 block
+(the causal conv and the SSD scan run over the whole sequence, so the
+cache's conv windows and states are the whole prompt's) and scatters
+its output; the head and the loss see the sequence gathered after the
+final norm, and a prefill's last logits come from the gathered final
+hidden states.  The cache holds the rank's heads over the whole
+sequence, as without it.
+
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on
 parameters built with ``trainable=True``; ``cfg.remat`` decides what the
 backward pass keeps, as the JAX package's ``_remat`` does: ``"full"``
 recomputes each layer from its input (``torch.utils.checkpoint``), ``"none"``
-keeps every activation.
+keeps every activation.  :func:`kept_values` counts the floating-point
+values the checkpointed layer bodies keep (their inputs, seen by a
+``saved_tensors_hooks`` pack hook around each checkpoint): the layer
+boundaries, 1/m of them per rank under sequence parallelism.
 """
 
 from __future__ import annotations
@@ -185,20 +201,22 @@ def _kept(module: nn.Module, prefix: str, keep) -> nn.Module:
 
 
 def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-           ctx: Optional[ShardCtx]) -> torch.Tensor:
+           ctx: Optional[ShardCtx], sp: bool = False) -> torch.Tensor:
     """Token embeddings.  Where the rank holds a share of the vocab rows
     (``[i * V/m, (i + 1) * V/m)`` for model index i), a masked lookup
     summed over the model axis: one rank adds each token's row, the others
-    zeros, so the sum is exact."""
+    zeros, so the sum is exact.  With ``sp`` (sequence parallelism) the
+    rank's chunk of the sequence: the sum reduce-scattered, a whole
+    lookup split."""
     t = tokens.long()
     embed = _weight(params, "embed", ctx)
     rows = embed.shape[0]
     if rows == cfg.vocab:
-        return embed[t]
+        return ctx.seq_leave(embed[t], False, sp) if sp else embed[t]
     t = t - ctx.mesh.axis_index(ctx.model_axis) * rows
     mine = (t >= 0) & (t < rows)
     x = torch.where(mine[..., None], embed[t.clamp(0, rows - 1)], 0)
-    return ctx.model_sum(x, True)
+    return ctx.seq_leave(x, True, sp)
 
 
 def _weight(params: LM, name: str, ctx: Optional[ShardCtx]) -> torch.Tensor:
@@ -218,19 +236,31 @@ def _head(params: LM, cfg: ModelConfig,
     return _weight(params, "lm_head", ctx)
 
 
+def _seq_len(cfg: ModelConfig, tokens: torch.Tensor) -> int:
+    """The length of the sequence the layers see: the tokens, after a
+    VLM's ``frontend_len`` patches."""
+    return tokens.shape[1] + (cfg.frontend_len if cfg.frontend else 0)
+
+
 def _embed_inputs(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                   extra_embeds: Optional[torch.Tensor] = None,
-                  ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+                  ctx: Optional[ShardCtx] = None,
+                  sp: bool = False) -> torch.Tensor:
     """Token embeddings; for a config with a frontend, the projected
     ``extra_embeds`` (B, frontend_len, D) before them.  ``ctx``: the mesh
-    the embedding's vocab rows split over (None: one device)."""
-    x = _embed(params, cfg, tokens, ctx)
+    the embedding's vocab rows split over (None: one device); ``sp``: the
+    rank's chunk of the sequence (sequence parallelism), split after the
+    patches and the text are concatenated, as the JAX package's
+    ``shard_act`` splits them."""
+    x = _embed(params, cfg, tokens, ctx, sp and not cfg.frontend)
     if cfg.frontend:
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} has a {cfg.frontend!r} frontend: "
                              "pass its stub embeddings as extra_embeds")
         x = torch.cat([_project(params, cfg, extra_embeds.to(x.dtype), ctx),
                        x], dim=1)
+        if sp:
+            x = ctx.seq_leave(x, False, True)
     return x
 
 
@@ -293,14 +323,44 @@ def _sites(cfg: ModelConfig) -> list[tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
+#: floating-point values the checkpointed layer bodies of this process
+#: have kept for their backward pass since the last :func:`reset_kept`
+_KEPT = {"values": 0}
+
+
+def kept_values() -> int:
+    """The floating-point values the checkpointed layer bodies (``remat``
+    ``"full"``) of this process have kept for the backward pass, their
+    tensor inputs, since :func:`reset_kept`; the checkpoint keeps nothing
+    else of a body."""
+    return _KEPT["values"]
+
+
+def reset_kept() -> None:
+    _KEPT["values"] = 0
+
+
+def _count_kept(t: torch.Tensor) -> torch.Tensor:
+    if t.is_floating_point():
+        _KEPT["values"] += t.numel()
+    return t
+
+
 def _remat(fn, mode: str):
     if mode == "none":
         return fn
     if mode != "full":
         raise NotImplementedError(f"remat {mode!r} is not ported "
                                   "(ported: 'none', 'full')")
-    return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False)
+
+    def body(*args):
+        # the checkpoint saves its inputs under this hook, then runs the
+        # body under its own (the innermost hook packs)
+        with torch.autograd.graph.saved_tensors_hooks(_count_kept,
+                                                      lambda t: t):
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+    return body
 
 
 def _dense_layer(x, lp, cfg, ctx, positions, window):
@@ -316,7 +376,9 @@ def _moe_layer(x, lp, cfg, ctx, positions, window):
 def _mamba_layer(x, lp, cfg, ctx, positions, window):
     lp = ctx.gathered(lp, "layers")
     h = rms_norm(x, lp.ln, cfg.norm_eps)
-    return x + ssm_lib.mamba_block_train(h, lp, cfg, impl=ctx.impl, ctx=ctx)
+    return x + ssm_lib.mamba_block_train(
+        h, lp, cfg, impl=ctx.impl, ctx=ctx,
+        sp=ctx.shards_act(positions.shape[0]))
 
 
 def _shared_layer(x, sp, cfg, ctx, positions, window):
@@ -332,6 +394,7 @@ def forward_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     as the JAX package's scan carries them; 0 for the other families.  A
     VLM's S counts its ``frontend_len`` projected ``extra_embeds`` first."""
     x, lb, z = _hidden(params, cfg, tokens, ctx, extra_embeds)
+    x = ctx.seq_enter(x, False, ctx.shards_act(_seq_len(cfg, tokens)))
     return _logits(params, cfg, x, ctx), lb, z
 
 
@@ -352,10 +415,12 @@ def _hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             ctx: ShardCtx, extra_embeds: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward up to the final norm: (x (B, S, D), load-balance loss,
-    router z-loss)."""
+    router z-loss); under sequence parallelism x is the rank's chunk of
+    the sequence."""
     _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
-    S = x.shape[1]
+    S = _seq_len(cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx,
+                      ctx.shards_act(S))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -421,9 +486,8 @@ def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
     ``moe_tp``)."""
     x, lb, z = _hidden(params, cfg, batch["tokens"], ctx,
                        batch.get("extra_embeds"))
-    if cfg.frontend:
-        x = x[:, -batch["labels"].shape[1]:]
-    ce = mesh_ce(params, cfg, x, batch, ctx)
+    ce = mesh_ce(params, cfg, x, batch, ctx,
+                 ctx.shards_act(_seq_len(cfg, batch["tokens"])))
     total = ce
     if cfg.moe:
         total = (total + cfg.moe.load_balance_coef * lb
@@ -432,21 +496,25 @@ def _mesh_loss(params: LM, cfg: ModelConfig, batch: dict, ctx: ShardCtx
 
 
 def mesh_ce(params, cfg: ModelConfig, x: torch.Tensor, batch: dict,
-            ctx: ShardCtx) -> torch.Tensor:
+            ctx: ShardCtx, sp: bool = False) -> torch.Tensor:
     """The global token-mean cross entropy of ``batch["labels"]`` (masked
     by its ``loss_mask``) given the hidden states ``x`` before the final
     norm, on a training mesh: vocab-parallel where the rank holds a share
     of the head's vocab columns (its GEMMs reducing in f32:
     ``common.matmul_f32_reduced``), the masked sum and token count summed
     over the data axes before the division (module docstring).  ``params``
-    holds ``final_norm`` and the head (a decoder's, or the enc-dec's)."""
+    holds ``final_norm`` and the head (a decoder's, or the enc-dec's).
+    With ``sp`` (sequence parallelism) ``x`` is the rank's chunk of the
+    sequence: normed there, then gathered before the head.  A VLM's
+    labels score the last positions alone, its text tail."""
     from repro_torch.parallel import collectives as coll
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = _head(params, cfg, ctx)
     split = head.shape[-1] < cfg.vocab
-    logits = (matmul_f32_reduced(ctx.enter(x, True), head) if split
-              else x @ head).float()
+    x = ctx.seq_enter(x, split, sp)
     labels = batch["labels"].long()
+    x = x[:, x.shape[1] - labels.shape[1]:]
+    logits = (matmul_f32_reduced(x, head) if split else x @ head).float()
     if split:
         mesh, ax = ctx.mesh, ctx.model_axis
         top = coll.pmax(logits.detach().amax(-1), mesh, ax)
@@ -482,8 +550,10 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     reference asks.  A VLM's prompt is its ``frontend_len`` projected
     ``extra_embeds`` and then the tokens: ``max_len`` must hold both."""
     _check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx)
-    B, S, _ = x.shape
+    S = _seq_len(cfg, tokens)
+    sp = ctx.shards_act(S)
+    x = _embed_inputs(params, cfg, tokens, extra_embeds, ctx, sp)
+    B = x.shape[0]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     cache = init_lm_cache(cfg, B, max_len, ctx, device=x.device)
@@ -505,12 +575,12 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
         for site, (lo, hi) in enumerate(sites):
             for i in range(lo, hi):
                 x = _mamba_prefill(x, params.layers[i], cfg, ctx,
-                                   cache["mamba"], i)
+                                   cache["mamba"], i, sp)
             if cfg.family == "hybrid":
                 x = _shared_prefill(x, params.shared_attn, cfg, ctx,
                                     positions, cache, site)
         cache["pos"] = S
-        return _logits(params, cfg, x[:, -1:, :], ctx), cache
+        return _last_logits(params, cfg, x, ctx, sp), cache
 
     ring = cache_kind(cfg) == "ring"
     s_cache = _attn_cache_len(cfg, max_len)
@@ -521,7 +591,8 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             hn, lp.attn, cfg, ctx, q_pos=positions, k_pos=positions,
             window=w)
         x = x + attn_out
-        x = x + ffn_apply(rms_norm(x, lp.ln2, cfg.norm_eps), lp, cfg, ctx)[0]
+        x = x + ffn_apply(rms_norm(x, lp.ln2, cfg.norm_eps), lp, cfg, ctx,
+                          sp)[0]
         if ring:
             cache["k"][i] = _ring_pack(k_new, s_cache)
             cache["v"][i] = _ring_pack(v_new, s_cache)
@@ -530,15 +601,25 @@ def prefill_lm(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             cache["v"][i, :, :S] = v_new
 
     cache["pos"] = S
-    return _logits(params, cfg, x[:, -1:, :], ctx), cache
+    return _last_logits(params, cfg, x, ctx, sp), cache
 
 
-def _mamba_prefill(x, lp: MambaLayer, cfg, ctx, mamba, i: int):
+def _last_logits(params: LM, cfg: ModelConfig, x: torch.Tensor,
+                 ctx: ShardCtx, sp: bool) -> torch.Tensor:
+    """The last position's logits (B, 1, V) of the final hidden states
+    ``x``: with ``sp`` the rank's chunk, gathered first."""
+    x = ctx.seq_enter(x, False, sp)
+    return _logits(params, cfg, x[:, -1:, :], ctx)
+
+
+def _mamba_prefill(x, lp: MambaLayer, cfg, ctx, mamba, i: int,
+                   sp: bool = False):
     """Mamba layer ``i`` over the prompt; its final conv window and SSM
-    state go into the cache."""
+    state go into the cache (with ``sp``, ``x`` is the rank's chunk, and
+    the block gathers the whole prompt, so they are the prompt's)."""
     hn = rms_norm(x, lp.ln, cfg.norm_eps)
     y, st = ssm_lib.mamba_block_train(hn, lp, cfg, impl=ctx.impl,
-                                      return_state=True, ctx=ctx)
+                                      return_state=True, ctx=ctx, sp=sp)
     mamba.conv[i] = st.conv
     mamba.ssm[i] = st.ssm
     return x + y
@@ -548,14 +629,17 @@ def _shared_prefill(x, sp: DenseLayer, cfg, ctx, positions, cache,
                     site: int):
     """The hybrid's shared attention block at ``site`` over the prompt;
     its K/V go into that site's cache, ring-packed when the config has a
-    window (the last ``slots`` steps, each at slot position % slots)."""
-    S = x.shape[1]
+    window (the last ``slots`` steps, each at slot position % slots).
+    Under sequence parallelism ``x`` is the rank's chunk, the K/V the
+    whole prompt's."""
+    S = positions.shape[0]
     hn = rms_norm(x, sp.ln1, cfg.norm_eps)
     attn_out, k_new, v_new = self_attention_block(
         hn, sp.attn, cfg, ctx, q_pos=positions, k_pos=positions,
         window=cfg.window)
     x = x + attn_out
-    x = x + mlp_apply(rms_norm(x, sp.ln2, cfg.norm_eps), sp.mlp, cfg, ctx)
+    x = x + mlp_apply(rms_norm(x, sp.ln2, cfg.norm_eps), sp.mlp, cfg, ctx,
+                      ctx.shards_act(S))
     slots = cache["shared_k"].shape[2]
     if cfg.window > 0:
         cache["shared_k"][site] = _ring_pack(k_new, slots)

@@ -29,7 +29,11 @@ the model axis first, and the ``out_proj`` partial sums leave the region
 summed.  On a training mesh two more gradients are partial on each model
 rank and are summed over it: the sum of squares' (it enters the region
 before the sum leaves it), and that of the B and C columns of ``in_proj``
-and channels of the conv, which every rank's heads read.
+and channels of the conv, which every rank's heads read.  Under sequence
+parallelism (``sp``) the block's input and output are the rank's chunk of
+the sequence: it gathers the whole sequence before ``in_proj`` (the
+causal conv and the scan cross the chunks' bounds) and reduce-scatters
+the ``out_proj`` partial sums (``ShardCtx.seq_enter`` / ``seq_leave``).
 """
 
 from __future__ import annotations
@@ -209,20 +213,24 @@ def _conv(windows: torch.Tensor, conv_w: torch.Tensor,
 
 def mamba_block_train(x: torch.Tensor, p, cfg: ModelConfig, *,
                       impl: str = "ref", return_state: bool = False,
-                      ctx=None):
+                      ctx=None, sp: bool = False):
     """(B, S, D) -> (B, S, D)  [or (y, MambaState) with return_state].
     ``impl="cuda"`` runs the SSD scan through the hand-written kernel
     (its plain version when the tensors lie on the CPU).  On a mesh
     (``ctx``) over the heads ``p`` holds (module docstring); the state
-    returned is the rank's."""
+    returned is the rank's.  With ``sp`` (sequence parallelism) ``x`` and
+    the output are the rank's chunk of the sequence: the whole sequence
+    is gathered before ``in_proj`` (the causal conv and the scan cross the
+    chunks' bounds) and the output scattered after ``out_proj``; the
+    state returned is the whole sequence's."""
     s = cfg.ssm
-    Bsz, S, D = x.shape
     H, Pd, N, G, W = p.A_log.shape[0], s.head_dim, s.d_state, s.n_groups, \
         s.conv_width
     d_in, partial = H * Pd, H < cfg.ssm_heads
     w_in, conv_w, conv_b = _rank_weights(p, cfg, ctx, H)
-    if partial:
-        x = ctx.enter(x, True)
+    if ctx is not None:
+        x = ctx.seq_enter(x, partial, sp)
+    Bsz, S, D = x.shape
     zxbcdt = x @ w_in
     z, _, _, _, dt = _split_proj(cfg, zxbcdt, H)
 
@@ -248,8 +256,8 @@ def mamba_block_train(x: torch.Tensor, p, cfg: ModelConfig, *,
     y = y.reshape(Bsz, S, d_in)
     y = _gated_norm(y, z, p.norm_w, cfg.norm_eps, cfg.d_inner, ctx)
     out = y @ p.out_proj
-    if partial:
-        out = ctx.model_sum(out, True)
+    if ctx is not None:
+        out = ctx.seq_leave(out, partial, sp)
     if return_state:
         conv_state = xbc_raw[:, S - (W - 1):, :].to(torch.bfloat16)
         return out, MambaState(conv=conv_state, ssm=final_state)

@@ -43,12 +43,22 @@ MoE's exchanges):
   got their gradient on that member alone);
 * :func:`gather_model`: ``all_gather`` forward, the rank's rows of the
   gradient backward.  Not a reduce-scatter: the gathered activation is
-  replicated, so every member holds the same whole gradient of it.
+  replicated, so every member holds the same whole gradient of it;
+* :func:`gather_seq` and :func:`scatter_seq`: the boundaries of a region
+  under Megatron sequence parallelism, where each model rank holds its
+  chunk of the sequence outside the region.  Into a region whose work
+  the members split, ``all_gather`` forward and ``psum_scatter`` of the
+  gradient backward (each member's part of the work gave a part of the
+  whole sequence's gradient); out of it, ``psum_scatter`` of the partial
+  sums forward and ``all_gather`` of the gradient backward.  Into and
+  out of a region every member computes whole, the pair
+  :func:`gather_model` / :func:`split_model`.
 
 Every collective of this module adds its wall time to :func:`spent`
 (a trainer's share of a step spent in collectives), and the time spent
-inside :func:`fsdp_gather` and :func:`all_to_all_grad`, forward and
-backward, also to their own kinds (``"fsdp"``, ``"all_to_all"``).
+inside :func:`fsdp_gather`, :func:`all_to_all_grad` and the sequence
+boundaries, forward and backward, also to their own kinds (``"fsdp"``,
+``"all_to_all"``, ``"seq"``).
 
 :func:`compressed_psum` and :func:`hierarchical_psum` are the JAX
 package's (``parallel/collectives.py:41``, ``:82``): the paper's finding
@@ -63,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -83,7 +94,8 @@ def spent() -> dict:
     inside the collectives of this module so far, their number, and the
     seconds of each kind (``"fsdp"``: :func:`fsdp_gather`'s gathers and
     reduce-scatters; ``"all_to_all"``: :func:`all_to_all_grad`'s
-    exchanges), each also counted in ``"seconds"``.  A gloo collective of
+    exchanges; ``"seq"``: :func:`gather_seq` and :func:`scatter_seq`),
+    each also counted in ``"seconds"``.  A gloo collective of
     card tensors returns once its result is on the card, so its wall time
     covers the copies through the host."""
     return dict(_SPENT, kinds=dict(_SPENT["kinds"]))
@@ -112,8 +124,12 @@ def _timed(collective, *args, **kw):
 
 
 @contextlib.contextmanager
-def _kind(name: str):
-    """Counts the collectives run inside it under ``name`` too."""
+def _kind(name: Optional[str]):
+    """Counts the collectives run inside it under ``name`` too (None:
+    under no kind of its own)."""
+    if name is None:
+        yield
+        return
     _KIND.append(name)
     try:
         yield
@@ -269,25 +285,56 @@ class _AllToAll(torch.autograd.Function):
 
 class _SplitModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
-        ctx.args = (mesh, axes, dim)
+    def forward(ctx, x, mesh, axes, dim, kind):
+        ctx.args = (mesh, axes, dim, kind)
         return _own_chunk(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axes, dim = ctx.args
-        return all_gather(g, mesh, axes, dim), None, None, None
+        mesh, axes, dim, kind = ctx.args
+        with _kind(kind):
+            g = all_gather(g, mesh, axes, dim)
+        return g, None, None, None, None
 
 
 class _GatherModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
+    def forward(ctx, x, mesh, axes, dim, kind):
         ctx.args = (mesh, axes, dim)
-        return all_gather(x, mesh, axes, dim)
+        with _kind(kind):
+            return all_gather(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _own_chunk(g, *ctx.args), None, None, None
+        return _own_chunk(g, *ctx.args), None, None, None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        with _kind("seq"):
+            return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _kind("seq"):
+            g = psum_scatter(g.contiguous(), *ctx.args)
+        return g, None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        with _kind("seq"):
+            return psum_scatter(x.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _kind("seq"):
+            g = all_gather(g, *ctx.args)
+        return g, None, None, None
 
 
 def _own_chunk(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -316,7 +363,7 @@ def split_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     whole on every member."""
     if mesh.axis_size(axes) == 1:
         return x
-    return _SplitModel.apply(x, mesh, axes, dim)
+    return _SplitModel.apply(x, mesh, axes, dim, None)
 
 
 def gather_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
@@ -325,7 +372,38 @@ def gather_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     the gradient, unsummed."""
     if mesh.axis_size(axes) == 1:
         return x
-    return _GatherModel.apply(x, mesh, axes, dim)
+    return _GatherModel.apply(x, mesh, axes, dim, None)
+
+
+def gather_seq(x: torch.Tensor, mesh, axes, dim: int = 1, *,
+               partial: bool) -> torch.Tensor:
+    """The whole sequence of which ``x`` is this member's chunk along
+    ``dim`` (:func:`all_gather`), as it enters a region under sequence
+    parallelism: where the members split the region's work (``partial``)
+    the gradient is summed over ``axes`` and this member's chunk of the
+    sum kept (:func:`psum_scatter`); where each computes it whole, its own
+    chunk of the (same) gradient (:func:`gather_model`).  Counted under
+    ``"seq"``."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    if partial:
+        return _SeqGather.apply(x, mesh, axes, dim)
+    return _GatherModel.apply(x, mesh, axes, dim, "seq")
+
+
+def scatter_seq(x: torch.Tensor, mesh, axes, dim: int = 1, *,
+                partial: bool) -> torch.Tensor:
+    """This member's chunk along ``dim`` of ``x``, the whole sequence as it
+    leaves a region under sequence parallelism: where ``x`` is a
+    ``partial`` sum, the sum over ``axes`` of every member's chunk
+    (:func:`psum_scatter`, in member order, in f32), its gradient gathered
+    (:func:`all_gather`); where ``x`` is the same on every member, its
+    chunk (:func:`split_model`).  Counted under ``"seq"``."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    if partial:
+        return _SeqScatter.apply(x, mesh, axes, dim)
+    return _SplitModel.apply(x, mesh, axes, dim, "seq")
 
 
 def fsdp_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Reference outputs of the JAX package on an emulated 4-device CPU mesh.
 
-    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm|family|family_train} OUT.npz
+    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel} OUT.npz
 
 jax pins the device count at its first import, so the test files that
 compare the port's ranks with the JAX package's mesh run this script in
@@ -45,7 +45,15 @@ logits, in f32.  ``family_train``: ``make_train_step`` for the cases of
 the final state of :data:`FAMILY_CKPT_CASE` saved as a checkpoint beside
 OUT.npz (``family_ckpt/``) and its next step on :data:`FAMILY_ELASTIC`;
 and ``jax.grad`` of one smoke Mamba2 block (``sum(y * c)`` with respect
-to x and each of its parameters).
+to x and each of its parameters).  ``seq_parallel``: Megatron sequence
+parallelism (``CodesignPlan(seq_parallel=True)``) for each family of
+:data:`SP_FAMILIES` at (1, 4) and (2, 2): the prefill logits of
+``Server(cfg, mesh, plan=CodesignPlan(sharding="tp", seq_parallel=True))``
+at each layer-sequence length of :data:`SP_PROMPTS`, and
+``make_train_step`` under ``CodesignPlan(sharding="fsdp_tp",
+seq_parallel=True)`` for 2 steps (:data:`SP_TRAIN_SEQ`), and step 1's
+loss and gradients from ``jax.value_and_grad`` of the loss under the
+(2, 2) step's context (step 1 takes the same batch on both meshes).
 """
 
 import dataclasses
@@ -59,13 +67,13 @@ os.nice(10)
 os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
     {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
         sys.argv[1], -3) % len(os.sched_getaffinity(0))]}
-    if sys.argv[1] not in ("family", "family_train") else
+    if sys.argv[1] not in ("family", "family_train", "seq_parallel") else
     {sorted(os.sched_getaffinity(0))[
-        {"family": -6, "family_train": -7}[sys.argv[1]]
+        {"family": -6, "family_train": -7, "seq_parallel": -8}[sys.argv[1]]
         % len(os.sched_getaffinity(0))]})
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
-if sys.argv[1] in ("family", "family_train"):
+if sys.argv[1] in ("family", "family_train", "seq_parallel"):
     # these jobs compile many small programs: LLVM's backend passes take
     # half their time and change no result beyond f32 rounding
     os.environ["XLA_FLAGS"] += (" --xla_backend_optimization_level=0"
@@ -160,6 +168,30 @@ FAMILY_ELASTIC = ("1x4", "tp")
 #: the enc-dec's stub frames in a train batch, and the Mamba2 block
 #: gradient case's input (B, S)
 FAMILY_FRAMES, MAMBA_GRAD_X = 16, (4, 32)
+#: the families held under sequence parallelism: name -> (arch, smoke
+#: overrides, SSD chunk (None: the smoke config's)).  The dense family as
+#: smollm-360m's 15 heads are, heads that divide no model axis (3, one KV
+#: head: attention whole on every rank, the MLP split); the VLM at its
+#: smoke widths (4 query heads, one KV head); the SSM and hybrid at an SSD
+#: chunk of 6, so that a sequence of 18 (which divides 2 but not 4) is
+#: whole chunks; the enc-dec at a vocab that splits over 2 but not 4
+SP_FAMILIES = {"smollm3": ("smollm-360m", {"n_heads": 3, "n_kv_heads": 1},
+                           None),
+               "llava": ("llava-next-mistral-7b", {}, None),
+               "mamba2": ("mamba2-1.3b", {}, 6),
+               "zamba2": ("zamba2-1.2b", {}, 6),
+               "seamless": ("seamless-m4t-large-v2", {"vocab": 258}, None)}
+SP_MESHES = ("1x4", "2x2")
+#: the served sequence lengths the layers see (a VLM's 8 patches and its
+#: text; an enc-dec's frames): one divides a model axis of 4, one only 2;
+#: the serve batch and cache length
+SP_PROMPTS, SP_SERVE_BATCH, SP_MAX_LEN = (24, 18), 4, 40
+#: the train steps' sequence lengths (a decoder's layers' S; the
+#: enc-dec's (frames, decoder tokens)), step 1's on both meshes and step
+#: 2's at (2, 2), which divides 2 but not 4 (at (1, 4) step 2 repeats
+#: step 1's lengths on other rows: one compiled step fewer); the enc-dec
+#: splits one stack and not the other at (1, 4)
+SP_TRAIN_SEQ = {"decoder": (24, 18), "encdec": ((24, 18), (18, 24))}
 
 
 def mesh_of(name):
@@ -729,6 +761,105 @@ def family_train_refs(out, path):
     out["mamba_grad/loss"] = np.asarray(float(jax.jit(loss)(x, params)))
 
 
+def sp_cfg(name):
+    """The config of :data:`SP_FAMILIES` ``name``."""
+    from repro.configs import get_config
+    from repro.models.config import smoke_variant
+    arch, over, chunk = SP_FAMILIES[name]
+    cfg = smoke_variant(get_config(arch), **over)
+    if chunk is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               chunk=chunk))
+    return cfg
+
+
+def sp_batch(cfg, rng, B, S, dec=None, labels=False):
+    """A seeded batch whose layers see ``S`` positions: a VLM's text after
+    its patches, an enc-dec's ``S`` frames and ``dec`` decoder tokens (a
+    prefill reads the first)."""
+    if cfg.family == "encdec":
+        text = dec or 4
+    elif cfg.family == "vlm":
+        text = S - cfg.frontend_len
+    else:
+        text = S
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, text), dtype=np.int32)}
+    if labels:
+        b["labels"] = rng.integers(0, cfg.vocab, (B, text), dtype=np.int32)
+    if cfg.family == "vlm":
+        b["extra_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(F32)
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(F32)
+    return b
+
+
+def sp_refs(out):
+    """Each family of :data:`SP_FAMILIES` under sequence parallelism on
+    each mesh of :data:`SP_MESHES` (module docstring): its weights (f32,
+    ``sp/params/<name>/``), the served prompts and prefill logits
+    (``sp/serve/<name>-<mesh>-<S>/``), the train batches, the metrics and
+    the final weights (``sp/train/<name>-<mesh>/``), and step 1's loss and
+    gradients (``sp/grads/<name>/``)."""
+    from repro.core.codesign import CodesignPlan
+    from repro.launch import steps as steps_lib
+    from repro.launch.serve import Server
+    from repro.models.api import build
+    from repro.optim.adamw import adamw_init
+    for name in SP_FAMILIES:
+        cfg = sp_cfg(name)
+        api = build(cfg)
+        params0 = jax.tree.map(lambda a: a.astype(jnp.float32),
+                               api.init(jax.random.PRNGKey(0)))
+        _flat(out, f"sp/params/{name}", params0)
+        seqs = SP_TRAIN_SEQ["encdec" if cfg.family == "encdec"
+                            else "decoder"]
+        rng = np.random.default_rng(43)
+        first, second = (sp_batch(cfg, rng, TRAIN_BATCH[0], *(
+            s if isinstance(s, tuple) else (s,)), labels=True)
+            for s in seqs)
+        again = sp_batch(cfg, rng, TRAIN_BATCH[0], *(
+            seqs[0] if isinstance(seqs[0], tuple) else (seqs[0],)),
+            labels=True)
+        for m in SP_MESHES:
+            mesh = mesh_of(m)
+            server = Server(cfg, mesh, max_len=SP_MAX_LEN,
+                            plan=CodesignPlan(sharding="tp",
+                                              seq_parallel=True))
+            for S in SP_PROMPTS:
+                case = f"{name}-{m}-{S}"
+                batch = sp_batch(cfg, np.random.default_rng(S),
+                                 SP_SERVE_BATCH, S)
+                for k, v in batch.items():
+                    out[f"sp/serve/{case}/{k}"] = v
+                logits, _ = server._prefill(params0, batch)
+                out[f"sp/serve/{case}/logits"] = np.asarray(logits)
+
+            case = f"{name}-{m}"
+            plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=True)
+            step, p_shard, s_shard, ctx = steps_lib.make_train_step(
+                api, mesh, plan, lr_peak=TRAIN_LR, warmup=1,
+                total_steps=10)
+            batches = [first, second if m == "2x2" else again]
+            for i, b in enumerate(batches):
+                for k, v in b.items():
+                    out[f"sp/train/{case}/batches/{i}/{k}"] = v
+            params = jax.device_put(params0, p_shard)
+            if m == "2x2":
+                (loss, _), grads = jax.jit(jax.value_and_grad(
+                    lambda p, b: api.loss(p, b, ctx), has_aux=True))(
+                        params, first)
+                out[f"sp/grads/{name}/loss"] = np.asarray(float(loss))
+                _flat(out, f"sp/grads/{name}/grads", grads)
+            opt = jax.jit(adamw_init, out_shardings=s_shard)(params)
+            got = []
+            for b in batches:
+                params, opt, mt = step(params, opt, b)
+                got.append([float(mt[k]) for k in family_metrics(cfg)])
+            out[f"sp/train/{case}/metrics"] = np.asarray(got)
+            _flat(out, f"sp/train/{case}/final", params)
+
+
 def main():
     job, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -751,6 +882,8 @@ def main():
         family_refs(out)
     elif job == "family_train":
         family_train_refs(out, path)
+    elif job == "seq_parallel":
+        sp_refs(out)
     else:
         raise SystemExit(f"unknown job {job!r}")
     out["meta"] = np.asarray(json.dumps({
@@ -766,7 +899,9 @@ def main():
         "family_serve": FAMILY_SERVE_CASES,
         "family_train": FAMILY_TRAIN_CASES,
         "family_ckpt": FAMILY_CKPT_CASE, "family_elastic": FAMILY_ELASTIC,
-        "family_frames": FAMILY_FRAMES}))
+        "family_frames": FAMILY_FRAMES,
+        "sp_families": SP_FAMILIES, "sp_meshes": SP_MESHES,
+        "sp_prompts": SP_PROMPTS, "sp_max_len": SP_MAX_LEN}))
     np.savez(path, **out)
     print("MARKER jax-mesh-refs-ok", job, len(out))
 

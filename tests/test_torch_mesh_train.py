@@ -401,7 +401,8 @@ def test_training_mesh_refusals():
     rank's decode cache under them, and the enc-dec draws through
     ``keep``; the mesh trainer without a card raises unless asked for the
     CPU; a world whose backend fails to start raises (no other backend is
-    tried); a plan with sequence parallelism is refused."""
+    tried); a plan with sequence parallelism is refused for a config with
+    MoE layers (and taken for the others)."""
     import torch.distributed as dist
     from repro_torch.configs import list_archs
     from repro_torch.launch import steps
@@ -433,6 +434,9 @@ def test_training_mesh_refusals():
             init_world("nccl", rank=0, world_size=1, timeout_s=10,
                        init_method=f"tcp://127.0.0.1:{free_port()}")
         assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        make_train_step(build(get_smoke_config("smollm-360m")), mesh,
+    with pytest.raises(NotImplementedError,
+                       match="MoE layers.*sequence parallelism"):
+        make_train_step(build(get_smoke_config("qwen3-moe-30b-a3b")), mesh,
                         CodesignPlan(seq_parallel=True))
+    assert make_train_step(build(get_smoke_config("smollm-360m")), mesh,
+                           CodesignPlan(seq_parallel=True))[1].seq_parallel

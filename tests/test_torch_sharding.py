@@ -328,7 +328,8 @@ def test_mesh_steps_on_a_one_member_mesh_are_the_one_device_steps():
     """``make_prefill_step`` / ``make_serve_step`` over a (1, 1) mesh (its
     collectives return their input; the MoE through ``moe_ep``, where the
     smoke capacity drops nothing) give the one-device logits (f32); a plan
-    with sequence parallelism is refused."""
+    with sequence parallelism is refused for this config, whose layers
+    are MoE layers."""
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.launch import steps
     cfg = get_smoke_config("mixtral-8x22b")
@@ -349,5 +350,7 @@ def test_mesh_steps_on_a_one_member_mesh_are_the_one_device_steps():
                                api.decode_step(params, wcache, step,
                                                ShardCtx())[0],
                                rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
+    with pytest.raises(NotImplementedError,
+                       match="seq_parallel with MoE layers.*ROADMAP.md "
+                             "queue 1"):
         steps.make_ctx(api, mesh, CodesignPlan(seq_parallel=True))

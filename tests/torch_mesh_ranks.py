@@ -1,6 +1,6 @@
 """One rank of the port's gloo world, for the mesh tests.
 
-    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm|family|family_train} RANK WORLD PORT REF.npz OUTDIR
+    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel} RANK WORLD PORT REF.npz OUTDIR
 
 The test files call :func:`run_world`: it runs the JAX package's
 reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
@@ -886,6 +886,184 @@ def family_cli(out, out_dir):
     out["cli/losses"] = np.asarray([r["loss"] for r in log])
 
 
+# ---------------------------------------------------------------------------
+# seq_parallel: Megatron sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+#: the sequence collectives' inputs: each rank's chunk (B, S/m, D) on a
+#: model axis of 4
+SEQ_CHUNK = (1, 2, 3)
+
+
+def seq_inputs(rank: int):
+    """Rank ``rank``'s chunk x, its partial sums over the whole sequence
+    xs, and the weights w (the chunk's shape) and ws (the whole
+    sequence's) of its losses."""
+    rng = np.random.default_rng(200 + rank)
+    b, c, d = SEQ_CHUNK
+    whole = (b, 4 * c, d)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in (SEQ_CHUNK, whole, SEQ_CHUNK, whole))
+
+
+def seq_collectives(out, mesh, rank):
+    """``gather_seq`` and ``scatter_seq`` on the (1, 4) mesh, each pair
+    member: the output and the gradient of the rank's ``sum(w * f(x))``.
+    Where the region is computed whole (``partial=False``) the members'
+    loss is one replicated loss, and each uses the model group's first
+    member's weights and, for the scatter, its input."""
+    from repro_torch.parallel import collectives as coll
+    x, xs, w, ws = seq_inputs(rank)
+    _, xs0, _, ws0 = seq_inputs(0)
+    cases = {
+        "gather_partial": (lambda t: coll.gather_seq(t, mesh, "model",
+                                                     partial=True), x, ws),
+        "gather_whole": (lambda t: coll.gather_seq(t, mesh, "model",
+                                                   partial=False), x, ws0),
+        "scatter_partial": (lambda t: coll.scatter_seq(t, mesh, "model",
+                                                       partial=True), xs, w),
+        "scatter_whole": (lambda t: coll.scatter_seq(t, mesh, "model",
+                                                     partial=False), xs0,
+                          w),
+    }
+    for name, (fn, xin, win) in cases.items():
+        t = _t(xin).requires_grad_(True)
+        y = fn(t)
+        (g,) = torch.autograd.grad(torch.sum(_t(win) * y), t)
+        out[f"seqcoll/{name}/y"] = y.detach().numpy()
+        out[f"seqcoll/{name}/grad"] = g.numpy()
+
+
+def sp_cfg(name: str, meta) -> ModelConfig:
+    """The config of the JAX run's ``SP_FAMILIES`` entry ``name``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_variant
+    arch, over, chunk = meta["sp_families"][name]
+    cfg = smoke_variant(get_config(arch), **over)
+    if chunk is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               chunk=chunk))
+    return cfg
+
+
+def _sp_plan(sharding: str, sp: bool):
+    from repro_torch.core.codesign import CodesignPlan
+    return CodesignPlan(sharding=sharding, seq_parallel=sp)
+
+
+def sp_serve(out, ref, meta, meshes, name, cfg):
+    """``name``'s prompts through ``Server(cfg, mesh, plan=...)`` with and
+    without sequence parallelism on the JAX model's weights (f32): the
+    prefill logits and 2 teacher-forced decode steps' (``sp`` / ``nosp``),
+    and the collectives' seconds of kind ``"seq"`` over the prefill."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.weights import shard_params
+    for m in meta["sp_meshes"]:
+        mesh = meshes[m]
+        for S in meta["sp_prompts"]:
+            case = f"{name}-{m}-{S}"
+            batch = _tree(ref, f"sp/serve/{case}/")
+            batch.pop("logits")
+            forced = np.random.default_rng(7).integers(
+                0, cfg.vocab, (len(batch["tokens"]), 2), dtype=np.int32)
+            for sp in (True, False):
+                server = Server(cfg, mesh, device="cpu",
+                                max_len=meta["sp_max_len"],
+                                plan=_sp_plan("tp", sp))
+                server.params = shard_params(_tree(
+                    ref, f"sp/params/{name}/"), cfg, mesh, device="cpu")
+                before = coll.spent()
+                logits, cache = server.prefill(batch)
+                seq_s = coll.spent_since(before)["kinds"].get("seq", 0.0)
+                outs = [logits]
+                for t in range(2):
+                    logits, cache = server.decode(
+                        cache, server._on_device(forced[:, t:t + 1]))
+                    outs.append(logits)
+                run = "sp" if sp else "nosp"
+                out[f"sp/serve/{case}/{run}/logits"] = torch.stack(
+                    outs).numpy()
+                out[f"sp/serve/{case}/{run}/seq_s"] = np.asarray(seq_s)
+
+
+def sp_train(out, ref, meta, meshes, rank, name, cfg):
+    """``name``'s 2 train steps under ``CodesignPlan(sharding="fsdp_tp",
+    seq_parallel=...)`` on each mesh, from the JAX model's weights on the
+    rank's shards and rows, with and without sequence parallelism: the
+    metrics, the values the checkpointed layer bodies kept and the
+    collectives' seconds of kind ``"seq"`` each step, and (rank 0) step
+    1's gradients after the exchange and the final weights, gathered
+    whole."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models.api import build
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.weights import (jax_tree, param_names, param_shapes,
+                                     param_spec, shard_params)
+    from repro_torch.tree import map_leaves
+    keys = (("loss", "ce", "grad_norm", "lr") if cfg.family == "encdec"
+            else meta["train_metrics"])
+    update = steps_lib.adamw_update
+    for m in meta["sp_meshes"]:
+        mesh, case = meshes[m], f"{name}-{m}"
+        batches = [_tree(ref, f"sp/train/{case}/batches/{i}/")
+                   for i in range(2)]
+        for sp in (True, False):
+            plan = _sp_plan("fsdp_tp", sp)
+            run = f"sp/train/{case}/{'sp' if sp else 'nosp'}"
+            lm = shard_params(_tree(ref, f"sp/params/{name}/"), cfg, mesh,
+                              device="cpu", plan=plan, trainable=True)
+            opt = adamw_init(lm.parameters())
+            step, _ = steps_lib.make_train_step(
+                build(cfg), mesh, plan, lr_peak=meta["train_lr"], warmup=1,
+                total_steps=10)
+            grads: list = []
+
+            def first(g, *a, **k):
+                if not grads:
+                    grads.extend(x.detach().clone() for x in g)
+                return update(g, *a, **k)
+            steps_lib.adamw_update = first
+            metrics, kept, seq_s = [], [], []
+            try:
+                for b in batches:
+                    lm_lib.reset_kept()
+                    before = coll.spent()
+                    lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
+                                                 for k, v in b.items()})
+                    seq_s.append(coll.spent_since(before)["kinds"].get(
+                        "seq", 0.0))
+                    kept.append(lm_lib.kept_values())
+                    metrics.append([float(mt[k]) for k in keys])
+            finally:
+                steps_lib.adamw_update = update
+            out[f"{run}/metrics"] = np.asarray(metrics)
+            out[f"{run}/kept"] = np.asarray(kept)
+            out[f"{run}/seq_s"] = np.asarray(seq_s)
+            shapes, names = param_shapes(cfg), param_names(lm)
+            whole = [unshard(g, param_spec(n, shapes[n], cfg, mesh, plan),
+                             mesh) for n, g in zip(names, grads)]
+            final = _gather_params(lm, cfg, mesh, plan)
+            if rank == 0:
+                tree = map_leaves(host_array, jax_tree(whole, names))
+                for path, v in flatten_with_paths(tree):
+                    out[f"{run}/grads/{path}"] = v
+                for path, v in flatten_with_paths(final):
+                    out[f"{run}/final/{path}"] = v
+
+
+def seq_parallel(out, ref, meta, meshes, rank):
+    """The sequence collectives, then each family of the JAX run's
+    ``SP_FAMILIES`` served and trained (:func:`sp_serve`,
+    :func:`sp_train`)."""
+    seq_collectives(out, meshes["1x4"], rank)
+    for name in meta["sp_families"]:
+        cfg = sp_cfg(name, meta)
+        sp_serve(out, ref, meta, meshes, name, cfg)
+        sp_train(out, ref, meta, meshes, rank, name, cfg)
+
+
 def main() -> None:
     job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -895,7 +1073,8 @@ def main() -> None:
     os.nice(10)
     os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
         {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5, "family": -6,
-         "family_train": -7}.get(job, -3) % len(os.sched_getaffinity(0))]})
+         "family_train": -7, "seq_parallel": -8}.get(job, -3)
+        % len(os.sched_getaffinity(0))]})
     torch.set_num_threads(1)
     init_world("gloo", rank=rank, world_size=world,
                init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
@@ -943,6 +1122,10 @@ def main() -> None:
         mamba_grads(out, ref, meta, meshes, rank)
         family_checkpoints(out, ref, meta, meshes, out_dir)
         family_cli(out, out_dir)
+    elif job == "seq_parallel":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        seq_parallel(out, ref, meta, meshes, rank)
     else:
         raise SystemExit(f"unknown job {job!r}")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

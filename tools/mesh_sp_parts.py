@@ -1,0 +1,93 @@
+"""Run the mesh phase's sequence-parallel parts of ``chip_smoke.py`` alone
+on one card, with the unsplit parts they are held to.
+
+    python tools/mesh_sp_parts.py [--out FILE.json]
+
+Builds the kernels, spawns ``chip_smoke.py``'s four gloo ranks
+(``MeshWorld``) and runs, through ``chip_smoke.py``'s own functions:
+phi3-mini (``MESH_PHI3``'s layers) and mamba2-1.3b served at TP 4, each
+then again with and without Megatron sequence parallelism
+(``mesh_tp_serve(sp_steps=...)``); smollm-360m's (2, 2) trainer without
+the split (``mesh_train``) and its steps under it (``mesh_sp_train``).
+The phi3 KV staging under the digest is left out.  Prints every record
+as ``chip_smoke.py`` does, each part's seconds, and fails as it fails.
+Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the part records to this JSON file")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("mesh_sp_parts: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, cs.SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    t0 = time.monotonic()
+    cs.emit("build", per_source_s=build.build_all(),
+            seconds=time.monotonic() - t0)
+    paths, records = {}, []
+    rng = torch.Generator().manual_seed(cs.SEED + 5)
+    world = cs.MeshWorld(cs.MESH_RANKS)
+    tmp = tempfile.mkdtemp(prefix="mesh_sp_parts_")
+    try:
+        t = time.monotonic()
+        phi3 = cs._train_cfg(cs.MESH_PHI3)
+        batch = cs._prompts(torch, phi3, cs.MESH_PHI3["batch"],
+                            cs.MESH_PHI3["prompt"], rng)
+        cs.mesh_tp_serve(torch, world, tmp, paths, records, phi3, batch,
+                         cs.MESH_PHI3["steps"], "mesh_phi3",
+                         sp_steps=cs.MESH_SP_STEPS)
+        cs.emit("part_time", of="phi3", seconds=time.monotonic() - t)
+        t = time.monotonic()
+        cfg = get_config("mamba2-1.3b")
+        spec = cs.MESH_FAMILY_SERVE["mamba2"]
+        batch = cs._prompts(torch, cfg, spec["batch"], spec["prompt"], rng)
+        cs.mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch,
+                         spec["steps"], "mesh_mamba2",
+                         launches=cs._family_launches(cfg, cs.MESH_RANKS,
+                                                      spec["gen"]),
+                         gen=spec["gen"], sp_steps=cs.MESH_SP_STEPS)
+        cs.emit("part_time", of="mamba2", seconds=time.monotonic() - t)
+        t = time.monotonic()
+        nosp: dict = {}
+        records.append(cs.mesh_train(torch, world, tmp, paths, nosp))
+        cs.emit("part_time", of="train", seconds=time.monotonic() - t)
+        t = time.monotonic()
+        rec = cs.mesh_sp_train(torch, world, paths, nosp)
+        records.append(rec)
+        cs.checked(rec, "training under sequence parallelism", (
+            "loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok", "seq_ok",
+            "losses_ok", "same_ok", "no_kernel_ok"))
+        cs.emit("part_time", of="sp train", seconds=time.monotonic() - t)
+    finally:
+        codes = world.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(c != 0 for c in codes):
+        cs.fail(f"the mesh ranks exited with {codes}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(records, f)
+    cs.emit("total", seconds=time.monotonic() - t0)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
