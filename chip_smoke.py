@@ -205,7 +205,12 @@ Phases, one JSON line each:
    self slots and as cross attention over 1024 encoder slots, zamba2 8/8
    over its wrapped 4096-slot ring; the SSD scan at mamba2's B4 H16 S512
    N128 and zamba2's B2 H16 S4608 N64; the digest of one rank's KV item;
-   quantize and dequantize at 64 MiB); then
+   quantize and dequantize at 64 MiB; flash at a rank's block of query
+   rows, ``FLASH_OFFSET_ROWS``: smollm's B4 Hq15 Hkv5 Sq128 of Sk512 at
+   offsets 0, 128, 256, 384, gemma3's local hd-256 block Sq256 of Sk1024
+   at 768, window 512, and the f32 kernel at smollm's shape, each also
+   held to the unsplit launch's rows, bit for bit at a tile-aligned
+   offset, its library time SDPA under an explicit mask); then
    four ranks spawned once (``MeshWorld``), sharing the card over gloo,
    each single-threaded with a 60 s collective timeout (a rank that
    raises, hangs or exits non-zero fails the run with its traceback).
@@ -239,7 +244,13 @@ Phases, one JSON line each:
    layers), a prefill and ``MESH_SP_STEPS`` teacher-forced steps held to
    the same ranks' server without it (phi3 within ``LOGIT_SHARE``, mamba2
    within twice its bf16 noise floor), the prefill timed with its
-   collectives by kind; then
+   collectives by kind; smollm-360m at TP 4 (``MESH_SMOLLM``: 4 x 512
+   tokens, 8 generated, full width and depth), whose 15 query heads
+   divide no model axis: each rank computes every head for its block of
+   the query rows (``ShardCtx.seq_parallel_attn``; flash at Sq 128 of Sk
+   512 at offset 128 r on rank r, 128 launches a prefill), served and
+   held as llava is and again with and without sequence parallelism, each
+   rank's query rows (``blocks.query_rows``) checked in both; then
    smollm-360m trained at full width (``MESH_TRAIN``):
    ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + TP on the train phase's
    8 x 512 batches, a checkpoint every 2 steps (rank 0 writes the
@@ -271,7 +282,8 @@ Phases, one JSON line each:
    checkpointed layer bodies keep for the backward pass at step 1
    (``lm.kept_values``, a ``saved_tensors_hooks`` count) in both: the
    layer inputs, 4 x 512 x 960 x 32 without the split, exactly half with
-   it; and last
+   it; both smollm trainers split the query rows of attention (256 of
+   512 a rank, checked from ``blocks.query_rows`` at step 1); and last
    qwen3-moe-30b-a3b trained at published widths, 2 of 48 layers
    (``MESH_MOE_TRAIN``; it fails first unless the disk holds twice its
    26 GB state): ``Trainer(cfg, mesh)`` at (2, 2) under FSDP + EP (64
@@ -547,32 +559,57 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True,
-                causal=True):
+                causal=True, q_offset=None, Sk=None):
+    """Flash attention over ``S`` query rows against its plain version.
+    With ``q_offset`` (a model rank's block of the query rows under the
+    query-sequence split) the rows ``[q_offset, q_offset + S)`` of a
+    sequence of ``Sk`` keys: held also to those rows of the unsplit
+    launch on the same Q, K and V, bit for bit where the offset is a
+    multiple of the kernels' 64-row tile (the same key tiles in the same
+    order), and the library call given an explicit boolean mask
+    (``is_causal`` aligns the diagonal top-left when Sq != Sk)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import torch.nn.functional as F
-    g = torch.Generator(device="cuda").manual_seed(S + hd)
-    q = torch.randn(B, Hq, S, hd, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
-    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
-    expect = ref.attention_ref(q, k, v, causal=causal, window=window)
+    off = q_offset or 0
+    Sk = Sk or S
+    g = torch.Generator(device="cuda").manual_seed(S + hd + (
+        Sk + off if q_offset is not None else 0))
+    q_all = torch.randn(B, Hq, Sk if q_offset is not None else S, hd,
+                        generator=g, device="cuda").to(dtype)
+    q = q_all[:, :, off:off + S]
+    k = torch.randn(B, Hkv, Sk, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, hd, generator=g, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out = flash_attention_bhsd(q, k, v, **kw)
+    expect = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = (out.float() - expect.float()).abs().max().item()
     tol = TOL[str(dtype).replace("torch.", "")]
     ok = bool(torch.allclose(out.float(), expect.float(), **tol))
-    kernel = lambda: flash_attention_bhsd(q, k, v, causal=causal,
-                                          window=window)
+    extra = {}
+    if q_offset is not None:
+        whole = flash_attention_bhsd(q_all, k, v, causal=causal,
+                                     window=window)[:, :, off:off + S]
+        same = bool(torch.equal(out, whole))
+        extra = dict(q_offset=off, unsplit_rows_equal=same,
+                     unsplit_rows_max_abs_err=(out.float() - whole.float()
+                                               ).abs().max().item())
+        ok = ok and (same or off % 64 != 0)
+        del whole
+    kernel = lambda: flash_attention_bhsd(q, k, v, **kw)
     ms, per_call = device_ms(kernel), call_ms(kernel)
-    plain_ms = device_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
-                                                   window=window), iters=5)
+    plain_ms = device_ms(lambda: ref.attention_ref(q, k, v, **kw), iters=5)
     lib_ms = None
     if library:
-        if window:
-            i = torch.arange(S, device="cuda")
-            mask = i[None, :] > i[:, None] - window
+        if window or S != Sk:
+            i = torch.arange(S, device="cuda") + off
+            j = torch.arange(Sk, device="cuda")
+            mask = torch.ones(S, Sk, dtype=torch.bool, device="cuda")
+            if window:
+                mask &= j[None, :] > i[:, None] - window
             if causal:
-                mask &= i[None, :] <= i[:, None]
+                mask &= j[None, :] <= i[:, None]
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True)
         else:
@@ -580,19 +617,20 @@ def check_flash(torch, B, Hq, Hkv, S, hd, dtype, window, *, library=True,
                 q, k, v, is_causal=causal, enable_gqa=True)
         lib_ms = device_ms(lib)
     esize = q.element_size()
-    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd) * esize
-    pairs = sum((i + 1 if causal else S) - (max(0, i - window + 1)
-                                            if window else 0)
-                for i in range(S))
+    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * Sk * hd) * esize
+    pairs = sum((off + i + 1 if causal else Sk) - (
+        max(0, off + i - window + 1) if window else 0) for i in range(S))
     ops = 4.0 * hd * B * Hq * pairs
     bms, by = bound_ms(nbytes, ops, PEAK_BF16 if dtype == torch.bfloat16
                        else PEAK_F32)
-    return emit("check", kernel="flash_attention",
-                shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd), window=window,
-                causal=causal,
+    shape = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, hd=hd)
+    if q_offset is not None:
+        shape.update(Sk=Sk, q_offset=off)
+    return emit("check", kernel="flash_attention", shape=shape,
+                window=window, causal=causal,
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ok=ok, ms=ms, call_ms=per_call, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                library_ms=lib_ms, bound_ms=bms, bound_by=by, **extra)
 
 
 def check_decode(torch, B, Hq, Hkv, S, hd, dtype, fill, window, ring,
@@ -3105,6 +3143,25 @@ MESH_FAMILY_TRAIN = {
 MESH_SP_TRAIN = dict(arch="smollm-360m", steps=2, mesh="hier",
                      plan="fsdp_tp", sp=True)
 MESH_SP_STEPS = 4
+#: smollm-360m at TP 4 (mesh (1, 4)), full width and depth: its 15 query
+#: heads divide no model axis, so each rank computes every head for its
+#: block of the query rows (the query-sequence split): flash at Sq 128 of
+#: Sk 512 at offset 128 r on rank r.  :data:`MESH_FAMILY_SERVE`'s parts:
+#: 4 x 512 prompts, ``steps`` teacher-forced steps, ``gen`` tokens; then
+#: with and without Megatron sequence parallelism (:data:`MESH_SP_STEPS`)
+MESH_SMOLLM = dict(arch="smollm-360m", batch=BATCH, prompt=512, steps=4,
+                   gen=8)
+#: the kernel at a rank's query block: (name, B, Hq, Hkv, Sq, Sk, hd,
+#: window, offset, dtype): smollm-360m's rank at each offset of its 4-way
+#: split; gemma3's local layer (hd 256, window 512) split four ways over
+#: 1024 keys, the last block; the f32 kernel at smollm's rank shape
+FLASH_OFFSET_ROWS = (
+    [(f"smollm flash q_offset {o}", 4, 15, 5, 128, 512, 64, 0, o, "bfloat16")
+     for o in (0, 128, 256, 384)]
+    + [("gemma3 local flash q_offset 768", 4, 4, 1, 256, 1024, 256, 512,
+        768, "bfloat16"),
+       ("smollm flash f32 q_offset 256", 4, 15, 5, 128, 512, 64, 0, 256,
+        "float32")])
 #: the mesh's step-1 loss, gradient norm and worst leaf's gradient norm
 #: against the one-card step's on the same weights and batch, relative:
 #: the same bf16 model, its partial sums added in f32 in another order and
@@ -3222,7 +3279,7 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.serve import Server
-    from repro_torch.models import ffn
+    from repro_torch.models import blocks, ffn
     from repro_torch.weights import shard_params
     published = get_config(arch)
     cfg = (dataclasses.replace(published, n_layers=layers) if layers
@@ -3236,11 +3293,13 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     out = {"params": sum(p.numel() for p in server.params.parameters())}
     torch.cuda.synchronize()
     build.reset_launches()
+    blocks.reset_query_rows()
     t0 = time.monotonic()
     tokens = server.generate(batch, gen)
     torch.cuda.synchronize()
     out["generate_s"] = time.monotonic() - t0
     out["launches"] = build.launch_counts()
+    out["query_rows"] = blocks.query_rows()
     out["tokens"] = tokens
     _, out["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
     _, cache = server.prefill(batch)
@@ -3298,6 +3357,7 @@ def _rank_sp_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.kernels import build
     from repro_torch.launch.serve import Server
+    from repro_torch.models import blocks
     from repro_torch.parallel import collectives
     from repro_torch.weights import shard_params
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -3313,10 +3373,12 @@ def _rank_sp_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
+        blocks.reset_query_rows()
         logits[sp], _ = _forced_run(torch, server, batch, saved["tokens"],
                                     steps)
         torch.cuda.synchronize()
-        run = {"launches": build.launch_counts()}
+        run = {"launches": build.launch_counts(),
+               "query_rows": blocks.query_rows()}
         c0 = collectives.spent()
         _, run["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
         coll = collectives.spent_since(c0)
@@ -3524,7 +3586,7 @@ def _rank_train(torch, rank, meshes, root, spec):
                                            SyntheticTokenSource)
     from repro_torch.kernels import build
     from repro_torch.launch import steps as steps_lib
-    from repro_torch.models import ffn
+    from repro_torch.models import blocks, ffn
     from repro_torch.models import lm as lm_lib
     cfg = _train_cfg(spec)
     total = spec["steps"] + spec["more"] + 1
@@ -3545,9 +3607,10 @@ def _rank_train(torch, rank, meshes, root, spec):
             def __iter__(self):
                 return itertools.islice(iter(src), skip, None)
         return From()
-    out = {"leaf_norms": [], "kept": [], "card_free_gib_at_start":
-           torch.cuda.mem_get_info()[0] / 2**30}
-    _record_leaf_norms(torch, out["leaf_norms"], out["kept"])
+    out = {"leaf_norms": [], "kept": [], "query_rows": [],
+           "card_free_gib_at_start": torch.cuda.mem_get_info()[0] / 2**30}
+    _record_leaf_norms(torch, out["leaf_norms"], out["kept"],
+                       out["query_rows"])
     routes = ffn.RouteLog() if spec.get("routes") else None
     make_ctx = steps_lib.make_ctx
     with torch.enable_grad():
@@ -3567,6 +3630,7 @@ def _rank_train(torch, rank, meshes, root, spec):
         a.init_state(SEED)
         out["params_held"] = sum(p.numel() for p in a.params.parameters())
         lm_lib.reset_kept()
+        blocks.reset_query_rows()
         out["log"] = _step_log(a.run(source(), spec["steps"],
                                      inject_failure_at=spec["fail_at"]))
         torch.cuda.synchronize()
@@ -3610,6 +3674,7 @@ def _rank_steps(torch, rank, meshes, spec, batches):
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.kernels import build
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import blocks
     from repro_torch.models import lm as lm_lib
     from repro_torch.models.api import build as build_api
     from repro_torch.optim.adamw import adamw_init
@@ -3619,8 +3684,9 @@ def _rank_steps(torch, rank, meshes, spec, batches):
     mesh = meshes[spec["mesh"]]
     plan = CodesignPlan(sharding=spec["plan"],
                         seq_parallel=spec.get("sp", False))
-    out = {"leaf_norms": [], "kept": [], "log": []}
-    _record_leaf_norms(torch, out["leaf_norms"], out["kept"])
+    out = {"leaf_norms": [], "kept": [], "query_rows": [], "log": []}
+    _record_leaf_norms(torch, out["leaf_norms"], out["kept"],
+                       out["query_rows"])
     n = len(batches[0]["tokens"]) // mesh.axis_size(("data",))
     lo = mesh.axis_index(("data",)) * n
     with torch.enable_grad():
@@ -3628,6 +3694,7 @@ def _rank_steps(torch, rank, meshes, spec, batches):
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         lm_lib.reset_kept()
+        blocks.reset_query_rows()
         lm = init_sharded(cfg, SEED, mesh, device="cuda", plan=plan,
                           trainable=True)
         out["params_held"] = sum(p.numel() for p in lm.parameters())
@@ -3654,15 +3721,19 @@ def _rank_steps(torch, rank, meshes, spec, batches):
     return out
 
 
-def _record_leaf_norms(torch, into: list, kept: list) -> None:
+def _record_leaf_norms(torch, into: list, kept: list,
+                       rows: list | None = None) -> None:
     """Wraps the train step's AdamW update in this rank so that its first
     call appends to ``into`` the whole norm of each gradient leaf (its
     squares summed over the axes the leaf is split over, each leaf held
     whole on several ranks counted once, a head-wise leaf's B and C columns
-    too: ``norm_weights``), in parameter order, and to ``kept`` the values
-    the checkpointed layer bodies have kept since ``lm.reset_kept``: the
-    first step's, where it was reset just before."""
+    too: ``norm_weights``), in parameter order, to ``kept`` the values
+    the checkpointed layer bodies have kept since ``lm.reset_kept`` and
+    to ``rows`` the query rows attention was fed since
+    ``blocks.reset_query_rows``: the first step's, where they were reset
+    just before."""
     from repro_torch.launch import steps
+    from repro_torch.models import blocks
     from repro_torch.models import lm as lm_lib
     from repro_torch.parallel.collectives import psum
     update = steps.adamw_update
@@ -3671,6 +3742,8 @@ def _record_leaf_norms(torch, into: list, kept: list) -> None:
                    norm_weights=None, **kw):
         if not into:
             kept.append(lm_lib.kept_values())
+            if rows is not None:
+                rows.append(blocks.query_rows())
             groups: dict = {}
             for i, axes in enumerate(split_axes):
                 key = tuple(a for a in mesh.axis_names if a in axes)
@@ -3863,6 +3936,43 @@ def _rank_heads(cfg, m: int):
     mesh = Mesh({"data": 1, "model": m}, ("data", "model"), rank=0,
                 coords={"data": 0, "model": 0})
     return ShardCtx(mesh=mesh).heads(cfg)
+
+
+def query_split(cfg, shape, S: int) -> bool:
+    """Whether ``cfg``'s attention over ``S`` positions splits its query
+    rows over the model axis of a mesh of ``shape`` (data, model)
+    (``ShardCtx.seq_parallel_attn``: its query heads divide no model axis
+    m > 1, and m divides S); never for the SSM family, which has no
+    attention."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.blocks import ShardCtx
+    mesh = Mesh({"data": shape[0], "model": shape[1]}, ("data", "model"),
+                rank=0, coords={"data": 0, "model": 0})
+    return cfg.family != "ssm" and ShardCtx(mesh=mesh).seq_parallel_attn(
+        cfg.n_heads, S)
+
+
+def split_rows_ok(records, shape, S: int, calls=None) -> bool:
+    """Each rank's record of the query rows it fed attention
+    (``blocks.query_rows``, in rank order) under the query-sequence split
+    of ``S`` positions on a mesh of ``shape``: rank r (model index i = r %
+    m) fed exactly the block ``[i S/m, (i + 1) S/m)`` of every such
+    sequence (``calls`` times, where given), and a decode step's one row
+    whole."""
+    m = shape[1]
+    c = S // m
+    for r, rows in enumerate(records):
+        want = ((r % m) * c, (r % m + 1) * c, S)
+        if want not in rows or (calls is not None and rows[want] != calls):
+            return False
+        if any(key != want and key != (0, 1, 1) for key in rows):
+            return False
+    return True
+
+
+def _rows_json(rows: dict) -> list:
+    """A query-rows record as JSON: [first, end, S, calls] rows."""
+    return [list(key) + [n] for key, n in sorted(rows.items())]
 
 
 def nccl_check(torch) -> dict:
@@ -4078,6 +4188,9 @@ def mesh_train(torch, world, tmp, paths, nosp: dict) -> dict:
         one_card_restore_s=one_restore_s, restored_step=step,
         peak_gib_2x2=[o["peak_gib_train"] for o in outs],
         kept_values_step1=nosp["kept"],
+        query_rows_step1=[_rows_json(o["query_rows"][0]) for o in outs],
+        query_rows_ok=split_rows_ok([o["query_rows"][0] for o in outs],
+                                    (2, MESH_RANKS // 2), TRAIN_SEQ),
         launches=paths["mesh_train"], hashes_ok=hashes_ok,
         no_kernel_ok=not any(paths["mesh_train"].values()))
 
@@ -4318,6 +4431,9 @@ def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
         and leaf_err[worst] <= MESH_LEAF_RTOL,
         kept_ok=all(k * m == n == want_kept
                     for k, n in zip(kept, nosp["kept"])),
+        query_rows_step1=[_rows_json(o["query_rows"][0]) for o in outs],
+        query_rows_ok=split_rows_ok([o["query_rows"][0] for o in outs],
+                                    (2, m), TRAIN_SEQ),
         seq_ok=all(r["collective_kinds_s"].get("seq", 0.0) > 0
                    for lg in logs for r in lg),
         losses_ok=all(math.isfinite(r["loss"]) for lg in logs for r in lg),
@@ -4389,6 +4505,7 @@ def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
         paths[f"{path}_stage_kv"] = stage["launches"]
     from repro_torch.configs import get_config
     full = get_config(cfg.name).n_layers
+    split = query_split(cfg, (1, m), frontend + prompt)
     rec = emit(
         "mesh", part=f"{cfg.name} TP {m}", arch=cfg.name, mesh=[1, m],
         layers=cfg.n_layers,
@@ -4411,11 +4528,16 @@ def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
         stage={k: v for k, v in stage.items() if k != "launches"},
         stage_launches=stage.get("launches"),
         kv_staged_ok=not kv_digest or (stage["digest_ok"]
-                                       and stage["bytes_ok"]))
+                                       and stage["bytes_ok"]),
+        query_split=split,
+        query_rows=[_rows_json(o["query_rows"]) for o in outs],
+        query_rows_ok=not split or split_rows_ok(
+            [o["query_rows"] for o in outs], (1, m), frontend + prompt,
+            calls=cfg.n_layers))
     records.append(rec)
     checked(rec, f"{cfg.name} on the mesh", (
         "one_process_ok", "logits_ok", "same_ok", "tokens_ok",
-        "kv_staged_ok"))
+        "kv_staged_ok", "query_rows_ok"))
     launches = launches or {
         "flash_attention": m * cfg.n_layers,
         "decode_attention": m * cfg.n_layers * (gen - 1)}
@@ -4455,6 +4577,8 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
     err = max(max(o["sp_vs_nosp_max_abs_err"]) for o in outs)
     prefill = ("ssd_scan" if cfg.family in ("ssm", "hybrid")
                else "flash_attention")
+    S = batch["tokens"].shape[1]
+    split = query_split(cfg, (1, m), S)
     rec = emit(
         "mesh", part=f"{cfg.name} TP {m}, sequence parallel",
         arch=cfg.name, mesh=[1, m], layers=cfg.n_layers,
@@ -4478,9 +4602,16 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
                    and o["nosp"]["prefill_collective_share"].get("seq", 0)
                    == 0 for o in outs),
         kernels_ok=all(paths[f"{path}_{r}"][prefill] == m * cfg.n_layers
-                       for r in ("nosp", "sp")))
+                       for r in ("nosp", "sp")),
+        query_split=split,
+        query_rows={r: [_rows_json(o[r]["query_rows"]) for o in outs]
+                    for r in ("nosp", "sp")},
+        query_rows_ok=not split or all(split_rows_ok(
+            [o[r]["query_rows"] for o in outs], (1, m), S,
+            calls=cfg.n_layers) for r in ("nosp", "sp")))
     checked(rec, f"{cfg.name} under sequence parallelism",
-            ("logits_ok", "same_ok", "seq_ok", "kernels_ok"))
+            ("logits_ok", "same_ok", "seq_ok", "kernels_ok",
+             "query_rows_ok"))
     return rec
 
 
@@ -4614,6 +4745,11 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         "compressed_psum quantize": quant,
         "compressed_psum dequantize": dequant,
         **family_kernel_checks(torch, fam, m),
+        **{name: check_flash(torch, B=B_, Hq=hq, Hkv=hkv, S=sq, Sk=sk, hd=hd,
+                             dtype=getattr(torch, dt), window=w,
+                             q_offset=off)
+           for name, B_, hq, hkv, sq, sk, hd, w, off, dt
+           in FLASH_OFFSET_ROWS},
     }
     records += checks.values()
     checks_ok(checks.values())
@@ -4801,6 +4937,14 @@ def mesh_phase(torch, paths, rng, records) -> dict:
                           gen=spec["gen"],
                           sp_steps=MESH_SP_STEPS if name == "mamba2" else 0)
 
+        # ---- smollm-360m at TP 4: the query-sequence split ---------------
+        smol = get_config(MESH_SMOLLM["arch"])
+        batch = _prompts(torch, smol, MESH_SMOLLM["batch"],
+                         MESH_SMOLLM["prompt"], rng)
+        mesh_tp_serve(torch, world, tmp, paths, records, smol, batch,
+                      MESH_SMOLLM["steps"], "mesh_smollm",
+                      gen=MESH_SMOLLM["gen"], sp_steps=MESH_SP_STEPS)
+
         # ---- smollm-360m trained on the mesh, the elastic restore ----------
         train_checks = ("loss_ok", "grad_norm_ok", "leaf_norms_ok",
                         "losses_ok", "same_ok", "no_kernel_ok")
@@ -4811,7 +4955,7 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         rec = mesh_train(torch, world, tmp, paths, nosp)
         records.append(rec)
         checked(rec, "training on the mesh", train_checks + restart_checks
-                + ("hashes_ok",))
+                + ("hashes_ok", "query_rows_ok"))
         records.append(emit("phase_time", of="mesh train",
                             seconds=time.monotonic() - t_part))
 
@@ -4835,7 +4979,8 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         records.append(rec)
         checked(rec, "training under sequence parallelism on the mesh",
                 ("loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
-                 "seq_ok", "losses_ok", "same_ok", "no_kernel_ok"))
+                 "query_rows_ok", "seq_ok", "losses_ok", "same_ok",
+                 "no_kernel_ok"))
         records.append(emit("phase_time", of="mesh sp train",
                             seconds=time.monotonic() - t_part))
 

@@ -191,7 +191,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         ctypes.c_longlong
     if name == "flash_attention":
         fn = lib.flash_attention_fwd
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, f, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, f, i, i, i, p]
         fn.restype = i
     elif name == "decode_attention":
         fn = lib.decode_attention_fwd

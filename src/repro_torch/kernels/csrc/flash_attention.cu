@@ -7,10 +7,16 @@
 //
 // Layout: q (B, Hq, Sq, hd), k/v (B, Hkv, Sk, hd) given by element strides
 // (the head dim contiguous), so the model's (B, S, H, hd) tensors go in as
-// transposed views without a copy.  Query head h reads KV head h / G: no
-// repeated K/V is materialised.  Any Sq and Sk are taken: the ragged tail of
-// either is masked, not padded.  Tiles wholly above the causal diagonal or
-// below the window are never loaded.
+// transposed views without a copy.  Query row i sits at position q_off + i
+// and key j at position j: a model rank that computes only its own block of
+// the query rows (the sequence split over the model axis) passes the block's
+// first position as q_off; 0 is the whole sequence.  Query head h reads KV
+// head h / G: no repeated K/V is materialised.  Any Sq and Sk are taken: the
+// ragged tail of either is masked, not padded.  Tiles wholly above the
+// causal diagonal or below the window are never loaded.  At a q_off that is
+// a multiple of the 64-row tile each tile reads the keys, in the order, of
+// the unsplit launch's tile at the same positions: its rows are those rows,
+// bit for bit.
 //
 // Bound on the H100: at the serving shapes (S = 128..1000, hd = 64) the
 // work is a few GFLOP against a few MB, so the bf16 tensor cores bound it
@@ -76,7 +82,7 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     T* __restrict__ o, int Sq, int Sk, int G, int64_t qsb, int64_t qsh,
     int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
     int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
-    float scale, int causal, int window) {
+    float scale, int causal, int window, int q_off) {
   __shared__ float ks[BK][HD];
   __shared__ float vs[BK][HD];
 
@@ -87,6 +93,7 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   const int tid = threadIdx.x;
   const int qi = q0 + tid;
   const bool row_ok = qi < Sq;
+  const int qpos = q_off + qi;  // the row's position
 
   float qr[HD];
   float acc[HD];
@@ -99,10 +106,10 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   float m = NEG_INF_F;
   float l = 0.f;
 
-  // the keys this query tile can see
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  // the keys this query tile can see (its rows at q_off + q0 ..)
+  const int q_last = q_off + min(q0 + BQ, Sq) - 1;
   int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   k_begin = (k_begin / BK) * BK;
 
   const T* kb = k + b * ksb + hk * ksh;
@@ -126,8 +133,8 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const int kj = k0 + j;
-      const bool kp = row_ok && kj < Sk && (!causal || kj <= qi) &&
-                      (window <= 0 || kj > qi - window);
+      const bool kp = row_ok && kj < Sk && (!causal || kj <= qpos) &&
+                      (window <= 0 || kj > qpos - window);
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], ks[j][d], dot);
@@ -161,13 +168,14 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Sq, int Sk, int G, const int64_t* st,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float scale, int causal, int window, int q_off,
+                   cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd_kernel<T, HD><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, G, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale, causal, window);
+      scale, causal, window, q_off);
   return cudaGetLastError();
 }
 
@@ -204,7 +212,7 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
     int Sq, int Sk, int G, int64_t osb, int64_t osh, int64_t oss,
-    float scale_log2, int causal, int window) {
+    float scale_log2, int causal, int window, int q_off) {
   constexpr int NB = nboxes<HD>();        // boxes per row
   constexpr int KSTEPS = HD / 16;         // k-steps of S = Q K^T
   constexpr int TILE = NB * WTILE;        // bytes of one Q, K or V tile
@@ -228,10 +236,12 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  // the keys this query tile can see, in whole tiles
-  const int q_last = min(q0 + WQ, Sq) - 1;
+  // the keys this query tile can see, in whole tiles; its rows sit at
+  // positions p0 = q_off + q0 ..
+  const int p0 = q_off + q0;
+  const int q_last = q_off + min(q0 + WQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / WK * WK;
+  const int k_begin = (window > 0 ? max(0, p0 - window + 1) : 0) / WK * WK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + WK - 1) / WK : 0;
 
   // K and V tile t of stage s: NB boxes each, one barrier for all of them
@@ -295,15 +305,15 @@ __global__ void __launch_bounds__(128) flash_fwd_wgmma_kernel(
     wgmma_wait_all();
     fence_regs(sc);
 
-    const bool whole = k0 + WK <= Sk && (!causal || k0 + WK - 1 <= q0) &&
-                       (window <= 0 || k0 > q0 + WQ - 1 - window);
+    const bool whole = k0 + WK <= Sk && (!causal || k0 + WK - 1 <= p0) &&
+                       (window <= 0 || k0 > p0 + WQ - 1 - window);
     if (!whole) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int kj = k0 + 8 * (e >> 2) + cq + (e & 1);
-        const int qi = q0 + r0 + 8 * ((e >> 1) & 1);
-        const bool keep = kj < Sk && (!causal || kj <= qi) &&
-                          (window <= 0 || kj > qi - window);
+        const int qp = p0 + r0 + 8 * ((e >> 1) & 1);
+        const bool keep = kj < Sk && (!causal || kj <= qp) &&
+                          (window <= 0 || kj > qp - window);
         if (!keep) sc[e] = -INFINITY;
       }
     }
@@ -404,7 +414,8 @@ template <int HD>
 cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
                               void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                               int G, const int64_t* st, float scale,
-                              int causal, int window, cudaStream_t stream) {
+                              int causal, int window, int q_off,
+                              cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode_rows(&qm, q, HD, Sq, Hq, B, st[2], st[1], st[0]) ||
       !encode_rows(&km, k, HD, Sk, Hkv, B, st[5], st[4], st[3]) ||
@@ -420,19 +431,22 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
   dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
   flash_fwd_wgmma_kernel<HD><<<grid, 128, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, G, st[9], st[10],
-      st[11], scale * LOG2E, causal, window);
+      st[11], scale * LOG2E, causal, window, q_off);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides (b, h, s) for q, k, v, o in that order.
+// q_off: the position of query row 0 (>= 0; causal: q_off + Sq <= Sk).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int B,
                                    int Hq, int Hkv, int Sq, int Sk, int hd,
                                    const int64_t* strides, float scale,
-                                   int causal, int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0)
+                                   int causal, int window, int q_off,
+                                   void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      q_off < 0 || (causal && q_off + Sq > Sk))
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -441,18 +455,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   // that needs it.
   if (dtype == DTYPE_F32 && hd == 64)
     return (int)launch<float, 64>(q, k, v, o, B, Hq, Sq, Sk, G, strides,
-                                  scale, causal, window, s);
+                                  scale, causal, window, q_off, s);
   if (dtype == DTYPE_BF16 && hd == 64)
     return (int)launch_bf16_wgmma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
-                                      strides, scale, causal, window, s);
+                                      strides, scale, causal, window, q_off, s);
   if (dtype == DTYPE_BF16 && hd == 96)
     return (int)launch_bf16_wgmma<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
-                                      strides, scale, causal, window, s);
+                                      strides, scale, causal, window, q_off, s);
   if (dtype == DTYPE_BF16 && hd == 128)
     return (int)launch_bf16_wgmma<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
-                                       strides, scale, causal, window, s);
+                                       strides, scale, causal, window, q_off,
+                                       s);
   if (dtype == DTYPE_BF16 && hd == 256)
     return (int)launch_bf16_wgmma<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, G,
-                                       strides, scale, causal, window, s);
+                                       strides, scale, causal, window, q_off,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }

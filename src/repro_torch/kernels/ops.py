@@ -28,14 +28,16 @@ __all__ = ["flash_attention", "decode_attention", "block_digest", "ssd_scan",
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """(B, S, H, hd) layout in and out; query and key positions are
-    0..Sq-1 and 0..Sk-1 (the prefill / train regime)."""
+    ``q_offset``..``q_offset + Sq - 1`` and 0..Sk-1 (the prefill / train
+    regime; a rank's block of the query rows at its offset)."""
     B, Sq, Hq, hd = q.shape
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal, window=int(window),
-                         out=out.transpose(1, 2))
+                         q_offset=q_offset, out=out.transpose(1, 2))
     return out
 
 

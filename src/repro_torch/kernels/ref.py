@@ -21,15 +21,16 @@ _MASK32 = 0xFFFFFFFF
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> torch.Tensor:
     """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, Hq, Sq, hd).
-    Query i and key j sit at positions i and j."""
+    Query i and key j sit at positions ``q_offset + i`` and j."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Sk, _ = k.shape
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, Sq, hd).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * hd ** -0.5
-    qp = torch.arange(Sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
     keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

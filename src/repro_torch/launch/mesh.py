@@ -189,3 +189,29 @@ def make_host_mesh(shape: Optional[tuple[int, ...]] = None,
     if shape is None:
         shape, axes = (1, dist.get_world_size()), ("data", "model")
     return make_mesh(tuple(shape), tuple(axes))
+
+
+def join_world(spec: str, backend: str) -> tuple[Mesh, bool]:
+    """The (data, model) mesh ``spec`` (``"DxM"``, a CLI's ``--mesh``)
+    names over the world: the one already initialised in this process,
+    else the one ``torchrun`` describes in the environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), joined over
+    ``backend``.  Returns (mesh, whether this call started the world)."""
+    import os
+
+    import torch.distributed as dist
+    try:
+        shape = tuple(int(n) for n in spec.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2:
+        raise SystemExit(f"--mesh takes DxM (data x model), not {spec!r}")
+    started = False
+    if not dist.is_initialized():
+        env = os.environ
+        init_world(backend, rank=int(env["RANK"]),
+                   world_size=int(env["WORLD_SIZE"]),
+                   init_method=f"tcp://{env['MASTER_ADDR']}:"
+                               f"{env['MASTER_PORT']}")
+        started = True
+    return make_mesh(shape, ("data", "model")), started

@@ -47,6 +47,9 @@ Usage:
       --prompt-len 1024                                           # on the card
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --prompt-len 1024                                           # on the card
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch smollm-360m --mesh 1x4 --backend gloo \\
+      --prompt-len 512 --gen 8          # TP 4, ranks sharing one card
   python -m repro_torch.launch.serve --arch smollm-360m --smoke \\
       --device cpu --prompt-len 16 --gen 4                        # CPU smoke
   python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \\
@@ -107,6 +110,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import os
 import time
 from typing import Iterator, Optional
 
@@ -399,16 +403,43 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D x M ranks "
+                         "(TP; the world torchrun starts, or the one "
+                         "already initialised in the process; default: "
+                         "one card); rank 0 prints")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="the world's backend when --mesh starts it: nccl "
+                         "for one rank per card, gloo on the CPU or for "
+                         "ranks that share a card")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh, started, device = None, False, args.device
+    if args.mesh:
+        from repro_torch.launch.mesh import join_world
+        mesh, started = join_world(args.mesh, args.backend)
+        if device is None and args.backend == "nccl":
+            device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+            torch.cuda.set_device(torch.device(device))
+    try:
+        _serve(args, cfg, mesh, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, mesh, device) -> None:
+    """The CLI's request: ``args.batch`` random prompts through
+    ``Server.generate`` on one card or, on ``mesh``, on each rank."""
     prompt_len = args.prompt_len
     if prompt_len is None:
         chunk = cfg.ssm.chunk if cfg.family in ("ssm", "hybrid") else 1
         prompt_len = -(-128 // chunk) * chunk
     # a VLM's prefill holds its patch positions before the prompt
     patches = cfg.frontend_len if cfg.family == "vlm" else 0
-    server = Server(cfg, device=args.device,
+    server = Server(cfg, mesh, device=device,
                     max_len=patches + prompt_len + args.gen + 1)
     server.load(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -426,7 +457,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     tokens = server.generate(batch, args.gen)
     dt = time.monotonic() - t0
     tps = args.batch * args.gen / dt
-    print(f"[serve] {server.device}: generated {tokens.shape} in {dt:.2f}s "
+    if mesh is not None and mesh.rank != 0:
+        return
+    where = (f"{server.device}, mesh {args.mesh}" if mesh is not None
+             else server.device)
+    print(f"[serve] {where}: generated {tokens.shape} in {dt:.2f}s "
           f"({tps:.1f} tok/s)")
     rep = server.last_report
     print(f"[serve] stream fidelity: throughput="

@@ -262,32 +262,6 @@ class Trainer:
         return self.metrics_log
 
 
-def _join_world(args):
-    """The mesh ``--mesh DxM`` names over the world: the one already
-    initialised in this process, else the one ``torchrun`` describes in
-    the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-    ``MASTER_PORT``), joined over ``--backend``.  Returns (mesh, whether
-    this call started the world)."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import init_world, make_mesh
-    try:
-        shape = tuple(int(n) for n in args.mesh.lower().split("x"))
-    except ValueError:
-        shape = ()
-    if len(shape) != 2:
-        raise SystemExit(f"--mesh takes DxM (data x model), not "
-                         f"{args.mesh!r}")
-    started = False
-    if not dist.is_initialized():
-        env = os.environ
-        init_world(args.backend, rank=int(env["RANK"]),
-                   world_size=int(env["WORLD_SIZE"]),
-                   init_method=f"tcp://{env['MASTER_ADDR']}:"
-                               f"{env['MASTER_PORT']}")
-        started = True
-    return make_mesh(shape, ("data", "model")), started
-
-
 def main(argv: Optional[list[str]] = None) -> list[dict]:
     """The CLI; returns the run's metrics log (on every rank)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -333,7 +307,8 @@ def main(argv: Optional[list[str]] = None) -> list[dict]:
     mesh, started = (None, False)
     device = args.device
     if args.mesh:
-        mesh, started = _join_world(args)
+        from repro_torch.launch.mesh import join_world
+        mesh, started = join_world(args.mesh, args.backend)
         if device is None and args.backend == "nccl":
             device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
             torch.cuda.set_device(torch.device(device))

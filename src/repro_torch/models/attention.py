@@ -7,7 +7,9 @@ makes ring-buffer caches correct without any index shuffling.  A window
 is a Python int per layer (``ModelConfig.layer_windows``).
 
 ``impl="cuda"`` routes prefill through the flash-attention kernel
-(:mod:`repro_torch.kernels.flash_attention`) at any sequence length;
+(:mod:`repro_torch.kernels.flash_attention`) at any sequence length, and a
+model rank's block of the query rows at its offset (the query-sequence
+split, ``ShardCtx.seq_parallel_attn``);
 ``"ref"`` is the plain path, the same arithmetic as the JAX package's
 ``impl="ref"``.  KV caches are updated in place (the JAX package returns new
 arrays): a cache is as large as the model's activations, and a copy per
@@ -61,6 +63,27 @@ def _attn_core(q, k, v, *, q_pos, k_pos, causal, window) -> torch.Tensor:
     return out.reshape(B, Sq, Hq, hd)
 
 
+def query_block_offset(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                       causal: bool) -> int:
+    """``off`` where the causal queries' positions are the block
+    ``arange(off, off + Sq)`` of the keys' ``arange(Sk)`` (the flash
+    route's rows at an offset); raises for anything else (non-causal Sq !=
+    Sk, e.g. cross attention, goes through decode_attention).  Reads the
+    positions on the host: one device sync."""
+    if not causal or q_pos.ndim != 1 or k_pos.ndim != 1:
+        raise ValueError("the flash route takes Sq != Sk only for causal "
+                         "queries at a block of positions")
+    pos = torch.cat([q_pos.to(torch.int64), k_pos.to(torch.int64)]).tolist()
+    Sq = q_pos.shape[0]
+    q, k = pos[:Sq], pos[Sq:]
+    off = q[0]
+    if (k != list(range(len(k))) or q != list(range(off, off + Sq))
+            or off < 0 or off + Sq > len(k)):
+        raise ValueError("the flash route takes Sq != Sk only where q_pos "
+                         "is arange(off, off + Sq) and k_pos arange(Sk)")
+    return off
+
+
 def attention(
     q: torch.Tensor,            # (B, Sq, Hq, hd)
     k: torch.Tensor,            # (B, Sk, Hkv, hd)
@@ -75,15 +98,19 @@ def attention(
     """Grouped-query attention; returns (B, Sq, Hq, hd).
 
     ``impl="cuda"`` takes the flash kernel, whose positions are 0..S-1:
-    the caller passes q_pos == k_pos == arange(S) (prefill / train).  The
-    plain path evaluates queries in chunks when the score workspace would
-    exceed ``ATTN_CHUNK_ELEMS``."""
+    the caller passes q_pos == k_pos == arange(S) (prefill / train); or,
+    causal, a block of the query rows, q_pos == arange(off, off + Sq)
+    against k_pos == arange(Sk), which the kernel takes at offset ``off``
+    (anything else with Sq != Sk raises).  The plain path evaluates
+    queries in chunks when the score workspace would exceed
+    ``ATTN_CHUNK_ELEMS``."""
     if impl == "cuda":
         from repro_torch.kernels import ops as kops
+        off = 0
         if q.shape[1] != k.shape[1]:
-            raise ValueError("the flash route takes Sq == Sk (prefill); "
-                             "decode goes through decode_attention")
-        return kops.flash_attention(q, k, v, causal=causal, window=window)
+            off = query_block_offset(q_pos, k_pos, causal)
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=off)
     if impl != "ref":
         raise ValueError(f"impl must be 'cuda' or 'ref', got {impl!r}")
     B, Sq, Hq, hd = q.shape

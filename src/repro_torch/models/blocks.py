@@ -22,8 +22,20 @@ computes its own part, Megatron-style, by the rule table of
 * a Mamba2 layer over the rank's share of the SSD heads
   (:meth:`ShardCtx.ssm_heads`, ``models/ssm.py``).
 
-A head is never split: where the heads do not divide the model axis, the
-rank computes them whole (:class:`HeadPlan`).  Activations hold the
+A head is never split: where the query heads do not divide the model
+axis, the rank computes every head (:class:`HeadPlan`) but only for its
+block of the query rows, rows ``[i S/m, (i + 1) S/m)`` for model index i
+of m (the JAX package's ``seq_parallel_attn``: m > 1, S > 1 and m divides
+S; :meth:`ShardCtx.seq_parallel_attn`), with or without sequence
+parallelism: its queries (RoPE at their positions) against the keys and
+values of the whole sequence, which fill the prefill cache as before, and
+``wo`` on those rows, whole values for them.  Without sequence
+parallelism the rows are then gathered over the model axis
+(``collectives.gather_model``, counted under ``"qseq"``), so the residual
+is whole again; under it they are the rank's chunk already.  A decode
+step, a sequence that m does not divide and the enc-dec's cross attention
+are computed whole on every model rank.  :func:`query_rows` records the
+rows each call fed attention.  Activations hold the
 rank's rows of the batch (split over the data axes) and are whole over
 the model axis, but under Megatron sequence parallelism
 (``ShardCtx.seq_parallel``, a plan's ``seq_parallel``): there a
@@ -37,10 +49,10 @@ by reducing its partial sums and scattering the chunks back
 (:meth:`ShardCtx.seq_enter`, :meth:`ShardCtx.seq_leave`; where the rank
 computes the region whole, it gathers and keeps its own chunk).
 Attention and RoPE see the gathered sequence at positions ``0..S-1``, so
-the kernels run at the shapes they run without it.  The residuals a
-layer keeps for the backward pass then cost 1/m of the memory.  The
-JAX package's query-sequence split of attention (``seq_parallel_attn``)
-is not ported: where the heads divide nothing they are computed whole.
+the kernels run at the shapes they run without it (but under the query
+split, where the chunk is the query block and the gathered sequence the
+keys).  The residuals a layer keeps for the backward pass then cost 1/m
+of the memory.
 
 On a training mesh (``ShardCtx.specs``: what the rank holds of each
 parameter, ``sharding.rank_spec``) the same forward carries gradients
@@ -59,9 +71,14 @@ rank, which the train step sums over the model axis,
 ``launch/steps.py``); a weight held whole while the rank computes
 only its heads' share of its use (``wk`` / ``wv`` where the query heads
 divide the model axis and the KV heads do not) enters too, so its
-gradient is summed over the model axis.  Where the heads divide nothing,
-attention is computed whole on every model rank and its gradients are
-already whole.
+gradient is summed over the model axis.  Under the query split every
+attention weight is held whole and used for one block of rows, so
+``wq``, ``wk``, ``wv`` and ``wo`` enter, and so does the normed input
+where it is whole (without sequence parallelism); under sequence
+parallelism the gathered sequence the keys read is a share of the work
+(``gather_seq(partial=True)``).  Where the heads divide nothing and the
+sequence does not split, attention is computed whole on every model rank
+and its gradients are already whole.
 
 Parameters are ``nn.Module``s whose attribute names follow the JAX
 package's parameter tree (``attn.wq``, ``mlp.w_gate``, ``ln1``, ``in_proj``, ...), so
@@ -90,8 +107,11 @@ from .config import ModelConfig
 class HeadPlan:
     """The attention heads one rank computes: ``hq`` query heads (the
     ``wq`` columns and ``wo`` rows it holds) and ``hkv`` KV heads (its
-    cache's).  ``q_split``: the query heads are this rank's share of the
-    model axis, so the ``wo`` product is a partial sum.  ``kv``: where the
+    cache's); every head where the query heads do not divide the model
+    axis, the work then shared by query rows instead
+    (:meth:`ShardCtx.seq_parallel_attn`).  ``q_split``: the query heads
+    are this rank's share of the model axis, so the ``wo`` product is a
+    partial sum.  ``kv``: where the
     rank holds ``wk`` / ``wv`` whole (the KV heads do not divide the model
     axis), the KV heads its query heads read, in order (one per query head
     where they share no group); None where ``k`` already holds just the
@@ -140,6 +160,15 @@ class ShardCtx:
     def heads_shardable(self, h: int) -> bool:
         m = self._model_size()
         return m > 1 and h % m == 0
+
+    def seq_parallel_attn(self, h: int, s: int) -> bool:
+        """Whether attention of ``h`` query heads over ``s`` positions
+        splits its query rows over the model axis: the JAX package's test,
+        where the heads do not divide a model axis m > 1, s > 1 and m
+        divides s (with or without ``seq_parallel``)."""
+        m = self._model_size()
+        return (not self.heads_shardable(h)) and m > 1 and s > 1 \
+            and s % m == 0
 
     def choose_moe(self, cfg: ModelConfig) -> str:
         """The MoE path.  ``moe_impl`` unless it is ``"auto"``; on a mesh,
@@ -430,6 +459,31 @@ def init_mamba_layer(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+#: the query rows each attention call of this process fed attention since
+#: the last :func:`reset_query_rows`: (first, end, of S) -> calls
+_QUERY_ROWS: dict = {}
+
+
+def query_rows() -> dict:
+    """{(first, end, S): calls}: the rows ``[first, end)`` of a sequence
+    of S positions that each self-attention call (a prefill's, a train
+    step's, a decode step's) of this process fed attention as queries,
+    since :func:`reset_query_rows`: ``(0, S, S)`` where the rank computed
+    every row, its block where the query rows split over the model axis
+    (:meth:`ShardCtx.seq_parallel_attn`)."""
+    return dict(_QUERY_ROWS)
+
+
+def reset_query_rows() -> None:
+    _QUERY_ROWS.clear()
+
+
+def record_query_rows(first: int, end: int, s: int) -> None:
+    """Counts one attention call fed rows ``[first, end)`` of ``s``."""
+    key = (first, end, s)
+    _QUERY_ROWS[key] = _QUERY_ROWS.get(key, 0) + 1
+
+
 def self_attention_block(
     x: torch.Tensor, p: AttnParams, cfg: ModelConfig, ctx: ShardCtx, *,
     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0,
@@ -440,9 +494,16 @@ def self_attention_block(
     (out, k_new, v_new), k_new/v_new post-RoPE (the cache's entries).
     Under sequence parallelism (``ctx.shards_act`` of the ``q_pos``
     positions) ``x`` and ``out`` are the rank's chunk of the sequence,
-    k_new/v_new the whole sequence's (of the rank's heads)."""
+    k_new/v_new the whole sequence's (of the rank's heads).  Where the
+    query rows split over the model axis (``ctx.seq_parallel_attn``),
+    :func:`_query_split_block`."""
+    S = q_pos.shape[0]
+    if ctx.seq_parallel_attn(cfg.n_heads, S):
+        return _query_split_block(x, p, cfg, ctx, q_pos=q_pos, k_pos=k_pos,
+                                  window=window, causal=causal)
+    record_query_rows(0, S, S)
     hp = ctx.heads(cfg)
-    sp = ctx.shards_act(q_pos.shape[0])
+    sp = ctx.shards_act(S)
     x = ctx.seq_enter(x, hp.q_split, sp)
     B, S, D = x.shape
     # wk / wv held whole, used for this rank's heads only
@@ -456,6 +517,49 @@ def self_attention_block(
                     window=window, impl=ctx.impl)
     out = out.reshape(B, S, hp.hq * cfg.hd)
     return ctx.seq_leave(out @ p.wo, hp.q_split, sp), k, v
+
+
+def _query_split_block(
+    x: torch.Tensor, p: AttnParams, cfg: ModelConfig, ctx: ShardCtx, *,
+    q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`self_attention_block` where the query rows split over the
+    model axis: model rank i of m computes every head for the queries of
+    rows ``[i S/m, (i + 1) S/m)`` (RoPE at their positions) against the
+    whole sequence's keys and values, and ``wo`` on those rows.  Without
+    sequence parallelism ``x`` is whole and the output rows are gathered
+    over the model axis (counted under ``"qseq"``); under it ``x`` is the
+    rank's chunk, the query rows themselves, the sequence is gathered for
+    the keys (its gradient summed and scattered: each rank's keys are a
+    share of the work) and the output is the chunk.  On a training mesh
+    the weights, used for one block of rows, enter the region, and so does
+    a whole ``x``: their gradients are summed over the model axis."""
+    from repro_torch.parallel import collectives as coll
+    mesh, ax = ctx.mesh, ctx.model_axis
+    S = q_pos.shape[0]
+    c = S // mesh.axis_size(ax)
+    lo = mesh.axis_index(ax) * c
+    sp = ctx.shards_act(S)
+    if sp:
+        xq, xkv = x, coll.gather_seq(x, mesh, ax, 1, partial=True)
+    else:
+        xkv = ctx.enter(x, True)
+        xq = xkv[:, lo:lo + c]
+    wq, wk, wv, wo = (ctx.enter(w, True) for w in (p.wq, p.wk, p.wv, p.wo))
+    B = x.shape[0]
+    qp = q_pos[lo:lo + c]
+    q = apply_rope((xq @ wq).reshape(B, c, cfg.n_heads, cfg.hd), qp,
+                   cfg.rope_theta)
+    k = apply_rope((xkv @ wk).reshape(B, S, cfg.n_kv_heads, cfg.hd), q_pos,
+                   cfg.rope_theta)
+    v = (xkv @ wv).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    record_query_rows(lo, lo + c, S)
+    out = attention(q, k, v, q_pos=qp, k_pos=k_pos, causal=causal,
+                    window=window, impl=ctx.impl)
+    y = out.reshape(B, c, cfg.q_dim) @ wo
+    if not sp:
+        y = coll.gather_model(y, mesh, ax, 1, kind="qseq")
+    return y, k, v
 
 
 def mlp_apply(h: torch.Tensor, p: MlpParams, cfg: ModelConfig,

@@ -97,7 +97,8 @@ from . import ssm as ssm_lib
 from .blocks import (DenseLayer, MambaLayer, MoeLayer, ShardCtx, _param,
                      dense_layer_apply, ffn_apply, init_dense_layer,
                      init_mamba_layer, init_moe_layer, mlp_apply,
-                     moe_layer_apply, self_attention_block)
+                     moe_layer_apply, record_query_rows,
+                     self_attention_block)
 from .common import (cross_entropy_loss, cross_entropy_sums, dense_init,
                      embed_init, log_partition_and_gold, matmul_f32_reduced,
                      rms_norm, rope_angles, rotate)
@@ -714,6 +715,7 @@ def _decode_attn_block(x, lp: DenseLayer | MoeLayer, cfg, ctx, k_cache,
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
     B = x.shape[0]
     hp = ctx.heads(cfg)
+    record_query_rows(0, 1, 1)   # a decode step's one row, never split
     q = (h @ lp.attn.wq).reshape(B, 1, hp.hq, cfg.hd)
     k = hp.take_kv((h @ lp.attn.wk).reshape(B, 1, -1, cfg.hd))
     v = hp.take_kv((h @ lp.attn.wv).reshape(B, 1, -1, cfg.hd))

@@ -58,7 +58,8 @@ Every collective of this module adds its wall time to :func:`spent`
 (a trainer's share of a step spent in collectives), and the time spent
 inside :func:`fsdp_gather`, :func:`all_to_all_grad` and the sequence
 boundaries, forward and backward, also to their own kinds (``"fsdp"``,
-``"all_to_all"``, ``"seq"``).
+``"all_to_all"``, ``"seq"``), and the gather of the query-sequence split's
+output rows to ``"qseq"`` (``models/blocks.py``).
 
 :func:`compressed_psum` and :func:`hierarchical_psum` are the JAX
 package's (``parallel/collectives.py:41``, ``:82``): the paper's finding
@@ -94,7 +95,8 @@ def spent() -> dict:
     inside the collectives of this module so far, their number, and the
     seconds of each kind (``"fsdp"``: :func:`fsdp_gather`'s gathers and
     reduce-scatters; ``"all_to_all"``: :func:`all_to_all_grad`'s
-    exchanges; ``"seq"``: :func:`gather_seq` and :func:`scatter_seq`),
+    exchanges; ``"seq"``: :func:`gather_seq` and :func:`scatter_seq`;
+    ``"qseq"``: the query-sequence split's gather of its output rows),
     each also counted in ``"seconds"``.  A gloo collective of
     card tensors returns once its result is on the card, so its wall time
     covers the copies through the host."""
@@ -366,13 +368,14 @@ def split_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     return _SplitModel.apply(x, mesh, axes, dim, None)
 
 
-def gather_model(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+def gather_model(x: torch.Tensor, mesh, axes, dim: int = 0, *,
+                 kind: Optional[str] = None) -> torch.Tensor:
     """The members' ``x`` concatenated along ``dim`` (:func:`all_gather`);
     the result is the same on every member, so each takes its own chunk of
-    the gradient, unsummed."""
+    the gradient, unsummed.  Counted under ``kind`` too, where given."""
     if mesh.axis_size(axes) == 1:
         return x
-    return _GatherModel.apply(x, mesh, axes, dim, None)
+    return _GatherModel.apply(x, mesh, axes, dim, kind)
 
 
 def gather_seq(x: torch.Tensor, mesh, axes, dim: int = 1, *,

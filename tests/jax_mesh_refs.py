@@ -171,10 +171,11 @@ FAMILY_FRAMES, MAMBA_GRAD_X = 16, (4, 32)
 #: the families held under sequence parallelism: name -> (arch, smoke
 #: overrides, SSD chunk (None: the smoke config's)).  The dense family as
 #: smollm-360m's 15 heads are, heads that divide no model axis (3, one KV
-#: head: attention whole on every rank, the MLP split); the VLM at its
-#: smoke widths (4 query heads, one KV head); the SSM and hybrid at an SSD
-#: chunk of 6, so that a sequence of 18 (which divides 2 but not 4) is
-#: whole chunks; the enc-dec at a vocab that splits over 2 but not 4
+#: head: the query rows split over the model axis, the MLP split); the
+#: VLM at its smoke widths (4 query heads, one KV head); the SSM and
+#: hybrid at an SSD chunk of 6, so that a sequence of 18 (which divides 2
+#: but not 4) is whole chunks; the enc-dec at a vocab that splits over 2
+#: but not 4
 SP_FAMILIES = {"smollm3": ("smollm-360m", {"n_heads": 3, "n_kv_heads": 1},
                            None),
                "llava": ("llava-next-mistral-7b", {}, None),

@@ -1245,3 +1245,52 @@ def test_fleet_bound_transfer_with_accel_checksum(card):
         plain.add_many(got)
         assert rep.checksum == plain.hexdigest()
     assert arb.grants() == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_kernel_at_query_offsets(card, hd, window):
+    """A model rank's block of the query rows (the query-sequence split):
+    the kernel at each offset of a 4-way split of 512 positions, and at
+    an offset off the 64-row tile, against the plain version at that
+    offset; at the tile-aligned offsets bit for bit the rows of the
+    unsplit launch (the same key tiles in the same order)."""
+    g = torch.Generator(device=card).manual_seed(hd + window)
+    B, Hq, Hkv, S = 2, 6, 2, 512
+    q = torch.randn(B, Hq, S, hd, generator=g, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, S, hd, generator=g, device=card).to(
+        torch.bfloat16) for _ in range(2))
+    whole = flash_attention_bhsd(q, k, v, window=window)
+    for off, rows in ((0, 128), (128, 128), (256, 128), (384, 128),
+                      (100, 77)):
+        qb = q[:, :, off:off + rows]
+        n = build.KERNELS["flash_attention"].launches
+        out = flash_attention_bhsd(qb, k, v, window=window, q_offset=off)
+        assert build.KERNELS["flash_attention"].launches == n + 1
+        expect = ref.attention_ref(qb, k, v, window=window, q_offset=off)
+        torch.testing.assert_close(out.float(), expect.float(),
+                                   **TOL[torch.bfloat16])
+        if off % 64 == 0:
+            assert torch.equal(out, whole[:, :, off:off + rows]), off
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernel_at_query_offsets(card):
+    """The f32 kernel (hd 64) at offsets: against the plain version, and
+    bit for bit the unsplit launch's rows at tile-aligned offsets."""
+    g = torch.Generator(device=card).manual_seed(64)
+    q = torch.randn(2, 4, 256, 64, generator=g, device=card)
+    k, v = (torch.randn(2, 2, 256, 64, generator=g, device=card)
+            for _ in range(2))
+    whole = flash_attention_bhsd(q, k, v, window=100)
+    for off, rows in ((0, 64), (64, 64), (192, 64), (30, 50)):
+        out = flash_attention_bhsd(q[:, :, off:off + rows], k, v, window=100,
+                                   q_offset=off)
+        expect = ref.attention_ref(q[:, :, off:off + rows], k, v, window=100,
+                                   q_offset=off)
+        torch.testing.assert_close(out, expect, **TOL[torch.float32])
+        if off % 64 == 0:
+            assert torch.equal(out, whole[:, :, off:off + rows]), off
+    with pytest.raises(ValueError, match="offset"):
+        flash_attention_bhsd(q[:, :, :64], k, v, q_offset=193)

@@ -9,7 +9,8 @@ pinned to one core.  The file keeps under 27 tests (see
 ``tests/test_torch_mesh.py``).  Smoke widths, in f32, on the JAX model's
 weights, at (1, 4) and (2, 2), for each family of the JAX run's
 ``SP_FAMILIES``: the dense family with heads that divide no model axis (3
-query heads, one KV head: attention whole on every rank, as smollm-360m's
+query heads, one KV head: each rank computes every head for its block of
+the query rows where the sequence divides the model axis, as smollm-360m's
 15 heads are, the MLP split), the VLM (8 patches before the text; 4 query
 heads over one KV head), the SSM and the hybrid (SSD chunk 6), the
 enc-dec (vocab 258: its head split over 2, whole over 4).  Each runs a
@@ -31,7 +32,15 @@ sequence that divides a model axis of 4 (24) and one that divides only 2
 * the values the checkpointed layer bodies keep (the (2, 2) FSDP steps
   recompute each layer): the layer inputs, S/m rows a rank;
 * ``gather_seq`` / ``scatter_seq``, each with both gradients, against
-  the one-process function.
+  the one-process function;
+* the query-sequence split of attention (``ShardCtx.seq_parallel_attn``,
+  the reference's test: the dense family's 3 heads divide no model axis):
+  the query rows each rank fed attention, its block exactly where the
+  split holds, with and without the plan (S 24 on both meshes, S 18 at
+  (2, 2)); the runs without the plan, now split, against the reference's
+  arrays under the plan (the same function: the reference's layout
+  constraints change no value); the output rows' gather (kind
+  ``"qseq"``) exactly where the split runs without the plan.
 
 Tolerances, those of ``tests/test_torch_mesh_train.py`` and
 ``tests/test_torch_family_mesh.py``: prefill logits within 1e-4 of the
@@ -48,11 +57,13 @@ move by f32 rounding.
 """
 
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from repro.models.blocks import ShardCtx as RefCtx
 from test_torch_mesh_train import _check_weights, _prefix
 from torch_mesh_ranks import (MESHES, SEQ_CHUNK, WORLD, run_world,
                               seq_inputs, sp_cfg)
@@ -62,6 +73,7 @@ from repro_torch.core.codesign import CodesignPlan
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import build
+from repro_torch.models.blocks import ShardCtx
 from repro_torch.weights import param_shapes
 
 torch.set_num_threads(1)
@@ -311,6 +323,142 @@ def test_sp_train_steps_gather_where_the_sequence_splits(world):
             seq_s = r[f"sp/train/{case}/sp/seq_s"]
             assert (seq_s > 0).all(), (case, seq_s)
             assert (r[f"sp/train/{case}/nosp/seq_s"] == 0).all(), case
+
+
+# ---------------------------------------------------------------------------
+# The query-sequence split of attention
+# ---------------------------------------------------------------------------
+
+
+def _split(meta, name: str, m: str, s: int) -> bool:
+    """Whether attention over ``s`` positions splits its query rows on
+    mesh ``m``: the reference's ``seq_parallel_attn`` of the family's
+    query heads, the mesh given by its shape alone (never for the SSM
+    family, which has no attention)."""
+    d, mm = MESHES[m]
+    mesh = SimpleNamespace(shape={"data": d, "model": mm})
+    cfg = sp_cfg(name, meta)
+    return cfg.family != "ssm" and RefCtx(mesh=mesh).seq_parallel_attn(
+        cfg.n_heads, s)
+
+
+def _rows_ok(rows, meta, name, m, r, what):
+    """Each entry (first, end, S, calls) of rank ``r``'s record: its block
+    of S/m rows where the split holds for S, every row where it does not.
+    Returns the sequence lengths that split."""
+    mm = MESHES[m][1]
+    split = set()
+    for first, end, S, calls in rows.tolist():
+        assert calls > 0, what
+        if _split(meta, name, m, S):
+            c = S // mm
+            assert (first, end) == ((r % mm) * c, (r % mm + 1) * c), (
+                what, r, first, end, S)
+            split.add(S)
+        else:
+            assert (first, end) == (0, S), (what, r, first, end, S)
+    return split
+
+
+def test_query_split_runs_where_seq_parallel_attn_holds(world):
+    """The port's test is the reference's (every head count 1..16 at
+    every sequence of 1..30 on each mesh); then the query rows each rank
+    fed attention in every prefill and train step, with and without the
+    plan: rank i's block ``[i S/m, (i + 1) S/m)`` exactly where the split
+    holds, every row elsewhere, a decode step's one row whole.  It holds
+    for the dense family (3 query heads) at S 24 on both meshes and at S
+    18 at (2, 2), once per layer, and for no other family."""
+    ref, ranks, meta = world
+    for m in meta["sp_meshes"]:
+        ctx = ShardCtx(mesh=_mesh(MESHES[m]))
+        rctx = RefCtx(mesh=SimpleNamespace(shape=dict(
+            zip(("data", "model"), MESHES[m]))))
+        for h in range(1, 17):
+            for S in range(1, 31):
+                assert ctx.seq_parallel_attn(h, S) == \
+                    rctx.seq_parallel_attn(h, S), (m, h, S)
+    for name, m, S, case in _serve_cases(meta):
+        cfg = sp_cfg(name, meta)
+        for r, out in enumerate(ranks):
+            for run in ("sp", "nosp"):
+                what = (case, run)
+                split = _rows_ok(out[f"sp/serve/{case}/{run}/qrows"], meta,
+                                 name, m, r, what)
+                want = {S} if name == "smollm3" and (
+                    m == "2x2" or S % 4 == 0) else set()
+                assert split == want, (what, split)
+                if want:
+                    assert out[f"sp/serve/{case}/{run}/qrows"][:, 3].tolist() \
+                        == [cfg.n_layers], what
+                decode = out[f"sp/serve/{case}/{run}/decode_qrows"]
+                assert all(row[:3] == [0, 1, 1] for row in decode.tolist()), (
+                    what, decode)
+    for name, m, case in _train_cases(meta):
+        for r, out in enumerate(ranks):
+            for run in ("sp", "nosp"):
+                for i in range(2):
+                    what = (case, run, i)
+                    split = _rows_ok(
+                        out[f"sp/train/{case}/{run}/qrows/{i}"], meta, name,
+                        m, r, what)
+                    assert bool(split) == (name == "smollm3"), (what, split)
+
+
+def test_query_split_without_plan_matches_reference(world):
+    """Where the split runs without the plan (the dense family's), the
+    port's prefill logits, its train steps' metrics, step 1's gradient of
+    every leaf and the weights after 2 steps against the reference's run
+    under the plan: the file's tolerances."""
+    ref, ranks, meta = world
+    held = 0
+    for name, m, S, case in _serve_cases(meta):
+        if not _split(meta, name, m, S):
+            continue
+        got = _logits(ranks, meta, f"sp/serve/{case}/nosp/logits", m)[0]
+        _share(got, ref[f"sp/serve/{case}/logits"],
+               _prefill_share(meta, name), case)
+        held += 1
+    for name, m, case in _train_cases(meta):
+        steps_s = [ref[f"sp/train/{case}/batches/{i}/tokens"].shape[1]
+                   for i in range(2)]
+        if sp_cfg(name, meta).family != "dense" or not all(
+                _split(meta, name, m, s) for s in steps_s):
+            continue
+        run = f"sp/train/{case}/nosp"
+        for r in ranks:
+            np.testing.assert_allclose(r[f"{run}/metrics"],
+                                       ref[f"sp/train/{case}/metrics"],
+                                       rtol=METRIC_RTOL, err_msg=case)
+        want = _prefix(ref, f"sp/grads/{name}/grads/")
+        got = _prefix(ranks[0], f"{run}/grads/")
+        assert got.keys() == want.keys(), case
+        for k in want:
+            _share(got[k], want[k], GRAD_SHARE, (case, k))
+        _check_weights(_prefix(ranks[0], f"{run}/final/"),
+                       _prefix(ref, f"sp/train/{case}/final/"),
+                       _prefix(ref, f"sp/params/{name}/"),
+                       meta["train_lr"], case)
+        held += 1
+    # 3 prompts (24 at both meshes, 18 at (2, 2)) and 2 train cases
+    assert held == 5, held
+
+
+def test_query_split_gathers_rows_only_without_plan(world):
+    """The gather of the split's output rows (kind ``"qseq"``) spends time
+    in a prefill or train step exactly where the split runs without the
+    plan, on every rank; under the plan the rows are the rank's chunk
+    already and nothing is spent in it."""
+    ref, ranks, meta = world
+    for name, m, S, case in _serve_cases(meta):
+        for r in ranks:
+            qseq = float(r[f"sp/serve/{case}/nosp/qseq_s"])
+            assert (qseq > 0) == _split(meta, name, m, S), (case, qseq)
+            assert float(r[f"sp/serve/{case}/sp/qseq_s"]) == 0.0, case
+    for name, m, case in _train_cases(meta):
+        for r in ranks:
+            qseq = r[f"sp/train/{case}/nosp/qseq_s"]
+            assert ((qseq > 0) == (name == "smollm3")).all(), (case, qseq)
+            assert (r[f"sp/train/{case}/sp/qseq_s"] == 0).all(), case
 
 
 # ---------------------------------------------------------------------------

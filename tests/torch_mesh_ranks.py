@@ -956,8 +956,11 @@ def sp_serve(out, ref, meta, meshes, name, cfg):
     """``name``'s prompts through ``Server(cfg, mesh, plan=...)`` with and
     without sequence parallelism on the JAX model's weights (f32): the
     prefill logits and 2 teacher-forced decode steps' (``sp`` / ``nosp``),
-    and the collectives' seconds of kind ``"seq"`` over the prefill."""
+    the collectives' seconds of kinds ``"seq"`` and ``"qseq"`` over the
+    prefill, and the query rows attention was fed in the prefill and in
+    the decode steps (:func:`_query_rows`)."""
     from repro_torch.launch.serve import Server
+    from repro_torch.models import blocks
     from repro_torch.weights import shard_params
     for m in meta["sp_meshes"]:
         mesh = meshes[m]
@@ -973,29 +976,36 @@ def sp_serve(out, ref, meta, meshes, name, cfg):
                                 plan=_sp_plan("tp", sp))
                 server.params = shard_params(_tree(
                     ref, f"sp/params/{name}/"), cfg, mesh, device="cpu")
+                blocks.reset_query_rows()
                 before = coll.spent()
                 logits, cache = server.prefill(batch)
-                seq_s = coll.spent_since(before)["kinds"].get("seq", 0.0)
+                kinds = coll.spent_since(before)["kinds"]
+                rows = _query_rows()
+                blocks.reset_query_rows()
                 outs = [logits]
                 for t in range(2):
                     logits, cache = server.decode(
                         cache, server._on_device(forced[:, t:t + 1]))
                     outs.append(logits)
-                run = "sp" if sp else "nosp"
-                out[f"sp/serve/{case}/{run}/logits"] = torch.stack(
-                    outs).numpy()
-                out[f"sp/serve/{case}/{run}/seq_s"] = np.asarray(seq_s)
+                run = f"sp/serve/{case}/{'sp' if sp else 'nosp'}"
+                out[f"{run}/logits"] = torch.stack(outs).numpy()
+                out[f"{run}/seq_s"] = np.asarray(kinds.get("seq", 0.0))
+                out[f"{run}/qseq_s"] = np.asarray(kinds.get("qseq", 0.0))
+                out[f"{run}/qrows"] = rows
+                out[f"{run}/decode_qrows"] = _query_rows()
 
 
 def sp_train(out, ref, meta, meshes, rank, name, cfg):
     """``name``'s 2 train steps under ``CodesignPlan(sharding="fsdp_tp",
     seq_parallel=...)`` on each mesh, from the JAX model's weights on the
     rank's shards and rows, with and without sequence parallelism: the
-    metrics, the values the checkpointed layer bodies kept and the
-    collectives' seconds of kind ``"seq"`` each step, and (rank 0) step
+    metrics, the values the checkpointed layer bodies kept, the
+    collectives' seconds of kinds ``"seq"`` and ``"qseq"`` and the query
+    rows attention was fed (:func:`_query_rows`) each step, and (rank 0) step
     1's gradients after the exchange and the final weights, gathered
     whole."""
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import blocks
     from repro_torch.models import lm as lm_lib
     from repro_torch.models.api import build
     from repro_torch.optim.adamw import adamw_init
@@ -1025,15 +1035,18 @@ def sp_train(out, ref, meta, meshes, rank, name, cfg):
                     grads.extend(x.detach().clone() for x in g)
                 return update(g, *a, **k)
             steps_lib.adamw_update = first
-            metrics, kept, seq_s = [], [], []
+            metrics, kept, seq_s, qseq_s = [], [], [], []
             try:
-                for b in batches:
+                for i, b in enumerate(batches):
                     lm_lib.reset_kept()
+                    blocks.reset_query_rows()
                     before = coll.spent()
                     lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
                                                  for k, v in b.items()})
-                    seq_s.append(coll.spent_since(before)["kinds"].get(
-                        "seq", 0.0))
+                    kinds = coll.spent_since(before)["kinds"]
+                    seq_s.append(kinds.get("seq", 0.0))
+                    qseq_s.append(kinds.get("qseq", 0.0))
+                    out[f"{run}/qrows/{i}"] = _query_rows()
                     kept.append(lm_lib.kept_values())
                     metrics.append([float(mt[k]) for k in keys])
             finally:
@@ -1041,6 +1054,7 @@ def sp_train(out, ref, meta, meshes, rank, name, cfg):
             out[f"{run}/metrics"] = np.asarray(metrics)
             out[f"{run}/kept"] = np.asarray(kept)
             out[f"{run}/seq_s"] = np.asarray(seq_s)
+            out[f"{run}/qseq_s"] = np.asarray(qseq_s)
             shapes, names = param_shapes(cfg), param_names(lm)
             whole = [unshard(g, param_spec(n, shapes[n], cfg, mesh, plan),
                              mesh) for n, g in zip(names, grads)]
@@ -1051,6 +1065,14 @@ def sp_train(out, ref, meta, meshes, rank, name, cfg):
                     out[f"{run}/grads/{path}"] = v
                 for path, v in flatten_with_paths(final):
                     out[f"{run}/final/{path}"] = v
+
+
+def _query_rows() -> np.ndarray:
+    """``blocks.query_rows()`` as rows (first, end, S, calls), sorted;
+    (0, 4) where no attention call ran."""
+    from repro_torch.models import blocks
+    rows = sorted(k + (n,) for k, n in blocks.query_rows().items())
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 4)
 
 
 def seq_parallel(out, ref, meta, meshes, rank):

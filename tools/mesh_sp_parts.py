@@ -1,18 +1,24 @@
 """Run the mesh phase's sequence-parallel parts of ``chip_smoke.py`` alone
 on one card, with the unsplit parts they are held to.
 
-    python tools/mesh_sp_parts.py [--out FILE.json]
+    python tools/mesh_sp_parts.py [--parts P,...] [--out FILE.json]
 
-Builds the kernels, spawns ``chip_smoke.py``'s four gloo ranks
-(``MeshWorld``) and runs, through ``chip_smoke.py``'s own functions:
-phi3-mini (``MESH_PHI3``'s layers) and mamba2-1.3b served at TP 4, each
-then again with and without Megatron sequence parallelism
-(``mesh_tp_serve(sp_steps=...)``); smollm-360m's (2, 2) trainer without
-the split (``mesh_train``) and its steps under it (``mesh_sp_train``).
-The phi3 KV staging under the digest is left out.  Prints every record
-as ``chip_smoke.py`` does, each part's seconds, and fails as it fails.
-Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+Builds the kernels, then runs, through ``chip_smoke.py``'s own functions,
+the parts named (default all, in this order): ``flash_offset``, the flash
+kernel at a rank's block of query rows (``FLASH_OFFSET_ROWS``) against its
+plain version and the unsplit launch's rows; then on ``chip_smoke.py``'s
+four gloo ranks (``MeshWorld``) ``phi3`` (``MESH_PHI3``'s layers),
+``mamba2`` and ``smollm`` (``MESH_SMOLLM``: the query-sequence split)
+served at TP 4, each again with and without Megatron sequence
+parallelism (``mesh_tp_serve(sp_steps=...)``); ``train``, smollm-360m's
+(2, 2) trainer without the plan (``mesh_train``) and its steps under it
+(``mesh_sp_train``), both with the query split.  The phi3 KV staging
+under the digest is left out.  Prints every record as ``chip_smoke.py``
+does, each part's seconds, and fails as it fails.  Needs a CUDA card and
+``nvcc``; imports nothing of JAX.
 """
+
+PARTS = ("flash_offset", "phi3", "mamba2", "smollm", "train")
 
 import argparse
 import json
@@ -32,7 +38,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the part records to this JSON file")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated, of {', '.join(PARTS)}")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if set(parts) - set(PARTS):
+        ap.error(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     import torch
     if not torch.cuda.is_available():
         print("mesh_sp_parts: no CUDA device is available", file=sys.stderr)
@@ -44,39 +55,68 @@ def main() -> int:
     cs.emit("build", per_source_s=build.build_all(),
             seconds=time.monotonic() - t0)
     paths, records = {}, []
+    if "flash_offset" in parts:
+        checks = [cs.check_flash(torch, B=B, Hq=hq, Hkv=hkv, S=sq, Sk=sk,
+                                 hd=hd, dtype=getattr(torch, dt), window=w,
+                                 q_offset=off)
+                  for _, B, hq, hkv, sq, sk, hd, w, off, dt
+                  in cs.FLASH_OFFSET_ROWS]
+        records += checks
+        cs.checks_ok(checks)
     rng = torch.Generator().manual_seed(cs.SEED + 5)
     world = cs.MeshWorld(cs.MESH_RANKS)
     tmp = tempfile.mkdtemp(prefix="mesh_sp_parts_")
     try:
-        t = time.monotonic()
-        phi3 = cs._train_cfg(cs.MESH_PHI3)
-        batch = cs._prompts(torch, phi3, cs.MESH_PHI3["batch"],
-                            cs.MESH_PHI3["prompt"], rng)
-        cs.mesh_tp_serve(torch, world, tmp, paths, records, phi3, batch,
-                         cs.MESH_PHI3["steps"], "mesh_phi3",
-                         sp_steps=cs.MESH_SP_STEPS)
-        cs.emit("part_time", of="phi3", seconds=time.monotonic() - t)
-        t = time.monotonic()
-        cfg = get_config("mamba2-1.3b")
-        spec = cs.MESH_FAMILY_SERVE["mamba2"]
-        batch = cs._prompts(torch, cfg, spec["batch"], spec["prompt"], rng)
-        cs.mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch,
-                         spec["steps"], "mesh_mamba2",
-                         launches=cs._family_launches(cfg, cs.MESH_RANKS,
-                                                      spec["gen"]),
-                         gen=spec["gen"], sp_steps=cs.MESH_SP_STEPS)
-        cs.emit("part_time", of="mamba2", seconds=time.monotonic() - t)
-        t = time.monotonic()
-        nosp: dict = {}
-        records.append(cs.mesh_train(torch, world, tmp, paths, nosp))
-        cs.emit("part_time", of="train", seconds=time.monotonic() - t)
-        t = time.monotonic()
-        rec = cs.mesh_sp_train(torch, world, paths, nosp)
-        records.append(rec)
-        cs.checked(rec, "training under sequence parallelism", (
-            "loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok", "seq_ok",
-            "losses_ok", "same_ok", "no_kernel_ok"))
-        cs.emit("part_time", of="sp train", seconds=time.monotonic() - t)
+        if "phi3" in parts:
+            t = time.monotonic()
+            phi3 = cs._train_cfg(cs.MESH_PHI3)
+            batch = cs._prompts(torch, phi3, cs.MESH_PHI3["batch"],
+                                cs.MESH_PHI3["prompt"], rng)
+            cs.mesh_tp_serve(torch, world, tmp, paths, records, phi3, batch,
+                             cs.MESH_PHI3["steps"], "mesh_phi3",
+                             sp_steps=cs.MESH_SP_STEPS)
+            cs.emit("part_time", of="phi3", seconds=time.monotonic() - t)
+        if "mamba2" in parts:
+            t = time.monotonic()
+            cfg = get_config("mamba2-1.3b")
+            spec = cs.MESH_FAMILY_SERVE["mamba2"]
+            batch = cs._prompts(torch, cfg, spec["batch"], spec["prompt"],
+                                rng)
+            cs.mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch,
+                             spec["steps"], "mesh_mamba2",
+                             launches=cs._family_launches(
+                                 cfg, cs.MESH_RANKS, spec["gen"]),
+                             gen=spec["gen"], sp_steps=cs.MESH_SP_STEPS)
+            cs.emit("part_time", of="mamba2", seconds=time.monotonic() - t)
+        if "smollm" in parts:
+            t = time.monotonic()
+            spec = cs.MESH_SMOLLM
+            cfg = get_config(spec["arch"])
+            batch = cs._prompts(torch, cfg, spec["batch"], spec["prompt"],
+                                rng)
+            cs.mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch,
+                             spec["steps"], "mesh_smollm", gen=spec["gen"],
+                             sp_steps=cs.MESH_SP_STEPS)
+            cs.emit("part_time", of="smollm", seconds=time.monotonic() - t)
+        if "train" in parts:
+            t = time.monotonic()
+            nosp: dict = {}
+            rec = cs.mesh_train(torch, world, tmp, paths, nosp)
+            records.append(rec)
+            cs.checked(rec, "training on the mesh", (
+                "loss_ok", "grad_norm_ok", "leaf_norms_ok", "losses_ok",
+                "same_ok", "no_kernel_ok", "failure_ok", "elastic_ok",
+                "elastic_step_ok", "verify_ok", "hashes_ok",
+                "query_rows_ok"))
+            cs.emit("part_time", of="train", seconds=time.monotonic() - t)
+            t = time.monotonic()
+            rec = cs.mesh_sp_train(torch, world, paths, nosp)
+            records.append(rec)
+            cs.checked(rec, "training under sequence parallelism", (
+                "loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
+                "query_rows_ok", "seq_ok", "losses_ok", "same_ok",
+                "no_kernel_ok"))
+            cs.emit("part_time", of="sp train", seconds=time.monotonic() - t)
     finally:
         codes = world.close()
         shutil.rmtree(tmp, ignore_errors=True)
