@@ -228,7 +228,14 @@ Phases, one JSON line each:
    layers, 2 x 4608 tokens, ``moe_ep`` at capacity 1.25): the logits held
    to this process's run under the ranks' expert choices and kept pairs,
    the share of dropped pairs, and one MoE layer through ``moe_ep`` and
-   ``moe_tp`` against ``moe_dispatch`` on the same 9216 tokens;
+   ``moe_tp`` against ``moe_dispatch`` on the same 9216 tokens, each path
+   also entered from every rank's chunk of the 2 x 4608 sequence
+   (``blocks.ffn_apply(..., sp=True)``) and held to the unsplit call's
+   rows and kept pairs; then mixtral again with and without Megatron
+   sequence parallelism, a prefill and ``MESH_SP_STEPS`` teacher-forced
+   steps, the split run under the unsplit run's expert choices, its
+   logits within ``LOGIT_SHARE`` of the unsplit ranks' and its dropped
+   pairs equal to theirs;
    mistral-large through ``pipeline_forward`` (4 stages of 2 layers, 8 of
    88, 4 microbatches of 1 x 1024) held to the same 8 layers run straight
    through; llava-next-mistral-7b at TP 4 (``MESH_LLAVA``: 4 x (576 stub
@@ -295,8 +302,14 @@ Phases, one JSON line each:
    past an expert's capacity, the one-card oracle none), the share of
    dropped pairs recorded, and the share of the ranks' decisions the one
    card's own router makes on that batch bounded by
-   ``MESH_ROUTE_AGREE`` in each layer.  Every mesh time is labelled "4 ranks on one card over
-   gloo: not a multi-card time".
+   ``MESH_ROUTE_AGREE`` in each layer; then qwen3-moe again at (2, 2)
+   under ``CodesignPlan(sharding="fsdp_tp", seq_parallel=True)``
+   (``MESH_MOE_SP_TRAIN``: 2 steps of the same batches, no checkpoint),
+   its step 1 held to the unsplit trainer's step 1 as smollm's is, the
+   share of the unsplit step's (token, expert) decisions it makes in
+   each layer bounded by ``MESH_ROUTE_AGREE``, the kept values half the
+   unsplit step's.  Every mesh time is labelled "4 ranks on one card
+   over gloo: not a multi-card time".
 
 The launch counts are set to 0 just before each path (the ten ``serve``
 phases, each ``stage_state``, ``stage_kv`` and ``restore``, ``train``,
@@ -3142,6 +3155,13 @@ MESH_FAMILY_TRAIN = {
 #: :data:`MESH_SP_STEPS` teacher-forced decode steps
 MESH_SP_TRAIN = dict(arch="smollm-360m", steps=2, mesh="hier",
                      plan="fsdp_tp", sp=True)
+#: the MoE under the same plan: qwen3-moe-30b-a3b at :data:`MESH_MOE_TRAIN`'s
+#: 2 of 48 layers and published widths, (2, 2) under FSDP + EP, ``steps``
+#: steps of the train phase's first 8 x 512 batches, no checkpoint (the
+#: disk budget), the first step's routing recorded; its step 1 held to
+#: the :data:`MESH_MOE_TRAIN` trainer's step 1 without the split
+MESH_MOE_SP_TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=2, steps=2,
+                         mesh="hier", plan="fsdp_tp", sp=True, routes=True)
 MESH_SP_STEPS = 4
 #: smollm-360m at TP 4 (mesh (1, 4)), full width and depth: its 15 query
 #: heads divide no model axis, so each rank computes every head for its
@@ -3243,19 +3263,31 @@ def _rank_collectives(torch, rank, meshes):
     return out
 
 
-def _forced_run(torch, server, batch, forced, steps, ctx=None):
+def _forced_run(torch, server, batch, forced, steps, ctx=None,
+                timed=None):
     """Prefill ``batch`` (its tokens and a VLM's ``extra_embeds`` or an
     enc-dec's ``frames``) and
     ``steps`` decode steps teacher-forced with ``forced``, under ``ctx``
     (the server's unless given): the logits of each, (steps + 1, B, V) f32
-    on the card, and the cache."""
+    on the card, and the cache.  With ``timed`` (a dict, on a rank), the
+    prefill is timed (``_mesh_ms``) into ``timed["prefill"]`` and the
+    collectives it ran into ``timed["collectives"]``
+    (``collectives.spent_since``)."""
+    from repro_torch.parallel import collectives
     ctx = ctx or server.ctx
     inputs = {"tokens": server._on_device(batch["tokens"], torch.int32)}
     for key in ("extra_embeds", "frames"):
         if key in batch:
             inputs[key] = server._on_device(batch[key])
-    logits, cache = server.api.prefill(server.params, inputs, ctx,
-                                       server.max_len)
+
+    def prefill():
+        return server.api.prefill(server.params, inputs, ctx, server.max_len)
+    if timed is None:
+        logits, cache = prefill()
+    else:
+        c0 = collectives.spent()
+        (logits, cache), timed["prefill"] = _mesh_ms(torch, prefill)
+        timed["collectives"] = collectives.spent_since(c0)
     out = [logits[:, -1].float()]
     f = server._on_device(forced, torch.int32)
     for t in range(steps):
@@ -3301,8 +3333,8 @@ def _rank_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     out["launches"] = build.launch_counts()
     out["query_rows"] = blocks.query_rows()
     out["tokens"] = tokens
-    _, out["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
-    _, cache = server.prefill(batch)
+    (_, cache), out["prefill"] = _mesh_ms(torch,
+                                          lambda: server.prefill(batch))
     tok = server._on_device(tokens[:, :1], torch.int32)
 
     def step():
@@ -3349,44 +3381,60 @@ def _rank_sp_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     seq_parallel=...))`` on its views of the parent's weights, without and
     with sequence parallelism: each one's logits over a prefill and
     ``steps`` decode steps teacher-forced with the parent's tokens (the
-    launch counts set to 0 just before, read just after), then one
-    prefill timed with its collectives by kind and the peak memory; the
+    launch counts set to 0 just before, read just after), its prefill
+    timed with its collectives by kind, and the peak memory; the
     largest difference of the two runs' logits, and of each from the
-    parent's one-process logits, step by step."""
+    parent's one-process logits, step by step.  An MoE's split run takes
+    the unsplit run's expert choices and kept pairs on this rank
+    (``RouteLog(forced=...)``: the same tokens route on the same rank
+    under the plan), and each run's kept pairs are recorded."""
     from repro_torch.configs import get_config
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.kernels import build
     from repro_torch.launch.serve import Server
-    from repro_torch.models import blocks
-    from repro_torch.parallel import collectives
+    from repro_torch.models import blocks, ffn
     from repro_torch.weights import shard_params
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     mesh = meshes["tp"]
     saved = torch.load(ref_path)
     ref = saved["logits"][:steps + 1].to("cuda")
-    out, logits = {}, {}
+    out, logits, logs = {}, {}, {}
     for sp in (False, True):
         server = Server(cfg, mesh, device="cuda",
                         max_len=batch["tokens"].shape[1] + GEN + 1,
                         plan=CodesignPlan(sharding="tp", seq_parallel=sp))
         server.params = shard_params(lm, cfg, mesh)
+        ctx = server.ctx
+        if cfg.moe:
+            logs[sp] = ffn.RouteLog(forced=[
+                (e, k) for (e, _), (k, _, _) in zip(logs[False].calls,
+                                                    logs[False].kept)]
+                if sp else None)
+            ctx = dataclasses.replace(ctx, routes=logs[sp])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         blocks.reset_query_rows()
+        timed: dict = {}
         logits[sp], _ = _forced_run(torch, server, batch, saved["tokens"],
-                                    steps)
+                                    steps, ctx=ctx, timed=timed)
         torch.cuda.synchronize()
         run = {"launches": build.launch_counts(),
-               "query_rows": blocks.query_rows()}
-        c0 = collectives.spent()
-        _, run["prefill"] = _mesh_ms(torch, lambda: server.prefill(batch))
-        coll = collectives.spent_since(c0)
+               "query_rows": blocks.query_rows(),
+               "prefill": timed["prefill"]}
+        coll = timed["collectives"]
+        run["prefill_collective_s"] = {"all": coll["seconds"],
+                                       **coll["kinds"]}
         run["prefill_collective_share"] = {
             "all": coll["seconds"] * 1e3 / run["prefill"]["wall_ms"],
             **{k: v * 1e3 / run["prefill"]["wall_ms"]
                for k, v in coll["kinds"].items()}}
         run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if cfg.moe:
+            kept = logs[sp].kept
+            run.update(route_calls=len(kept),
+                       pairs=sum(k.numel() for k, _, _ in kept),
+                       dropped_pairs=sum(int((~k).sum()) for k, _, _ in kept))
         run["vs_one_process_max_abs_err"] = (logits[sp] - ref).abs().amax(
             dim=(1, 2)).tolist()
         run["logits_digest"] = _digest(torch, logits[sp])
@@ -3395,17 +3443,29 @@ def _rank_sp_serve(torch, rank, meshes, lm, arch, layers, batch, steps,
     out["sp_vs_nosp_max_abs_err"] = (logits[True] - logits[False]).abs(
         ).amax(dim=(1, 2)).tolist()
     out["logits_scale"] = logits[False].abs().max().item()
+    if cfg.moe:
+        # each call's kept pairs, first token and token count, both runs
+        a, b = logs[True].kept, logs[False].kept
+        out["kept_same"] = len(a) == len(b) and all(
+            x[1:] == y[1:] and bool(torch.equal(x[0], y[0]))
+            for x, y in zip(a, b))
     return out
 
 
-def _rank_moe_layer(torch, rank, meshes, lm, arch, layers, tokens):
+def _rank_moe_layer(torch, rank, meshes, lm, arch, layers, tokens, rows):
     """Layer 0's MoE on the same ``tokens`` x d_model unit-rms values on
     every rank, through ``moe_ep`` (the rank's experts) and ``moe_tp``
     (every expert's quarter of d_ff), each at the config's capacity
     factor, with their routing and kept pairs; rank 0 writes both
-    outputs for the parent."""
+    outputs for the parent.  Then the same layer entered from the rank's
+    chunk of each of ``rows`` rows' sequence under Megatron sequence
+    parallelism (``blocks.ffn_apply(..., sp=True)``, each path forced),
+    held on the rank to the unsplit output's rows of that chunk
+    (``MOE_TOL``; bit for bit recorded) and to the unsplit call's kept
+    pairs, first token and token count, exactly."""
+    import types
     from repro_torch.configs import get_config
-    from repro_torch.models import ffn
+    from repro_torch.models import blocks, ffn
     from repro_torch.parallel.sharding import shard_tensor
     cfg = get_config(arch)
     mesh = meshes["tp"]
@@ -3413,16 +3473,21 @@ def _rank_moe_layer(torch, rank, meshes, lm, arch, layers, tokens):
     g = torch.Generator(device="cuda").manual_seed(tokens)
     x = torch.randn(1, tokens, cfg.d_model, generator=g, device="cuda").to(
         torch.bfloat16)
+    S = tokens // rows
+    c = S // mesh.axis_size("model")
+    lo = mesh.axis_index("model") * c
     out = {}
     for impl, fn, up, down in (
             ("ep", ffn.moe_ep, ("model", None, None), ("model", None, None)),
             ("tp", ffn.moe_tp, (None, None, "model"),
              (None, "model", None))):
         log = ffn.RouteLog()
+        w = types.SimpleNamespace(
+            router=moe.router, w_gate=shard_tensor(moe.w_gate, up, mesh),
+            w_up=shard_tensor(moe.w_up, up, mesh),
+            w_down=shard_tensor(moe.w_down, down, mesh))
         (y, _, _), t = _mesh_ms(torch, lambda: fn(
-            x, moe.router, shard_tensor(moe.w_gate, up, mesh),
-            shard_tensor(moe.w_up, up, mesh),
-            shard_tensor(moe.w_down, down, mesh), cfg=cfg, mesh=mesh,
+            x, w.router, w.w_gate, w.w_up, w.w_down, cfg=cfg, mesh=mesh,
             batch_axes=("data",), log=log))
         keep, first, total = log.kept[0]
         out[impl] = {"timing": t, "digest": _digest(torch, y),
@@ -3430,6 +3495,21 @@ def _rank_moe_layer(torch, rank, meshes, lm, arch, layers, tokens):
                      "first": first, "total": total}
         if rank == 0:
             out[impl]["y"] = y.cpu()
+        slog = ffn.RouteLog()
+        ctx = blocks.ShardCtx(impl="cuda", mesh=mesh, moe_impl=impl,
+                              seq_parallel=True, routes=slog)
+        chunk = x.view(rows, S, cfg.d_model)[:, lo:lo + c].contiguous()
+        (ys, _, _), ts = _mesh_ms(torch, lambda: blocks.ffn_apply(
+            chunk, types.SimpleNamespace(moe=w), cfg, ctx, sp=True))
+        want = y.view(rows, S, cfg.d_model)[:, lo:lo + c]
+        err, ok = _within(torch, ys, want, **MOE_TOL)
+        skeep, sfirst, stotal = slog.kept[0]
+        out[impl]["sp"] = {
+            "timing": ts, "chunk": list(chunk.shape), "max_abs_err": err,
+            "within_ok": ok, "bits_equal": bool(torch.equal(ys, want)),
+            "kept_same": bool(torch.equal(skeep, keep))
+            and (sfirst, stotal) == (first, total),
+            "dropped_pairs": int((~skeep).sum())}
     return out
 
 
@@ -3438,7 +3518,9 @@ def _check_mesh_moe_layer(torch, cfg, moe, outs, T) -> dict:
     digest) against the one-process ``moe_dispatch`` on the same T tokens
     under each path's expert choices and kept pairs (a dropped pair gates
     0): within ``MOE_TOL`` over every token, and over the tokens that lost
-    no pair; the share of dropped pairs."""
+    no pair; the share of dropped pairs; and each path entered from the
+    ranks' sequence chunks (``<path>_sp_ok``: every rank's chunk within
+    ``MOE_TOL`` of the unsplit output, its kept pairs the same)."""
     from repro_torch.models import ffn
     g = torch.Generator(device="cuda").manual_seed(T)
     x = torch.randn(1, T, cfg.d_model, generator=g, device="cuda").to(
@@ -3468,6 +3550,15 @@ def _check_mesh_moe_layer(torch, cfg, moe, outs, T) -> dict:
                          timing=[p["timing"] for p in parts])
         out[f"{impl}_ok"] = ok and ok_kept
         out[f"{impl}_experts"] = e
+        sp = [p["sp"] for p in parts]
+        out[impl]["sp"] = dict(
+            chunk=sp[0]["chunk"],
+            max_abs_err=max(r["max_abs_err"] for r in sp),
+            bits_equal=[r["bits_equal"] for r in sp],
+            dropped_pairs=[r["dropped_pairs"] for r in sp],
+            timing=[r["timing"] for r in sp])
+        out[f"{impl}_sp_ok"] = all(r["within_ok"] and r["kept_same"]
+                                   for r in sp)
     out["ep_tp_same_routing"] = float(
         (out.pop("ep_experts").sort(-1).values
          == out.pop("tp_experts").sort(-1).values).all(-1).float().mean())
@@ -3670,11 +3761,12 @@ def _rank_steps(torch, rank, meshes, spec, batches):
     rows of ``batches`` (a VLM's carry patch embeddings, which the
     trainer's input feed does not make; an enc-dec's stub frames), each
     step timed; the values the checkpointed layer bodies keep at step 1;
-    the launch counts (set to 0 just before)."""
+    the launch counts (set to 0 just before); with ``spec["routes"]``,
+    the routing of the first step's forward."""
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.kernels import build
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import blocks
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import blocks, ffn
     from repro_torch.models import lm as lm_lib
     from repro_torch.models.api import build as build_api
     from repro_torch.optim.adamw import adamw_init
@@ -3699,8 +3791,16 @@ def _rank_steps(torch, rank, meshes, spec, batches):
                           trainable=True)
         out["params_held"] = sum(p.numel() for p in lm.parameters())
         opt = adamw_init(lm.parameters())
-        step, _ = make_train_step(build_api(cfg), mesh, plan, warmup=1,
-                                  total_steps=10)
+        routes = ffn.RouteLog() if spec.get("routes") else None
+        make_ctx = steps_lib.make_ctx
+        if routes is not None:          # the steps log their routing
+            steps_lib.make_ctx = lambda *a, **k: dataclasses.replace(
+                make_ctx(*a, **k), routes=routes)
+        try:
+            step, _ = steps_lib.make_train_step(build_api(cfg), mesh, plan,
+                                                warmup=1, total_steps=10)
+        finally:
+            steps_lib.make_ctx = make_ctx
         for i, b in enumerate(batches):
             rows = {k: v[lo:lo + n].cuda() for k, v in b.items()}
             torch.cuda.synchronize()
@@ -3717,6 +3817,10 @@ def _rank_steps(torch, rank, meshes, spec, batches):
                 "collective_kinds_s": coll["kinds"]})
         out["launches"] = build.launch_counts()
         del lm, opt
+    if routes is not None:
+        L = cfg.n_layers
+        out["routes"] = [(e.cpu(), k.cpu(), first, n) for (e, _), (
+            k, first, n) in zip(routes.calls[:L], routes.kept[:L])]
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
@@ -4207,7 +4311,7 @@ def _sizes(torch, cfg) -> tuple[int, int]:
                 for p in lm.parameters()))
 
 
-def mesh_moe_train(torch, world, tmp, paths) -> dict:
+def mesh_moe_train(torch, world, tmp, paths, nosp: dict) -> dict:
     """qwen3-moe-30b-a3b trained at published widths on the ranks
     (:data:`MESH_MOE_TRAIN`), checked against this process: the step-1
     loss, gradient norm and gradient leaf norms of a one-card step on the
@@ -4216,7 +4320,10 @@ def mesh_moe_train(torch, world, tmp, paths) -> dict:
     drops none; ``RouteLog(forced=...)``, the forward's routing and then
     the backward's recompute, layers in reverse); the dropped share; the
     failure and elastic restore.  Fails before it starts unless the disk
-    holds twice the state.  The record of the part, checks included."""
+    holds twice the state.  The record of the part, checks included;
+    ``nosp`` gets its (2, 2) trainer's step 1 (without sequence
+    parallelism, as :func:`mesh_train`'s, and its routing) for
+    :func:`mesh_sp_train`."""
     from repro_torch.models import ffn
     from repro_torch.models.api import build as build_api
     from repro_torch.models.blocks import ShardCtx
@@ -4251,6 +4358,12 @@ def mesh_moe_train(torch, world, tmp, paths) -> dict:
             forced=forced + forced[::-1])))
     one_peak = torch.cuda.max_memory_allocated() / 2**30
     one_card_s = time.monotonic() - t0
+    nosp.update(loss=outs[0]["log"][0]["loss"],
+                grad_norm=outs[0]["log"][0]["grad_norm"],
+                leaves=outs[0]["leaf_norms"], names=step1["names"],
+                kept=[o["kept"][0] for o in outs],
+                wall_ms=[[r["wall_s"] * 1e3 for r in o["log"]]
+                         for o in outs], routes=routes)
     own = ffn.RouteLog()                # the one card's own routing
     with torch.no_grad():
         api.loss(params, first, ShardCtx(impl="ref", routes=own))
@@ -4357,20 +4470,25 @@ def mesh_steps_train(torch, world, paths, spec, path, part, seed) -> dict:
         launches=paths[path], no_kernel_ok=not any(paths[path].values()))
 
 
-def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
-    """smollm-360m trained at (2, 2) under FSDP + TP with Megatron sequence
-    parallelism on the ranks (:data:`MESH_SP_TRAIN`, ``_rank_steps``) on
-    the train phase's first batches, held to the :data:`MESH_TRAIN`
-    trainer's step 1 without it (``nosp``, :func:`mesh_train`: the same
-    weights and batch on the same layout): the step-1 loss, gradient norm
-    and each gradient leaf's norm (``MESH_LOSS_RTOL``, ``MESH_NORM_RTOL``,
-    ``MESH_LEAF_RTOL``), and the values the checkpointed layer bodies
-    kept at step 1, exactly 1 / m of those without the split (m = 2).
-    Per rank and step the wall ms and the collective share by kind, the
-    peak memory; no kernel launches.  The record, checks included."""
+def mesh_sp_train(torch, world, paths, nosp: dict, spec=MESH_SP_TRAIN,
+                  path="mesh_sp_train") -> dict:
+    """``spec``'s model trained at (2, 2) under FSDP + TP (an MoE's experts
+    EP) with Megatron sequence parallelism on the ranks
+    (:data:`MESH_SP_TRAIN`, :data:`MESH_MOE_SP_TRAIN`; ``_rank_steps``) on
+    the train phase's first batches, held to the (2, 2) trainer's step 1
+    without it (``nosp``: :func:`mesh_train`'s, :func:`mesh_moe_train`'s;
+    the same weights and batch on the same layout): the step-1 loss,
+    gradient norm and each gradient leaf's norm (``MESH_LOSS_RTOL``,
+    ``MESH_NORM_RTOL``, ``MESH_LEAF_RTOL``), and the values the
+    checkpointed layer bodies kept at step 1, exactly 1 / m of those
+    without the split (m = 2); for an MoE the share of the unsplit
+    trainer's (token, expert) decisions the split step makes in each
+    layer (``MESH_ROUTE_AGREE``) and both runs' dropped pairs.  Per rank
+    and step the wall ms and the collective share by kind, the peak
+    memory; no kernel launches (``path`` names the counts).  The record,
+    checks included."""
     from repro_torch.data.pipeline import (PipelineConfig,
                                            SyntheticTokenSource)
-    spec = MESH_SP_TRAIN
     cfg = _train_cfg(spec)
     batches = [{k: torch.from_numpy(v) for k, v in b.items()}
                for b in SyntheticTokenSource(cfg, PipelineConfig(
@@ -4379,7 +4497,7 @@ def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
     t0 = time.monotonic()
     outs = world.run("steps", spec=spec, batches=batches)
     ranks_s = time.monotonic() - t0
-    paths["mesh_sp_train"] = _summed(outs)
+    paths[path] = _summed(outs)
     logs = [o["log"] for o in outs]
     loss, norm = logs[0][0]["loss"], logs[0][0]["grad_norm"]
     leaf_err = [abs(a - b) / b for a, b in zip(outs[0]["leaf_norms"],
@@ -4390,16 +4508,35 @@ def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
     want_kept = (TRAIN_BATCH // 2) * TRAIN_SEQ * cfg.d_model * cfg.n_layers
     wall = [[r["wall_s"] * 1e3 for r in lg] for lg in logs]
     mean = lambda rows: sum(map(sum, rows)) / sum(map(len, rows))
+    split = query_split(cfg, (2, m), TRAIN_SEQ)
+    rows = [o["query_rows"][0] for o in outs]
+    moe = {}
+    if cfg.moe:
+        routes = _assemble_routes(torch, outs)
+        agree = _route_agreement(torch, routes, nosp["routes"],
+                                 cfg.moe.n_experts)
+        moe = dict(
+            experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor,
+            reduced={"n_layers": [cfg.n_layers, _train_cfg(
+                {"arch": spec["arch"]}).n_layers]},
+            pairs=sum(k.numel() for _, k in routes),
+            dropped_pairs=sum(int((~k).sum()) for _, k in routes),
+            nosp_dropped_pairs=sum(int((~k).sum())
+                                   for _, k in nosp["routes"]),
+            route_agreement=agree, route_agreement_bound=MESH_ROUTE_AGREE,
+            routes_ok=len(agree) == cfg.n_layers
+            and min(agree) >= MESH_ROUTE_AGREE)
 
     def share(key):
         return [[(r["collective_s"] if key is None else
                   r["collective_kinds_s"].get(key, 0.0)) / r["wall_s"]
                  for r in lg] for lg in logs]
     return emit(
-        "mesh", part="smollm-360m training, sequence parallel",
+        "mesh", part=f"{cfg.name} training, sequence parallel",
         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, label=MESH_LABEL,
-        mesh=[2, m], plan=spec["plan"], seq_parallel=True,
+        mesh=[2, m], plan=spec["plan"], seq_parallel=True, **moe,
         params_per_rank=[o["params_held"] for o in outs],
         steps_logged=[r["step"] for r in logs[0]],
         losses=[r["loss"] for r in logs[0]],
@@ -4419,9 +4556,10 @@ def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
         step_wall_ms=wall, nosp_step_wall_ms=nosp["wall_ms"],
         step_ms_ratio_to_nosp=mean(wall) / mean(nosp["wall_ms"]),
         step_collective_share=share(None), step_fsdp_share=share("fsdp"),
+        step_all_to_all_share=share("all_to_all"),
         step_seq_share=share("seq"),
         peak_gib=[o["peak_gib"] for o in outs], ranks_s=ranks_s,
-        launches=paths["mesh_sp_train"],
+        launches=paths[path],
         loss_ok=abs(loss - nosp["loss"])
         <= MESH_LOSS_RTOL * abs(nosp["loss"]),
         grad_norm_ok=abs(norm - nosp["grad_norm"])
@@ -4431,16 +4569,24 @@ def mesh_sp_train(torch, world, paths, nosp: dict) -> dict:
         and leaf_err[worst] <= MESH_LEAF_RTOL,
         kept_ok=all(k * m == n == want_kept
                     for k, n in zip(kept, nosp["kept"])),
-        query_rows_step1=[_rows_json(o["query_rows"][0]) for o in outs],
-        query_rows_ok=split_rows_ok([o["query_rows"][0] for o in outs],
-                                    (2, m), TRAIN_SEQ),
+        query_split=split,
+        query_rows_step1=[_rows_json(r) for r in rows],
+        query_rows_ok=split_rows_ok(rows, (2, m), TRAIN_SEQ) if split
+        else all(set(r) == {(0, TRAIN_SEQ, TRAIN_SEQ)} for r in rows),
         seq_ok=all(r["collective_kinds_s"].get("seq", 0.0) > 0
                    for lg in logs for r in lg),
         losses_ok=all(math.isfinite(r["loss"]) for lg in logs for r in lg),
         same_ok=all([(r["step"], r["loss"]) for r in lg]
                     == [(r["step"], r["loss"]) for r in logs[0]]
                     for lg in logs),
-        no_kernel_ok=not any(paths["mesh_sp_train"].values()))
+        no_kernel_ok=not any(paths[path].values()))
+
+
+#: the checks of a training part under sequence parallelism
+#: (:func:`mesh_sp_train`); an MoE's adds ``routes_ok``
+SP_TRAIN_CHECKS = ("loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
+                   "query_rows_ok", "seq_ok", "losses_ok", "same_ok",
+                   "no_kernel_ok")
 
 
 def mesh_tp_serve(torch, world, tmp, paths, records, cfg, batch, steps,
@@ -4568,7 +4714,10 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
     ``path``): the split run's logits held to the unsplit run's within
     ``tol`` (the tolerance the ranks were held to against this process),
     every rank the same, both runs through the kernels (flash, or the SSD
-    scan, once per layer per rank per prefill); the record."""
+    scan, once per layer per rank per prefill); for an MoE, each run's
+    dropped pairs, equal (``drops_ok``: the split run under the unsplit
+    run's expert choices keeps, on every rank, the same pairs of the same
+    tokens); the record."""
     outs = world.run("sp_serve", lm=lm, arch=cfg.name,
                      layers=cfg.n_layers, batch=batch, steps=steps,
                      ref_path=ref_path)
@@ -4579,6 +4728,15 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
                else "flash_attention")
     S = batch["tokens"].shape[1]
     split = query_split(cfg, (1, m), S)
+    moe = {}
+    if cfg.moe:
+        moe = dict(
+            route_calls={r: outs[0][r]["route_calls"] for r in ("nosp", "sp")},
+            pairs={r: [o[r]["pairs"] for o in outs] for r in ("nosp", "sp")},
+            dropped_pairs={r: [o[r]["dropped_pairs"] for o in outs]
+                           for r in ("nosp", "sp")},
+            drops_ok=all(o["kept_same"] and o["sp"]["dropped_pairs"]
+                         == o["nosp"]["dropped_pairs"] for o in outs))
     rec = emit(
         "mesh", part=f"{cfg.name} TP {m}, sequence parallel",
         arch=cfg.name, mesh=[1, m], layers=cfg.n_layers,
@@ -4588,8 +4746,11 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
         prefill_collective_share={
             r: [o[r]["prefill_collective_share"] for o in outs]
             for r in ("nosp", "sp")},
+        prefill_collective_s={
+            r: [o[r]["prefill_collective_s"] for o in outs]
+            for r in ("nosp", "sp")},
         peak_gib={r: [o[r]["peak_gib"] for o in outs]
-                  for r in ("nosp", "sp")},
+                  for r in ("nosp", "sp")}, **moe,
         launches={r: paths[f"{path}_{r}"] for r in ("nosp", "sp")},
         sp_vs_nosp_max_abs_err=[o["sp_vs_nosp_max_abs_err"] for o in outs],
         vs_one_process_max_abs_err={
@@ -4611,7 +4772,96 @@ def _mesh_sp_serve(torch, world, paths, cfg, lm, batch, steps, path,
             calls=cfg.n_layers) for r in ("nosp", "sp")))
     checked(rec, f"{cfg.name} under sequence parallelism",
             ("logits_ok", "same_ok", "seq_ok", "kernels_ok",
-             "query_rows_ok"))
+             "query_rows_ok") + (("drops_ok",) if cfg.moe else ()))
+    return rec
+
+
+def mesh_mixtral(torch, world, tmp, paths, records, rng) -> dict:
+    """mixtral at EP 4 (:data:`MESH_MIXTRAL`) served by the ranks on views
+    of this process's weights: ``generate``, then the logits over the
+    prompt and 4 teacher-forced steps held to this process's run under
+    the ranks' expert choices and kept pairs; one MoE layer through
+    ``moe_ep`` and ``moe_tp`` against ``moe_dispatch``, and entered from
+    the ranks' sequence chunks (``_rank_moe_layer``); then a prefill and
+    :data:`MESH_SP_STEPS` teacher-forced steps with and without Megatron
+    sequence parallelism (:func:`_mesh_sp_serve`: the split run under the
+    unsplit run's expert choices, its logits within ``LOGIT_SHARE`` of the
+    unsplit ranks', the dropped pairs equal).  Appends the records
+    (checks included) to ``records``; returns the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import ffn
+    t_part = time.monotonic()
+    m = MESH_RANKS
+    mix = dataclasses.replace(get_config(MESH_MIXTRAL["arch"]),
+                              n_layers=MESH_MIXTRAL["layers"])
+    xB, xS = MESH_MIXTRAL["batch"], MESH_MIXTRAL["prompt"]
+    server = Server(mix, device="cuda", max_len=xS + GEN + 1)
+    server.load(SEED)
+    batch = _prompts(torch, mix, xB, xS, rng)
+    outs = world.run("serve", lm=server.params, arch=mix.name,
+                     layers=mix.n_layers, batch=batch, steps=MESH_SP_STEPS)
+    paths["mesh_mixtral"] = _summed(outs)
+    tokens = outs[0]["tokens"]
+    routes = _assemble_routes(torch, outs)
+    forced = ffn.RouteLog(forced=[(e.cuda(), k.cuda())
+                                  for e, k in routes])
+    one, _ = _forced_run(torch, server, batch, tokens, MESH_SP_STEPS,
+                         ctx=dataclasses.replace(server.ctx,
+                                                 routes=forced))
+    ranks_logits = outs[0]["logits"].to("cuda")
+    scale = one.abs().max().item()
+    err = (ranks_logits - one).abs().amax(dim=(1, 2)).tolist()
+    pairs = sum(k.numel() for _, k in routes)
+    dropped = sum(int((~k).sum()) for _, k in routes)
+    layer_outs = world.run("moe_layer", lm=server.params, arch=mix.name,
+                           layers=mix.n_layers, tokens=xB * xS, rows=xB)
+    layer = _check_mesh_moe_layer(torch, mix, server.params.layers[0].moe,
+                                  layer_outs, xB * xS)
+    rec = emit(
+        "mesh", part="mixtral EP 4", arch=mix.name, mesh=[1, m],
+        batch=xB, prompt=xS, gen=GEN, label=MESH_LABEL,
+        reduced={"n_layers": [mix.n_layers,
+                              get_config(MESH_MIXTRAL["arch"]).n_layers]},
+        capacity_factor=mix.moe.capacity_factor,
+        params_per_rank=[o["params"] for o in outs],
+        generate_s=[o["generate_s"] for o in outs],
+        prefill=[o["prefill"] for o in outs],
+        decode_step=[o["decode_step"] for o in outs],
+        peak_gib=[o["peak_gib"] for o in outs],
+        launches=paths["mesh_mixtral"], route_calls=len(routes),
+        pairs=pairs, dropped_pairs=dropped,
+        dropped_share=dropped / pairs,
+        logits_max_abs_err=err, logits_scale=scale,
+        logits_tol=LOGIT_SHARE * scale,
+        logits_ok=max(err) <= LOGIT_SHARE * scale
+        and bool(torch.isfinite(ranks_logits).all()),
+        same_ok=len({o["logits_digest"] for o in outs}) == 1
+        and all((o["tokens"] == tokens).all() for o in outs),
+        greedy_ok=bool((ranks_logits.argmax(-1).T.cpu().numpy()
+                        == tokens[:, :MESH_SP_STEPS + 1]).all()),
+        moe_layer=layer)
+    records.append(rec)
+    checked(rec, "mixtral on the mesh", ("logits_ok", "same_ok",
+                                         "greedy_ok"))
+    checked(layer, "mixtral's MoE layer on the mesh",
+            ("ep_ok", "tp_ok", "same_ok", "ep_sp_ok", "tp_sp_ok"))
+    need(paths, "mesh_mixtral", ("flash_attention", "decode_attention"))
+    _launches_per_layer(paths, "mesh_mixtral", "flash_attention",
+                        m * mix.n_layers)
+    ref_path = os.path.join(tmp, "mesh_mixtral.pt")
+    torch.save({"tokens": torch.as_tensor(tokens), "logits": one.cpu()},
+               ref_path)
+    del forced, routes, layer_outs, ranks_logits
+    records.append(_mesh_sp_serve(torch, world, paths, mix, server.params,
+                                  batch, MESH_SP_STEPS, "mesh_mixtral",
+                                  ref_path, LOGIT_SHARE * scale, m))
+    del server, one
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    records.append(emit("phase_time", of="mesh mixtral",
+                        seconds=time.monotonic() - t_part))
     return rec
 
 
@@ -4682,9 +4932,6 @@ def mesh_phase(torch, paths, rng, records) -> dict:
     the ranks by CUDA IPC (``shard_params`` views them, no copy).  Returns
     the kernel check records by name."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
-    from repro_torch.launch.serve import Server
-    from repro_torch.models import ffn
     from repro_torch.models.blocks import ShardCtx, dense_layer_apply
     resident_mib = torch.cuda.memory_allocated() / 2**20
     resident = emit("memory", of="mesh phase start",
@@ -4802,67 +5049,8 @@ def mesh_phase(torch, paths, rng, records) -> dict:
                       MESH_PHI3["steps"], "mesh_phi3", kv_digest=kv_digest,
                       sp_steps=MESH_SP_STEPS)
 
-        # ---- mixtral at EP 4 ---------------------------------------------
-        t_part = time.monotonic()
-        server = Server(mix, device="cuda", max_len=xS + GEN + 1)
-        server.load(SEED)
-        batch = _prompts(torch, mix, xB, xS, rng)
-        outs = world.run("serve", lm=server.params, arch=mix.name,
-                         layers=mix.n_layers, batch=batch, steps=4)
-        paths["mesh_mixtral"] = _summed(outs)
-        tokens = outs[0]["tokens"]
-        routes = _assemble_routes(torch, outs)
-        forced = ffn.RouteLog(forced=[(e.cuda(), k.cuda())
-                                      for e, k in routes])
-        one, _ = _forced_run(torch, server, batch, tokens, 4,
-                             ctx=dataclasses.replace(server.ctx,
-                                                     routes=forced))
-        ranks_logits = outs[0]["logits"].to("cuda")
-        scale = one.abs().max().item()
-        err = (ranks_logits - one).abs().amax(dim=(1, 2)).tolist()
-        pairs = sum(k.numel() for _, k in routes)
-        dropped = sum(int((~k).sum()) for _, k in routes)
-        layer_outs = world.run("moe_layer", lm=server.params, arch=mix.name,
-                               layers=mix.n_layers, tokens=xB * xS)
-        layer = _check_mesh_moe_layer(torch, mix, server.params.layers[0].moe,
-                                      layer_outs, xB * xS)
-        rec = emit(
-            "mesh", part="mixtral EP 4", arch=mix.name, mesh=[1, m],
-            batch=xB, prompt=xS, gen=GEN, label=MESH_LABEL,
-            reduced={"n_layers": [mix.n_layers,
-                                  get_config(MESH_MIXTRAL["arch"]).n_layers]},
-            capacity_factor=mix.moe.capacity_factor,
-            params_per_rank=[o["params"] for o in outs],
-            generate_s=[o["generate_s"] for o in outs],
-            prefill=[o["prefill"] for o in outs],
-            decode_step=[o["decode_step"] for o in outs],
-            peak_gib=[o["peak_gib"] for o in outs],
-            launches=paths["mesh_mixtral"], route_calls=len(routes),
-            pairs=pairs, dropped_pairs=dropped,
-            dropped_share=dropped / pairs,
-            logits_max_abs_err=err, logits_scale=scale,
-            logits_tol=LOGIT_SHARE * scale,
-            logits_ok=max(err) <= LOGIT_SHARE * scale
-            and bool(torch.isfinite(ranks_logits).all()),
-            same_ok=len({o["logits_digest"] for o in outs}) == 1
-            and all((o["tokens"] == tokens).all() for o in outs),
-            greedy_ok=bool((ranks_logits.argmax(-1).T.cpu().numpy()
-                            == tokens[:, :5]).all()),
-            moe_layer=layer)
-        records.append(rec)
-        checked(rec, "mixtral on the mesh", ("logits_ok", "same_ok",
-                                             "greedy_ok"))
-        checked(layer, "mixtral's MoE layer on the mesh",
-                ("ep_ok", "tp_ok", "same_ok"))
-        need(paths, "mesh_mixtral", ("flash_attention", "decode_attention"))
-        _launches_per_layer(paths, "mesh_mixtral", "flash_attention",
-                            m * mix.n_layers)
-        del server, one, ranks_logits, forced, routes, layer_outs
-        gc.collect()
-        torch.cuda.ipc_collect()
-        torch.cuda.empty_cache()
-        records.append(emit("phase_time", of="mesh mixtral",
-                            seconds=time.monotonic() - t_part))
+        # ---- mixtral at EP 4, with and without sequence parallelism ------
+        mesh_mixtral(torch, world, tmp, paths, records, rng)
 
         # ---- mistral-large through the pipeline ----------------------------
         t_part = time.monotonic()
@@ -4978,19 +5166,28 @@ def mesh_phase(torch, paths, rng, records) -> dict:
         rec = mesh_sp_train(torch, world, paths, nosp)
         records.append(rec)
         checked(rec, "training under sequence parallelism on the mesh",
-                ("loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
-                 "query_rows_ok", "seq_ok", "losses_ok", "same_ok",
-                 "no_kernel_ok"))
+                SP_TRAIN_CHECKS)
         records.append(emit("phase_time", of="mesh sp train",
                             seconds=time.monotonic() - t_part))
 
         # ---- qwen3-moe trained on the mesh, the elastic restore ------------
         t_part = time.monotonic()
-        rec = mesh_moe_train(torch, world, tmp, paths)
+        moe_nosp: dict = {}
+        rec = mesh_moe_train(torch, world, tmp, paths, moe_nosp)
         records.append(rec)
         checked(rec, "qwen3-moe's training on the mesh",
                 train_checks + restart_checks + ("routes_ok",))
         records.append(emit("phase_time", of="mesh qwen3-moe train",
+                            seconds=time.monotonic() - t_part))
+
+        # ---- qwen3-moe trained under sequence parallelism ------------------
+        t_part = time.monotonic()
+        rec = mesh_sp_train(torch, world, paths, moe_nosp,
+                            MESH_MOE_SP_TRAIN, "mesh_moe_sp_train")
+        records.append(rec)
+        checked(rec, "qwen3-moe's training under sequence parallelism",
+                SP_TRAIN_CHECKS + ("routes_ok",))
+        records.append(emit("phase_time", of="mesh qwen3-moe sp train",
                             seconds=time.monotonic() - t_part))
     finally:
         codes = world.close()

@@ -88,8 +88,8 @@ streams them through the mover.  ``plan=`` takes a ``CodesignPlan``, the
 reference's ``CodesignPlan(sharding="tp", seq_parallel=False)`` by
 default; with ``seq_parallel=True`` a prefill holds each model rank's
 chunk of the prompt between the layers (Megatron sequence parallelism,
-``models/blocks.py``; not for a config with MoE layers), and decode is
-the same.  On N cards, one rank per card over NCCL:
+``models/blocks.py``), and decode is the same.  On N cards, one rank per
+card over NCCL:
 
   torchrun --nproc-per-node N prog.py     # prog.py: init_world("nccl",
       # rank=RANK, world_size=WORLD_SIZE, init_method="env://"...),

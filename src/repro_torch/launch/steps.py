@@ -233,14 +233,8 @@ def make_ctx(api: ModelApi, mesh, plan: Optional[CodesignPlan] = None,
     a training mesh's under ``plan``: ``specs`` maps each parameter's JAX
     path to what the rank holds of it (``sharding.rank_spec``).  A plan's
     ``seq_parallel`` is recorded on the context (Megatron sequence
-    parallelism, ``models/blocks.py``); it is refused for a config with
-    MoE layers, whose sequence-parallel layout is not ported."""
+    parallelism, ``models/blocks.py``), for every family."""
     seq_parallel = plan is not None and plan.seq_parallel
-    if seq_parallel and api.cfg.moe:
-        raise NotImplementedError(
-            f"{api.cfg.name}: seq_parallel with MoE layers is not ported "
-            "(ROADMAP.md queue 1: the MoE family under sequence "
-            "parallelism)")
     axes = batch_axes_of(mesh) if mesh is not None else ("data",)
     specs = None
     if train:

@@ -47,7 +47,12 @@ run on the chunk; a region (attention, the MLP, a Mamba2 block, the
 head) is entered by gathering the sequence over the model axis and left
 by reducing its partial sums and scattering the chunks back
 (:meth:`ShardCtx.seq_enter`, :meth:`ShardCtx.seq_leave`; where the rank
-computes the region whole, it gathers and keeps its own chunk).
+computes the region whole, it gathers and keeps its own chunk).  The MoE
+is entered the same way, so ``ffn.moe_ep`` / ``moe_tp`` see the rank's
+whole rows and split them into the token blocks they split without the
+plan (:func:`ffn_apply`): the same tokens routed by each shard, the same
+capacity and the same dropped pairs, as the JAX package's GSPMD
+reshards its chunks into its blocks.
 Attention and RoPE see the gathered sequence at positions ``0..S-1``, so
 the kernels run at the shapes they run without it (but under the query
 split, where the chunk is the query block and the gathered sequence the
@@ -601,22 +606,37 @@ def ffn_apply(h: torch.Tensor, p: DenseLayer | MoeLayer, cfg: ModelConfig,
                          Optional[torch.Tensor]]:
     """The layer's feed-forward on its normed input: (y, load-balance loss,
     router z-loss), the losses None for a dense layer's SwiGLU.  ``p`` is
-    the layer (or, on a training mesh, its gathered namespace); ``sp``: a
-    dense layer's input is the rank's chunk of the sequence
-    (:func:`mlp_apply`; ``launch.steps.make_ctx`` refuses sequence
-    parallelism for MoE layers)."""
+    the layer (or, on a training mesh, its gathered namespace); ``sp``
+    (sequence parallelism): ``h`` and y are the rank's chunk of the
+    sequence (:func:`mlp_apply`).
+
+    An MoE layer under ``sp`` gathers the whole sequence first, so the
+    MoE paths see the rank's whole rows, as without the split, and keep
+    the layer's token count, capacity and aux terms.  Each path's input
+    gradient is already whole on every model rank, so the entry keeps the
+    rank's chunk of it, summing nothing (``partial=False``): ``moe_ep``'s
+    ``split_model`` gathers its blocks' gradients; under ``moe_tp`` the
+    router's share is whole on every rank and ``enter_region`` has
+    summed the experts' share (a summing entry would count that share m
+    times).  ``moe_ep``'s output, gathered over the model axis, is whole,
+    so the rank keeps its chunk; ``moe_tp``'s partial sums leave by the
+    reduce-scatter (``sum_out=False``), not a sum and then a chunk."""
     m = getattr(p, "moe", None)
     if m is None:
         return mlp_apply(h, p.mlp, cfg, ctx, sp), None, None
     impl = ctx.choose_moe(cfg)
-    if impl in ("ep", "tp"):
-        fn = ffn_lib.moe_ep if impl == "ep" else ffn_lib.moe_tp
-        return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
-                  mesh=ctx.mesh, batch_axes=ctx.batch_axes,
-                  model_axis=ctx.model_axis, log=ctx.routes)
-    fn = ffn_lib.moe_ref if impl == "ref" else ffn_lib.moe_dispatch
-    return fn(h, m.router, m.w_gate, m.w_up, m.w_down, cfg=cfg,
-              log=ctx.routes)
+    h = ctx.seq_enter(h, False, sp)
+    w = (m.router, m.w_gate, m.w_up, m.w_down)
+    on_mesh = dict(cfg=cfg, mesh=ctx.mesh, batch_axes=ctx.batch_axes,
+                   model_axis=ctx.model_axis, log=ctx.routes)
+    if impl == "ep":
+        y, lb, z = ffn_lib.moe_ep(h, *w, **on_mesh)
+    elif impl == "tp":
+        y, lb, z = ffn_lib.moe_tp(h, *w, sum_out=not sp, **on_mesh)
+    else:
+        fn = ffn_lib.moe_ref if impl == "ref" else ffn_lib.moe_dispatch
+        y, lb, z = fn(h, *w, cfg=cfg, log=ctx.routes)
+    return ctx.seq_leave(y, impl == "tp" and sp, sp), lb, z
 
 
 def moe_layer_apply(
@@ -625,11 +645,15 @@ def moe_layer_apply(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full pre-norm causal MoE layer (no cache); returns (x, load-balance
     loss, router z-loss).  On a training mesh its weights, the MoE's
-    ``moe/*`` among them, are gathered first (:meth:`ShardCtx.gathered`)."""
+    ``moe/*`` among them, are gathered first (:meth:`ShardCtx.gathered`).
+    Under sequence parallelism (``ctx.shards_act`` of the ``positions``)
+    ``x`` and the result are the rank's chunk of the sequence
+    (:func:`ffn_apply`)."""
     p = ctx.gathered(p, "layers")
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, _, _ = self_attention_block(
         h, p.attn, cfg, ctx, q_pos=positions, k_pos=positions, window=window)
     x = x + attn_out
-    y, lb, z = ffn_apply(rms_norm(x, p.ln2, cfg.norm_eps), p, cfg, ctx)
+    y, lb, z = ffn_apply(rms_norm(x, p.ln2, cfg.norm_eps), p, cfg, ctx,
+                         ctx.shards_act(positions.shape[0]))
     return x + y, lb, z

@@ -38,7 +38,12 @@ one-device path.
   model axis.
 
 A rank's activations are its data row's tokens, whole over the model axis
-(``models/blocks.py``); each path takes and returns them so.  The expert
+(``models/blocks.py``); each path takes and returns them so.  Under
+Megatron sequence parallelism the layer hands them over whole too
+(``blocks.ffn_apply`` gathers the rank's chunk of the sequence first), so
+each shard routes the tokens, and drops the pairs, it routes without the
+split: the JAX package's GSPMD reshards the chunks into the same token
+blocks, and the plan changes no value of the MoE.  The expert
 matmuls are ``torch.bmm`` here too.  Both carry gradients through their
 collectives (``parallel/collectives.py``), whose forwards are the plain
 ops, so serving and a training mesh run the same code: the EP exchanges
@@ -459,7 +464,7 @@ def moe_ep(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
 def moe_tp(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
            w_up: torch.Tensor, w_down: torch.Tensor, *, cfg: ModelConfig,
            mesh, batch_axes: tuple[str, ...], model_axis: str = "model",
-           log: Optional[RouteLog] = None
+           log: Optional[RouteLog] = None, sum_out: bool = True
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """TP-inside-experts MoE (the expert count need not divide the mesh)
     on the rank's rows x (Bl, S, D); the rank holds every expert's slice
@@ -468,6 +473,10 @@ def moe_tp(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     (the JAX package all-gathers them; the rank holds them already) with
     the row's capacity, and the partial outputs are summed over the model
     axis.  Returns (y (Bl, S, D), load-balance loss, router z-loss).
+    With ``sum_out`` False y is the rank's partial sum, for the caller to
+    reduce (under sequence parallelism ``ShardCtx.seq_leave``'s
+    reduce-scatter, whose backward gathers the gradient where
+    ``leave_region``'s passes it).
 
     Only the expert path is partial: the rows that fill the buffers and
     the gates that weight the combine enter the model region, the
@@ -500,7 +509,8 @@ def moe_tp(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     y_part = _experts(buf, w_gate, w_up, w_down)   # partial over F
     out = _local_combine(y_part, se, st, pos, keep, order_gates,
                          xr.shape[0])
-    out = coll.leave_region(out, mesh, model_axis)
+    if sum_out:
+        out = coll.leave_region(out, mesh, model_axis)
     if log is not None:
         log.kept.append((_kept_by_token(keep, eidx), first, total))
     row_axes = tuple(a for a in tok_axes if a != model_axis)

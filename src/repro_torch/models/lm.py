@@ -65,12 +65,13 @@ Under Megatron sequence parallelism (``ctx.seq_parallel``, where
 between the layers are its chunk of the sequence (``models/blocks.py``):
 the embedding's masked lookup is reduce-scattered instead of summed (a
 VLM's patches and text are concatenated whole, then split); each layer
-gathers the sequence as it enters attention, the MLP or a Mamba2 block
-(the causal conv and the SSD scan run over the whole sequence, so the
-cache's conv windows and states are the whole prompt's) and scatters
-its output; the head and the loss see the sequence gathered after the
-final norm, and a prefill's last logits come from the gathered final
-hidden states.  The cache holds the rank's heads over the whole
+gathers the sequence as it enters attention, the MLP, the MoE (whose
+token blocks, capacity and dropped pairs are then those without the
+split) or a Mamba2 block (the causal conv and the SSD scan run over the
+whole sequence, so the cache's conv windows and states are the whole
+prompt's) and scatters its output; the head and the loss see the
+sequence gathered after the final norm, and a prefill's last logits come
+from the gathered final hidden states.  The cache holds the rank's heads over the whole
 sequence, as without it.
 
 Training (:func:`forward_lm`, :func:`lm_loss`) runs under autograd on

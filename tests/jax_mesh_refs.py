@@ -1,6 +1,6 @@
 """Reference outputs of the JAX package on an emulated 4-device CPU mesh.
 
-    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel} OUT.npz
+    python tests/jax_mesh_refs.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel|moe_seq_parallel} OUT.npz
 
 jax pins the device count at its first import, so the test files that
 compare the port's ranks with the JAX package's mesh run this script in
@@ -54,6 +54,14 @@ at each layer-sequence length of :data:`SP_PROMPTS`, and
 seq_parallel=True)`` for 2 steps (:data:`SP_TRAIN_SEQ`), and step 1's
 loss and gradients from ``jax.value_and_grad`` of the loss under the
 (2, 2) step's context (step 1 takes the same batch on both meshes).
+``moe_seq_parallel``: the MoE family under the same plan, for each case
+of :data:`MOE_SP_CASES` (one mesh each): the prefill logits of
+``Server(cfg, mesh, plan=...)`` at each length of :data:`SP_PROMPTS`,
+2 steps of ``make_train_step`` (sequences :data:`MOE_SP_TRAIN_SEQ`),
+step 1's loss and gradients, and the pairs the shards keep in each MoE
+layer (:func:`shard_keep` of the layer's input, from a layer-by-layer
+run of the JAX package's blocks) of each prefill and of step 1's
+forward.
 """
 
 import dataclasses
@@ -67,13 +75,16 @@ os.nice(10)
 os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
     {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5}.get(
         sys.argv[1], -3) % len(os.sched_getaffinity(0))]}
-    if sys.argv[1] not in ("family", "family_train", "seq_parallel") else
+    if sys.argv[1] not in ("family", "family_train", "seq_parallel",
+                           "moe_seq_parallel") else
     {sorted(os.sched_getaffinity(0))[
-        {"family": -6, "family_train": -7, "seq_parallel": -8}[sys.argv[1]]
+        {"family": -6, "family_train": -7, "seq_parallel": -8,
+         "moe_seq_parallel": -10}[sys.argv[1]]
         % len(os.sched_getaffinity(0))]})
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
-if sys.argv[1] in ("family", "family_train", "seq_parallel"):
+if sys.argv[1] in ("family", "family_train", "seq_parallel",
+                   "moe_seq_parallel"):
     # these jobs compile many small programs: LLVM's backend passes take
     # half their time and change no result beyond f32 rounding
     os.environ["XLA_FLAGS"] += (" --xla_backend_optimization_level=0"
@@ -193,6 +204,20 @@ SP_PROMPTS, SP_SERVE_BATCH, SP_MAX_LEN = (24, 18), 4, 40
 #: step 1's lengths on other rows: one compiled step fewer); the enc-dec
 #: splits one stack and not the other at (1, 4)
 SP_TRAIN_SEQ = {"decoder": (24, 18), "encdec": ((24, 18), (18, 24))}
+#: the MoE family under sequence parallelism: name -> (arch, mesh,
+#: experts, capacity factor; None: the smoke config's 4 experts, 2.0).
+#: The path follows from the mesh (``choose_moe``): EP where the experts
+#: divide the model axis, else TP inside the experts (6 experts over 4).
+#: At 1.25 the shards drop pairs; at the smoke 2.0 with 4 experts an
+#: expert's capacity is the shard's tokens and nothing drops
+MOE_SP_CASES = {
+    "qwen3-1x4-ep": ("qwen3-moe-30b-a3b", "1x4", None, None),
+    "qwen3-2x2-ep-cf1.25": ("qwen3-moe-30b-a3b", "2x2", None, 1.25),
+    "qwen3-1x4-tp-e6-cf1.25": ("qwen3-moe-30b-a3b", "1x4", 6, 1.25),
+    "mixtral-2x2-ep": ("mixtral-8x22b", "2x2", None, None)}
+#: the MoE train steps' sequence lengths: step 1 divides a model axis of
+#: 4, step 2 only 2 (so at (1, 4) step 2 runs without the split)
+MOE_SP_TRAIN_SEQ = (24, 18)
 
 
 def mesh_of(name):
@@ -861,6 +886,108 @@ def sp_refs(out):
             _flat(out, f"sp/train/{case}/final", params)
 
 
+def moe_sp_cfg(case):
+    """The smoke config of :data:`MOE_SP_CASES` ``case``."""
+    from repro.configs import get_smoke_config
+    arch, _, experts, cf = MOE_SP_CASES[case]
+    cfg = get_smoke_config(arch)
+    over = {k: v for k, v in (("n_experts", experts),
+                              ("capacity_factor", cf)) if v is not None}
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **over))
+
+
+def moe_layer_keep(cfg, params, tokens, ctx, mesh):
+    """The pairs the shards of each MoE layer keep (:func:`shard_keep`),
+    (L, B*S, k), for ``tokens`` under ``ctx``: each layer's input to the
+    MoE from a layer-by-layer run of the JAX package's own blocks
+    (embedding, ``self_attention_block``, the norm), then the layer
+    itself (``moe_layer_apply``)."""
+    from repro.models import blocks, ffn
+    from repro.models import lm as jlm
+    S = tokens.shape[1]
+    positions = jnp.arange(S, dtype=jnp.int32)
+    impl = ctx.choose_moe(cfg)
+
+    @jax.jit
+    def inputs(p, t):
+        x = jlm._embed_inputs(p, cfg, t, ctx, None)
+        ins = []
+        for i, w in enumerate(cfg.layer_windows()):
+            lp = jax.tree.map(lambda a: a[i], p["layers"])
+            hn = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            attn_out, _, _ = blocks.self_attention_block(
+                hn, lp["attn"], cfg, ctx, q_pos=positions, k_pos=positions,
+                causal=True, window=w)
+            h = ctx.shard_act(x + attn_out)
+            ins.append(blocks.rms_norm(h, lp["ln2"], cfg.norm_eps))
+            x, _, _ = blocks.moe_layer_apply(x, lp, cfg, ctx,
+                                             positions=positions, window=w)
+        return ins
+    got = inputs(params, jnp.asarray(tokens))
+    return np.stack([
+        shard_keep(ffn, np.asarray(h), np.asarray(
+            params["layers"]["moe"]["router"][i]), cfg, mesh, impl)
+        for i, h in enumerate(got)])
+
+
+def moe_sp_refs(out):
+    """Each case of :data:`MOE_SP_CASES` under sequence parallelism
+    (module docstring): its weights (f32, ``msp/params/<case>/``), the
+    served prompts, prefill logits and kept pairs
+    (``msp/serve/<case>-<S>/``), the train batches, the metrics, the
+    final weights and step 1's kept pairs (``msp/train/<case>/``), and
+    step 1's loss and gradients (``msp/grads/<case>/``)."""
+    from repro.core.codesign import CodesignPlan
+    from repro.launch import steps as steps_lib
+    from repro.launch.serve import Server
+    from repro.models.api import build
+    from repro.optim.adamw import adamw_init
+    for case, (_, m, _, _) in MOE_SP_CASES.items():
+        cfg, mesh = moe_sp_cfg(case), mesh_of(m)
+        api = build(cfg)
+        params0 = jax.tree.map(lambda a: a.astype(jnp.float32),
+                               api.init(jax.random.PRNGKey(0)))
+        _flat(out, f"msp/params/{case}", params0)
+        server = Server(cfg, mesh, max_len=SP_MAX_LEN,
+                        plan=CodesignPlan(sharding="tp", seq_parallel=True))
+        for S in SP_PROMPTS:
+            key = f"msp/serve/{case}-{S}"
+            batch = sp_batch(cfg, np.random.default_rng(S), SP_SERVE_BATCH,
+                             S)
+            out[f"{key}/tokens"] = batch["tokens"]
+            logits, _ = server._prefill(params0, batch)
+            out[f"{key}/logits"] = np.asarray(logits)
+            out[f"{key}/keep"] = moe_layer_keep(cfg, params0,
+                                                batch["tokens"], server.ctx,
+                                                mesh)
+
+        plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=True)
+        step, p_shard, s_shard, ctx = steps_lib.make_train_step(
+            api, mesh, plan, lr_peak=TRAIN_LR, warmup=1, total_steps=10)
+        rng = np.random.default_rng(43)
+        batches = [sp_batch(cfg, rng, TRAIN_BATCH[0], S, labels=True)
+                   for S in MOE_SP_TRAIN_SEQ]
+        for i, b in enumerate(batches):
+            for k, v in b.items():
+                out[f"msp/train/{case}/batches/{i}/{k}"] = v
+        out[f"msp/train/{case}/keep"] = moe_layer_keep(
+            cfg, params0, batches[0]["tokens"], ctx, mesh)
+        params = jax.device_put(params0, p_shard)
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss(p, b, ctx), has_aux=True))(params,
+                                                             batches[0])
+        out[f"msp/grads/{case}/loss"] = np.asarray(float(loss))
+        _flat(out, f"msp/grads/{case}/grads", grads)
+        opt = jax.jit(adamw_init, out_shardings=s_shard)(params)
+        got = []
+        for b in batches:
+            params, opt, mt = step(params, opt, b)
+            got.append([float(mt[k]) for k in TRAIN_METRICS])
+        out[f"msp/train/{case}/metrics"] = np.asarray(got)
+        _flat(out, f"msp/train/{case}/final", params)
+
+
 def main():
     job, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 4, jax.devices()
@@ -885,6 +1012,8 @@ def main():
         family_train_refs(out, path)
     elif job == "seq_parallel":
         sp_refs(out)
+    elif job == "moe_seq_parallel":
+        moe_sp_refs(out)
     else:
         raise SystemExit(f"unknown job {job!r}")
     out["meta"] = np.asarray(json.dumps({
@@ -902,7 +1031,9 @@ def main():
         "family_ckpt": FAMILY_CKPT_CASE, "family_elastic": FAMILY_ELASTIC,
         "family_frames": FAMILY_FRAMES,
         "sp_families": SP_FAMILIES, "sp_meshes": SP_MESHES,
-        "sp_prompts": SP_PROMPTS, "sp_max_len": SP_MAX_LEN}))
+        "sp_prompts": SP_PROMPTS, "sp_max_len": SP_MAX_LEN,
+        "sp_serve_batch": SP_SERVE_BATCH, "moe_sp": MOE_SP_CASES,
+        "moe_sp_train_seq": MOE_SP_TRAIN_SEQ}))
     np.savez(path, **out)
     print("MARKER jax-mesh-refs-ok", job, len(out))
 

@@ -471,14 +471,13 @@ def _mesh(shape):
                 rank=0, coords={"data": 0, "model": 0}, groups={})
 
 
-def test_sp_plan_is_accepted_but_for_moe_layers():
+def test_sp_plan_is_accepted_for_every_config():
     """``make_ctx``, ``make_train_step``, ``make_serve_step``,
     ``make_prefill_step``, ``Trainer(cfg, mesh, plan=...)`` and
     ``Server(cfg, mesh, plan=...)`` take ``seq_parallel=True`` for every
-    config without MoE layers (the context records it), and raise for
-    qwen3-moe and mixtral, naming ROADMAP.md queue 1.  ``Server``'s
-    default plan is the reference's, and the trainer's default takes no
-    split."""
+    config, the MoE pair (qwen3-moe and mixtral) included: the context
+    records it, and no maker raises.  ``Server``'s default plan is the
+    reference's, and the trainer's default takes no split."""
     from repro_torch.launch.serve import Server
     from repro_torch.launch.train import Trainer
     plan = CodesignPlan(sharding="fsdp_tp", seq_parallel=True)
@@ -496,14 +495,9 @@ def test_sp_plan_is_accepted_but_for_moe_layers():
             lambda: Trainer(cfg, mesh, plan=plan, device="cpu").ctx,
             lambda: Server(cfg, mesh, device="cpu", plan=plan).ctx)
         for make in makers:
-            if cfg.moe:
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP.md queue 1"):
-                    make()
-            else:
-                ctx = make()
-                assert ctx.seq_parallel and ctx.shards_act(24), arch
-                assert not ctx.shards_act(9) and not ctx.shards_act(1)
+            ctx = make()
+            assert ctx.seq_parallel and ctx.shards_act(24), arch
+            assert not ctx.shards_act(9) and not ctx.shards_act(1)
         moe += [arch] if cfg.moe else []
     assert sorted(moe) == ["mixtral-8x22b", "qwen3-moe-30b-a3b"]
     server = Server(get_smoke_config("smollm-360m"), mesh, device="cpu")

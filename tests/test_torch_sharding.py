@@ -328,8 +328,9 @@ def test_mesh_steps_on_a_one_member_mesh_are_the_one_device_steps():
     """``make_prefill_step`` / ``make_serve_step`` over a (1, 1) mesh (its
     collectives return their input; the MoE through ``moe_ep``, where the
     smoke capacity drops nothing) give the one-device logits (f32); a plan
-    with sequence parallelism is refused for this config, whose layers
-    are MoE layers."""
+    with sequence parallelism is taken for this config, whose layers are
+    MoE layers, and splits nothing over a model axis of 1: its prefill
+    gives the same logits, bit for bit."""
     from repro_torch.core.codesign import CodesignPlan
     from repro_torch.launch import steps
     cfg = get_smoke_config("mixtral-8x22b")
@@ -350,7 +351,8 @@ def test_mesh_steps_on_a_one_member_mesh_are_the_one_device_steps():
                                api.decode_step(params, wcache, step,
                                                ShardCtx())[0],
                                rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError,
-                       match="seq_parallel with MoE layers.*ROADMAP.md "
-                             "queue 1"):
-        steps.make_ctx(api, mesh, CodesignPlan(seq_parallel=True))
+    sp_prefill, sp_ctx = steps.make_prefill_step(
+        api, mesh, CodesignPlan(seq_parallel=True), max_len=48)
+    assert sp_ctx.seq_parallel and not sp_ctx.shards_act(40)
+    torch.testing.assert_close(sp_prefill(params, {"tokens": tokens})[0],
+                               got, rtol=0, atol=0)

@@ -1,6 +1,6 @@
 """One rank of the port's gloo world, for the mesh tests.
 
-    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel} RANK WORLD PORT REF.npz OUTDIR
+    python tests/torch_mesh_ranks.py {mesh|gpipe|train|moe_train|vlm|family|family_train|seq_parallel|moe_seq_parallel} RANK WORLD PORT REF.npz OUTDIR
 
 The test files call :func:`run_world`: it runs the JAX package's
 reference script (``tests/jax_mesh_refs.py``) once, then starts WORLD (4)
@@ -953,57 +953,98 @@ def _sp_plan(sharding: str, sp: bool):
 
 
 def sp_serve(out, ref, meta, meshes, name, cfg):
-    """``name``'s prompts through ``Server(cfg, mesh, plan=...)`` with and
-    without sequence parallelism on the JAX model's weights (f32): the
-    prefill logits and 2 teacher-forced decode steps' (``sp`` / ``nosp``),
-    the collectives' seconds of kinds ``"seq"`` and ``"qseq"`` over the
-    prefill, and the query rows attention was fed in the prefill and in
-    the decode steps (:func:`_query_rows`)."""
-    from repro_torch.launch.serve import Server
-    from repro_torch.models import blocks
-    from repro_torch.weights import shard_params
+    """``name``'s prompts through ``Server(cfg, mesh, plan=...)`` on each
+    mesh (:func:`sp_serve_case`)."""
     for m in meta["sp_meshes"]:
-        mesh = meshes[m]
         for S in meta["sp_prompts"]:
             case = f"{name}-{m}-{S}"
             batch = _tree(ref, f"sp/serve/{case}/")
             batch.pop("logits")
-            forced = np.random.default_rng(7).integers(
-                0, cfg.vocab, (len(batch["tokens"]), 2), dtype=np.int32)
-            for sp in (True, False):
-                server = Server(cfg, mesh, device="cpu",
-                                max_len=meta["sp_max_len"],
-                                plan=_sp_plan("tp", sp))
-                server.params = shard_params(_tree(
-                    ref, f"sp/params/{name}/"), cfg, mesh, device="cpu")
-                blocks.reset_query_rows()
-                before = coll.spent()
-                logits, cache = server.prefill(batch)
-                kinds = coll.spent_since(before)["kinds"]
-                rows = _query_rows()
-                blocks.reset_query_rows()
-                outs = [logits]
-                for t in range(2):
-                    logits, cache = server.decode(
-                        cache, server._on_device(forced[:, t:t + 1]))
-                    outs.append(logits)
-                run = f"sp/serve/{case}/{'sp' if sp else 'nosp'}"
-                out[f"{run}/logits"] = torch.stack(outs).numpy()
-                out[f"{run}/seq_s"] = np.asarray(kinds.get("seq", 0.0))
-                out[f"{run}/qseq_s"] = np.asarray(kinds.get("qseq", 0.0))
-                out[f"{run}/qrows"] = rows
-                out[f"{run}/decode_qrows"] = _query_rows()
+            sp_serve_case(out, ref, meta, meshes[m], cfg,
+                          f"sp/params/{name}/", batch, f"sp/serve/{case}")
+
+
+def _kept_records(out, prefix: str, log) -> None:
+    """The kept pairs of each capacity call of ``log`` (a ``RouteLog``):
+    ``<prefix>/<i>/keep`` (the rank's tokens, k) and ``<prefix>/<i>/span``
+    (the first token's index, the layer's token count)."""
+    out[f"{prefix}/calls"] = np.asarray(len(log.kept))
+    for i, (keep, first, total) in enumerate(log.kept):
+        out[f"{prefix}/{i}/keep"] = keep.numpy()
+        out[f"{prefix}/{i}/span"] = np.asarray([first, total])
+
+
+def sp_serve_case(out, ref, meta, mesh, cfg, params: str, batch: dict,
+                  prefix: str, routes: bool = False):
+    """``batch`` through ``Server(cfg, mesh, plan=...)`` with and without
+    sequence parallelism on the JAX model's weights (f32, the entries
+    under ``params``): the prefill logits and 2 teacher-forced decode
+    steps' (``<prefix>/sp`` / ``nosp``), the collectives' seconds of
+    kinds ``"seq"`` and ``"qseq"`` over the prefill, and the query rows
+    attention was fed in the prefill and in the decode steps
+    (:func:`_query_rows`); with ``routes`` the pairs each MoE layer of
+    the prefill kept (:func:`_kept_records`)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import blocks
+    from repro_torch.weights import shard_params
+    forced = np.random.default_rng(7).integers(
+        0, cfg.vocab, (len(batch["tokens"]), 2), dtype=np.int32)
+    for sp in (True, False):
+        server = Server(cfg, mesh, device="cpu",
+                        max_len=meta["sp_max_len"],
+                        plan=_sp_plan("tp", sp))
+        server.params = shard_params(_tree(ref, params), cfg, mesh,
+                                     device="cpu")
+        if routes:
+            log = ffn.RouteLog()
+            server.ctx = dataclasses.replace(server.ctx, routes=log)
+        blocks.reset_query_rows()
+        before = coll.spent()
+        logits, cache = server.prefill(batch)
+        kinds = coll.spent_since(before)["kinds"]
+        rows = _query_rows()
+        run = f"{prefix}/{'sp' if sp else 'nosp'}"
+        if routes:
+            _kept_records(out, f"{run}/kept", log)
+        blocks.reset_query_rows()
+        outs = [logits]
+        for t in range(2):
+            logits, cache = server.decode(
+                cache, server._on_device(forced[:, t:t + 1]))
+            outs.append(logits)
+        out[f"{run}/logits"] = torch.stack(outs).numpy()
+        out[f"{run}/seq_s"] = np.asarray(kinds.get("seq", 0.0))
+        out[f"{run}/qseq_s"] = np.asarray(kinds.get("qseq", 0.0))
+        out[f"{run}/qrows"] = rows
+        out[f"{run}/decode_qrows"] = _query_rows()
 
 
 def sp_train(out, ref, meta, meshes, rank, name, cfg):
-    """``name``'s 2 train steps under ``CodesignPlan(sharding="fsdp_tp",
-    seq_parallel=...)`` on each mesh, from the JAX model's weights on the
-    rank's shards and rows, with and without sequence parallelism: the
-    metrics, the values the checkpointed layer bodies kept, the
-    collectives' seconds of kinds ``"seq"`` and ``"qseq"`` and the query
-    rows attention was fed (:func:`_query_rows`) each step, and (rank 0) step
-    1's gradients after the exchange and the final weights, gathered
-    whole."""
+    """``name``'s 2 train steps on each mesh (:func:`sp_train_case`)."""
+    keys = (("loss", "ce", "grad_norm", "lr") if cfg.family == "encdec"
+            else meta["train_metrics"])
+    for m in meta["sp_meshes"]:
+        case = f"{name}-{m}"
+        batches = [_tree(ref, f"sp/train/{case}/batches/{i}/")
+                   for i in range(2)]
+        sp_train_case(out, ref, meta, meshes[m], rank, cfg,
+                      f"sp/params/{name}/", batches, f"sp/train/{case}",
+                      keys)
+
+
+def sp_train_case(out, ref, meta, mesh, rank, cfg, params: str,
+                  batches: list, prefix: str, keys, routes: bool = False):
+    """2 train steps under ``CodesignPlan(sharding="fsdp_tp",
+    seq_parallel=...)`` on ``mesh`` over ``batches``, from the JAX
+    model's weights (the entries under ``params``) on the rank's shards
+    and rows, with and without sequence parallelism (``<prefix>/sp`` /
+    ``nosp``): the metrics ``keys``, the values the checkpointed layer
+    bodies kept, the collectives' seconds of kinds ``"seq"`` and
+    ``"qseq"`` and the query rows attention was fed (:func:`_query_rows`)
+    each step, and (rank 0) step 1's gradients after the exchange and the
+    final weights, gathered whole; with ``routes`` the pairs each MoE
+    layer kept in step 1's forward (:func:`_kept_records`, a forward of
+    the loss under a ``RouteLog`` before the steps)."""
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import blocks
     from repro_torch.models import lm as lm_lib
@@ -1012,59 +1053,61 @@ def sp_train(out, ref, meta, meshes, rank, name, cfg):
     from repro_torch.weights import (jax_tree, param_names, param_shapes,
                                      param_spec, shard_params)
     from repro_torch.tree import map_leaves
-    keys = (("loss", "ce", "grad_norm", "lr") if cfg.family == "encdec"
-            else meta["train_metrics"])
     update = steps_lib.adamw_update
-    for m in meta["sp_meshes"]:
-        mesh, case = meshes[m], f"{name}-{m}"
-        batches = [_tree(ref, f"sp/train/{case}/batches/{i}/")
-                   for i in range(2)]
-        for sp in (True, False):
-            plan = _sp_plan("fsdp_tp", sp)
-            run = f"sp/train/{case}/{'sp' if sp else 'nosp'}"
-            lm = shard_params(_tree(ref, f"sp/params/{name}/"), cfg, mesh,
-                              device="cpu", plan=plan, trainable=True)
-            opt = adamw_init(lm.parameters())
-            step, _ = steps_lib.make_train_step(
-                build(cfg), mesh, plan, lr_peak=meta["train_lr"], warmup=1,
-                total_steps=10)
-            grads: list = []
+    for sp in (True, False):
+        plan = _sp_plan("fsdp_tp", sp)
+        run = f"{prefix}/{'sp' if sp else 'nosp'}"
+        lm = shard_params(_tree(ref, params), cfg, mesh, device="cpu",
+                          plan=plan, trainable=True)
+        if routes:
+            log = ffn.RouteLog()
+            ctx = dataclasses.replace(steps_lib.make_ctx(
+                build(cfg), mesh, plan, "ref", train=True), routes=log)
+            with torch.no_grad():
+                build(cfg).loss(lm, {k: _t(_rows(v, mesh))
+                                     for k, v in batches[0].items()}, ctx)
+            _kept_records(out, f"{run}/kept", log)
+        opt = adamw_init(lm.parameters())
+        step, _ = steps_lib.make_train_step(
+            build(cfg), mesh, plan, lr_peak=meta["train_lr"], warmup=1,
+            total_steps=10)
+        grads: list = []
 
-            def first(g, *a, **k):
-                if not grads:
-                    grads.extend(x.detach().clone() for x in g)
-                return update(g, *a, **k)
-            steps_lib.adamw_update = first
-            metrics, kept, seq_s, qseq_s = [], [], [], []
-            try:
-                for i, b in enumerate(batches):
-                    lm_lib.reset_kept()
-                    blocks.reset_query_rows()
-                    before = coll.spent()
-                    lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
-                                                 for k, v in b.items()})
-                    kinds = coll.spent_since(before)["kinds"]
-                    seq_s.append(kinds.get("seq", 0.0))
-                    qseq_s.append(kinds.get("qseq", 0.0))
-                    out[f"{run}/qrows/{i}"] = _query_rows()
-                    kept.append(lm_lib.kept_values())
-                    metrics.append([float(mt[k]) for k in keys])
-            finally:
-                steps_lib.adamw_update = update
-            out[f"{run}/metrics"] = np.asarray(metrics)
-            out[f"{run}/kept"] = np.asarray(kept)
-            out[f"{run}/seq_s"] = np.asarray(seq_s)
-            out[f"{run}/qseq_s"] = np.asarray(qseq_s)
-            shapes, names = param_shapes(cfg), param_names(lm)
-            whole = [unshard(g, param_spec(n, shapes[n], cfg, mesh, plan),
-                             mesh) for n, g in zip(names, grads)]
-            final = _gather_params(lm, cfg, mesh, plan)
-            if rank == 0:
-                tree = map_leaves(host_array, jax_tree(whole, names))
-                for path, v in flatten_with_paths(tree):
-                    out[f"{run}/grads/{path}"] = v
-                for path, v in flatten_with_paths(final):
-                    out[f"{run}/final/{path}"] = v
+        def first(g, *a, **k):
+            if not grads:
+                grads.extend(x.detach().clone() for x in g)
+            return update(g, *a, **k)
+        steps_lib.adamw_update = first
+        metrics, kept, seq_s, qseq_s = [], [], [], []
+        try:
+            for i, b in enumerate(batches):
+                lm_lib.reset_kept()
+                blocks.reset_query_rows()
+                before = coll.spent()
+                lm, opt, mt = step(lm, opt, {k: _t(_rows(v, mesh))
+                                             for k, v in b.items()})
+                kinds = coll.spent_since(before)["kinds"]
+                seq_s.append(kinds.get("seq", 0.0))
+                qseq_s.append(kinds.get("qseq", 0.0))
+                out[f"{run}/qrows/{i}"] = _query_rows()
+                kept.append(lm_lib.kept_values())
+                metrics.append([float(mt[k]) for k in keys])
+        finally:
+            steps_lib.adamw_update = update
+        out[f"{run}/metrics"] = np.asarray(metrics)
+        out[f"{run}/kept"] = np.asarray(kept)
+        out[f"{run}/seq_s"] = np.asarray(seq_s)
+        out[f"{run}/qseq_s"] = np.asarray(qseq_s)
+        shapes, names = param_shapes(cfg), param_names(lm)
+        whole = [unshard(g, param_spec(n, shapes[n], cfg, mesh, plan),
+                         mesh) for n, g in zip(names, grads)]
+        final = _gather_params(lm, cfg, mesh, plan)
+        if rank == 0:
+            tree = map_leaves(host_array, jax_tree(whole, names))
+            for path, v in flatten_with_paths(tree):
+                out[f"{run}/grads/{path}"] = v
+            for path, v in flatten_with_paths(final):
+                out[f"{run}/final/{path}"] = v
 
 
 def _query_rows() -> np.ndarray:
@@ -1086,6 +1129,36 @@ def seq_parallel(out, ref, meta, meshes, rank):
         sp_train(out, ref, meta, meshes, rank, name, cfg)
 
 
+def moe_sp_cfg(meta, case: str) -> ModelConfig:
+    """The smoke config of the JAX run's ``MOE_SP_CASES`` entry ``case``."""
+    arch, _, experts, cf = meta["moe_sp"][case]
+    cfg = get_smoke_config(arch)
+    over = {k: v for k, v in (("n_experts", experts),
+                              ("capacity_factor", cf)) if v is not None}
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **over))
+
+
+def moe_seq_parallel(out, ref, meta, meshes, rank):
+    """Each case of the JAX run's ``MOE_SP_CASES`` served at each prompt
+    length and trained for 2 steps, with and without sequence
+    parallelism (:func:`sp_serve_case`, :func:`sp_train_case`), with the
+    pairs each MoE layer's shard kept."""
+    keys = meta["train_metrics"]
+    for case, (_, m, _, _) in meta["moe_sp"].items():
+        cfg, mesh = moe_sp_cfg(meta, case), meshes[m]
+        params = f"msp/params/{case}/"
+        for S in meta["sp_prompts"]:
+            key = f"msp/serve/{case}-{S}"
+            sp_serve_case(out, ref, meta, mesh, cfg, params,
+                          {"tokens": ref[f"{key}/tokens"]}, key,
+                          routes=True)
+        batches = [_tree(ref, f"msp/train/{case}/batches/{i}/")
+                   for i in range(2)]
+        sp_train_case(out, ref, meta, mesh, rank, cfg, params, batches,
+                      f"msp/train/{case}", keys, routes=True)
+
+
 def main() -> None:
     job, rank, world, port, ref_path, out_dir = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -1095,7 +1168,8 @@ def main() -> None:
     os.nice(10)
     os.sched_setaffinity(0, {sorted(os.sched_getaffinity(0))[
         {"mesh": -1, "gpipe": -2, "moe_train": -4, "vlm": -5, "family": -6,
-         "family_train": -7, "seq_parallel": -8}.get(job, -3)
+         "family_train": -7, "seq_parallel": -8,
+         "moe_seq_parallel": -10}.get(job, -3)
         % len(os.sched_getaffinity(0))]})
     torch.set_num_threads(1)
     init_world("gloo", rank=rank, world_size=world,
@@ -1148,6 +1222,10 @@ def main() -> None:
         meshes = {n: make_mesh(s, ("data", "model"))
                   for n, s in MESHES.items()}
         seq_parallel(out, ref, meta, meshes, rank)
+    elif job == "moe_seq_parallel":
+        meshes = {n: make_mesh(s, ("data", "model"))
+                  for n, s in MESHES.items()}
+        moe_seq_parallel(out, ref, meta, meshes, rank)
     else:
         raise SystemExit(f"unknown job {job!r}")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

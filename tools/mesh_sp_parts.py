@@ -12,13 +12,19 @@ four gloo ranks (``MeshWorld``) ``phi3`` (``MESH_PHI3``'s layers),
 served at TP 4, each again with and without Megatron sequence
 parallelism (``mesh_tp_serve(sp_steps=...)``); ``train``, smollm-360m's
 (2, 2) trainer without the plan (``mesh_train``) and its steps under it
-(``mesh_sp_train``), both with the query split.  The phi3 KV staging
-under the digest is left out.  Prints every record as ``chip_smoke.py``
+(``mesh_sp_train``), both with the query split; ``mixtral``, mixtral at
+EP 4 (``MESH_MIXTRAL``) served, its MoE layer checked (entered from the
+ranks' sequence chunks too), and served again with and without the plan
+(``mesh_mixtral``); ``moe_train``, qwen3-moe's (2, 2) trainer without
+the plan (``mesh_moe_train``) and its steps under it (``mesh_sp_train``
+with ``MESH_MOE_SP_TRAIN``).  The phi3 KV staging under the digest is
+left out.  Prints every record as ``chip_smoke.py``
 does, each part's seconds, and fails as it fails.  Needs a CUDA card and
 ``nvcc``; imports nothing of JAX.
 """
 
-PARTS = ("flash_offset", "phi3", "mamba2", "smollm", "train")
+PARTS = ("flash_offset", "phi3", "mamba2", "smollm", "train", "mixtral",
+         "moe_train")
 
 import argparse
 import json
@@ -112,11 +118,31 @@ def main() -> int:
             t = time.monotonic()
             rec = cs.mesh_sp_train(torch, world, paths, nosp)
             records.append(rec)
-            cs.checked(rec, "training under sequence parallelism", (
-                "loss_ok", "grad_norm_ok", "leaf_norms_ok", "kept_ok",
-                "query_rows_ok", "seq_ok", "losses_ok", "same_ok",
-                "no_kernel_ok"))
+            cs.checked(rec, "training under sequence parallelism",
+                       cs.SP_TRAIN_CHECKS)
             cs.emit("part_time", of="sp train", seconds=time.monotonic() - t)
+        if "mixtral" in parts:
+            t = time.monotonic()
+            cs.mesh_mixtral(torch, world, tmp, paths, records, rng)
+            cs.emit("part_time", of="mixtral", seconds=time.monotonic() - t)
+        if "moe_train" in parts:
+            t = time.monotonic()
+            nosp = {}
+            rec = cs.mesh_moe_train(torch, world, tmp, paths, nosp)
+            records.append(rec)
+            cs.checked(rec, "qwen3-moe's training on the mesh", (
+                "loss_ok", "grad_norm_ok", "leaf_norms_ok", "losses_ok",
+                "same_ok", "no_kernel_ok", "failure_ok", "elastic_ok",
+                "elastic_step_ok", "verify_ok", "routes_ok"))
+            cs.emit("part_time", of="moe train", seconds=time.monotonic() - t)
+            t = time.monotonic()
+            rec = cs.mesh_sp_train(torch, world, paths, nosp,
+                                   cs.MESH_MOE_SP_TRAIN, "mesh_moe_sp_train")
+            records.append(rec)
+            cs.checked(rec, "qwen3-moe's training under sequence "
+                       "parallelism", cs.SP_TRAIN_CHECKS + ("routes_ok",))
+            cs.emit("part_time", of="moe sp train",
+                    seconds=time.monotonic() - t)
     finally:
         codes = world.close()
         shutil.rmtree(tmp, ignore_errors=True)
